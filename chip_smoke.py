@@ -1,0 +1,351 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (`mcquic_tpu_torch/`) once on one CUDA card.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with an NVIDIA H100 (sm_90a),
+nvcc and g++. It imports torch, numpy, the standard library and
+`mcquic_tpu_torch` only. The phases, each printed with its seconds as it
+ends:
+
+  1. environment: torch / CUDA / nvcc versions, the card, its power limit;
+  2. build: kernels K1 (csrc/vq_encode.cu) and K2 (csrc/thin_head.cu) with
+     nvcc and the rANS runtime with g++, all started together;
+  3. kernels against their plain versions on the card, fp32 with TF32 off,
+     at the main path's shapes, with CUDA-event times of the kernel, the
+     plain version and one library call computing the same function;
+  4. the main path at full width: the qp-2 zoo model compresses
+     assets/photo_768x512.png to a `.mcq` and restores it; bpp and PSNR are
+     held to the registered 0.1090 bpp / 25.15 dB, the codes and the restore
+     to the CPU plain path on a crop, and the kernels' launch counts show
+     that the path went through them;
+  5. the CLI round trip, `python -m mcquic_tpu_torch`, in a subprocess.
+
+Any failure ends the run with a non-zero exit and no result line. The last
+two lines are the kernel table as JSON and
+`{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
+"""
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PHOTO = ROOT / "assets" / "photo_768x512.png"
+QP = 2
+REGISTERED_BPP = 0.1090          # VERDICT.md / README.md, qp-2 on the photo
+REGISTERED_PSNR = 25.15
+BPP_RTOL = 0.01
+PSNR_ATOL = 0.1
+K1_NEAR_TIE_RTOL = 1e-5          # a code mismatch must be a near-tie at this scale
+K1_MAX_MISMATCH = 1e-3           # ... and mismatches at most 0.1 % of tokens
+K2_ATOL = 1e-4
+RESTORE_ATOL = 1e-3              # card vs CPU restore of the same codes, in [-1, 1]
+CODES_MIN_AGREEMENT = 0.99       # card vs CPU codes of a crop
+CLI_TIMEOUT = 300
+
+# H100 SXM peaks (NVIDIA data sheet; dense, 700 W): fp32 on the CUDA cores, HBM3
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+
+
+class Phase:
+    """Prints one line when a phase ends, with its seconds; raises through."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.start = time.perf_counter()
+        print(f"[{self.name}] ...", flush=True)
+        return self
+
+    def __exit__(self, kind, value, tb):
+        seconds = time.perf_counter() - self.start
+        state = "ok" if kind is None else f"FAILED ({kind.__name__}: {value})"
+        print(f"[{self.name}] {state} in {seconds:.2f} s", flush=True)
+        return False
+
+
+def bound(flops: float, nbytes: float):
+    """(least ms the card could take, what bounds it)."""
+    compute, memory = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(compute, memory) * 1e3, "operations" if compute >= memory else "bytes"
+
+
+def medianMs(torch, fn, warmup: int = 5, iters: int = 20) -> float:
+    """CUDA-event median of `iters` calls after `warmup`."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def psnr(a, b) -> float:
+    import numpy as np
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float(10 * np.log10(255.0 ** 2 / mse))
+
+
+def checkCodes(torch, tokens, codebook, got, want, label):
+    """K1 codes vs the plain version's: every mismatch must be a near-tie.
+
+    For token x with codes a (kernel) and b (plain), the squared distances
+    |x - c_a|^2 and |x - c_b|^2 are recomputed in fp64; they must agree to
+    K1_NEAR_TIE_RTOL of |x|^2 + max(|c_a|^2, |c_b|^2), the magnitude that
+    fp32 rounding acts on. Returns (mismatches, max |distance difference|)."""
+    got, want = got.long(), want.long()
+    bad = (got != want).nonzero(as_tuple=False)            # [N, 2] (group, token)
+    if bad.numel() == 0:
+        print(f"  {label}: all {got.numel()} codes identical", flush=True)
+        return 0, 0.0
+    g, t = bad[:, 0], bad[:, 1]
+    x = tokens[g, t].double()
+    ca, cb = codebook[g, got[g, t]].double(), codebook[g, want[g, t]].double()
+    da, db = ((x - ca) ** 2).sum(-1), ((x - cb) ** 2).sum(-1)
+    scale = (x * x).sum(-1) + torch.maximum((ca * ca).sum(-1), (cb * cb).sum(-1))
+    rel = ((da - db).abs() / scale).max().item()
+    n, total = bad.shape[0], got.numel()
+    print(f"  {label}: {n} of {total} codes differ, all near-ties (max rel gap {rel:.2e})"
+          if rel <= K1_NEAR_TIE_RTOL else f"  {label}: {n} codes differ, rel gap {rel:.2e}",
+          flush=True)
+    if rel > K1_NEAR_TIE_RTOL or n > K1_MAX_MISMATCH * total:
+        raise AssertionError(f"K1 {label}: {n} of {total} codes differ, max rel gap {rel:.2e}")
+    return n, (da - db).abs().max().item()
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card.",
+              file=sys.stderr)
+        return 2
+    if not (ROOT / "mcquic_tpu_torch" / "__init__.py").is_file() or not PHOTO.is_file():
+        print(f"chip_smoke: {ROOT} is not a checkout of the repository "
+              "(mcquic_tpu_torch/ or assets/ missing).", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+
+    from mcquic_tpu_torch.coding import rans
+    from mcquic_tpu_torch.container import File
+    from mcquic_tpu_torch.data.png import readPng, writePng
+    from mcquic_tpu_torch.demo import loadModel
+    from mcquic_tpu_torch.models.compressor import Compressor
+    from mcquic_tpu_torch.models.engine import CompressorEngine
+    from mcquic_tpu_torch.ops import subpixel_cuda, vq_cuda
+    from mcquic_tpu_torch.ops.subpixel_cuda import conv3x3SubpixelPlain, conv3x3SubpixelThin
+    from mcquic_tpu_torch.ops.vq import groupLatent, latentTokens, vqEncodePlain
+    from mcquic_tpu_torch.ops.vq_cuda import vqNearest
+    from mcquic_tpu_torch.utils import exactFp32
+    from mcquic_tpu_torch.utils.build import findNvcc
+
+    device = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+
+    with Phase("1 environment"):
+        print(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
+              f"CUDA {torch.version.cuda}, numpy {np.__version__}", flush=True)
+        print(f"  device {kind}, {torch.cuda.device_count()} visible, "
+              f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs", flush=True)
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=20, check=True).stdout.strip().splitlines()[0]
+        print(smi, flush=True)
+        nvcc = findNvcc()
+        version = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                                 timeout=60, check=True).stdout.strip().splitlines()[-1]
+        print(f"  nvcc {nvcc}: {version}", flush=True)
+
+    with Phase("2 build"):
+        def timed(name, fn):
+            start = time.perf_counter()
+            fn()
+            return name, time.perf_counter() - start
+        with ThreadPoolExecutor(3) as pool:
+            jobs = [pool.submit(timed, name, fn) for name, fn in
+                    (("K1 vq_encode.cu (nvcc)", vq_cuda.build),
+                     ("K2 thin_head.cu (nvcc)", subpixel_cuda.build),
+                     ("rANS mcquic_rans.cpp (g++)", rans.build))]
+            for job in jobs:
+                name, seconds = job.result()
+                print(f"  built {name} in {seconds:.2f} s", flush=True)
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    levels = [(2, 1536, 8192, 64), (2, 384, 2048, 64), (2, 96, 512, 64)]   # (m, T, k, d)
+    k1 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
+    k2 = {}
+    with Phase("3 kernels vs plain"), exactFp32(), torch.inference_mode():
+        print("  kernels: K1 vq_nearest (csrc/vq_encode.cu), K2 thin_head (csrc/thin_head.cu)",
+              flush=True)
+        for m, T, k, d in levels:
+            tokens = torch.randn((m, T, d), device=device, generator=gen)
+            codebook = torch.randn((m, k, d), device=device, generator=gen)
+            got, want = vqNearest(tokens, codebook), vqEncodePlain(tokens, codebook)
+            _, err = checkCodes(torch, tokens, codebook, got, want, f"K1 random (m,T,k,d)={m, T, k, d}")
+            ms = medianMs(torch, lambda: vqNearest(tokens, codebook))
+            plainMs = medianMs(torch, lambda: vqEncodePlain(tokens, codebook))
+            libMs = medianMs(torch, lambda: torch.cdist(tokens, codebook).argmin(-1))
+            flops = 2.0 * m * T * k * (d + 1)
+            nbytes = 4.0 * (m * T * d + m * k * d + m * T)
+            boundMs, k1["bound_by"] = bound(flops, nbytes)
+            print(f"  K1 (m,T,k,d)={m, T, k, d}: kernel {ms:.4f} ms, plain {plainMs:.4f} ms, "
+                  f"cdist+argmin {libMs:.4f} ms, bound {boundMs:.4f} ms", flush=True)
+            k1["ms"] += ms
+            k1["plain_ms"] += plainMs
+            k1["library_ms"] += libMs
+            k1["bound_ms"] += boundMs
+            k1["err"] = max(k1["err"], err)
+
+        x = torch.randn((1, 128, 256, 384), device=device, generator=gen)   # the photo's head input
+        w = torch.randn((12, 128, 3, 3), device=device, generator=gen) * 0.05
+        b = torch.randn((12,), device=device, generator=gen)
+        got, want = conv3x3SubpixelThin(x, w, b, 2), conv3x3SubpixelPlain(x, w, b, 2)
+        if tuple(got.shape) != (1, 3, 512, 768):
+            raise AssertionError(f"K2 output shape {tuple(got.shape)}")
+        k2["err"] = (got - want).abs().max().item()
+        print(f"  K2 random [1,128,256,384]: max abs diff {k2['err']:.3e}", flush=True)
+        if not k2["err"] <= K2_ATOL:
+            raise AssertionError(f"K2 differs from conv2d + pixel_shuffle by {k2['err']}")
+        k2["ms"] = medianMs(torch, lambda: conv3x3SubpixelThin(x, w, b, 2))
+        k2["plain_ms"] = medianMs(torch, lambda: conv3x3SubpixelPlain(x, w, b, 2))
+        k2["library_ms"] = medianMs(torch, lambda: torch.nn.functional.pixel_shuffle(
+            torch.nn.functional.conv2d(x, w, b, padding=1), 2))
+        k2["bound_ms"], k2["bound_by"] = bound(2.0 * 256 * 384 * 128 * 9 * 12 + 256 * 384 * 12,
+                                               4.0 * (x.numel() + w.numel() + 12 + got.numel()))
+        print(f"  K2 [1,128,256,384]: kernel {k2['ms']:.4f} ms, plain {k2['plain_ms']:.4f} ms, "
+              f"conv2d+pixel_shuffle {k2['library_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms",
+              flush=True)
+        torch.cuda.synchronize()
+
+    with Phase("4 main path"):
+        with tempfile.TemporaryDirectory() as tmp:
+            start = time.perf_counter()
+            engine = loadModel(qp=QP, device="cuda")
+            print(f"  loaded the qp-{QP} zoo model in {time.perf_counter() - start:.2f} s",
+                  flush=True)
+            img = readPng(PHOTO)
+            model = engine.model
+
+            # warm-up run, with hooks keeping the real inputs of K1 and K2
+            captured = {"q": [], "head": None}
+            hooks = [level._quantizationHead.register_forward_hook(
+                lambda mod, inp, out: captured["q"].append(out.clone()))
+                for level in model._quantizer._encoders]
+            hooks.append(model._decoder[6].register_forward_pre_hook(
+                lambda mod, inp: captured.__setitem__("head", inp[0].clone())))
+            engine.decompressImage(engine.compressImage(img))
+            for hook in hooks:
+                hook.remove()
+            with exactFp32(), torch.inference_mode():
+                for i, q in enumerate(captured["q"]):
+                    tokens = latentTokens(groupLatent(q, model.m))
+                    codebook = model._quantizer.codebook(i).contiguous()
+                    _, err = checkCodes(torch, tokens, codebook, vqNearest(tokens, codebook),
+                                        vqEncodePlain(tokens, codebook),
+                                        f"K1 photo level {i} {tuple(tokens.shape)}")
+                    k1["err"] = max(k1["err"], err)
+                head = model._decoder[6][0]
+                hx = captured["head"]
+                err = (conv3x3SubpixelThin(hx, head.weight, head.bias, 2)
+                       - conv3x3SubpixelPlain(hx, head.weight, head.bias, 2)).abs().max().item()
+                print(f"  K2 photo decoder head {tuple(hx.shape)}: max abs diff {err:.3e}",
+                      flush=True)
+                if not err <= K2_ATOL:
+                    raise AssertionError(f"K2 differs on the photo by {err}")
+                k2["err"] = max(k2["err"], err)
+            torch.cuda.synchronize()
+
+            # the main path, counted
+            vqNearest.launches = 0
+            conv3x3SubpixelThin.launches = 0
+            start = time.perf_counter()
+            file = engine.compressImage(img)
+            compressS = time.perf_counter() - start
+            mcq = Path(tmp) / "photo.mcq"
+            mcq.write_bytes(file.serialize())
+            start = time.perf_counter()
+            restored = engine.decompressImage(File.deserialize(mcq.read_bytes()))
+            restoreS = time.perf_counter() - start
+            launches = {"K1": vqNearest.launches, "K2": conv3x3SubpixelThin.launches}
+            print(f"  kernel launches on the main path: {launches}", flush=True)
+            if launches["K1"] < 1 or launches["K2"] < 1:
+                raise AssertionError(f"a kernel of the main path never ran: {launches}")
+
+            writePng(Path(tmp) / "restored.png", restored)
+            if not np.array_equal(readPng(Path(tmp) / "restored.png"), restored):
+                raise AssertionError("the written PNG does not read back")
+            if restored.shape != img.shape or restored.dtype != np.uint8:
+                raise AssertionError(f"restored {restored.shape} {restored.dtype}")
+            bpp, quality = file.BPP, psnr(img, restored)
+            print(f"  photo {img.shape[1]}x{img.shape[0]}: {bpp:.4f} bpp, PSNR {quality:.2f} dB, "
+                  f"{mcq.stat().st_size} bytes; compress {compressS * 1e3:.1f} ms, "
+                  f"restore {restoreS * 1e3:.1f} ms (host clock, .mcq I/O between)", flush=True)
+            if abs(bpp - REGISTERED_BPP) > BPP_RTOL * REGISTERED_BPP:
+                raise AssertionError(f"bpp {bpp} is not within 1 % of {REGISTERED_BPP}")
+            if abs(quality - REGISTERED_PSNR) > PSNR_ATOL:
+                raise AssertionError(f"PSNR {quality} is not within 0.1 dB of {REGISTERED_PSNR}")
+
+            # the card against the CPU plain path on a 128x128 crop
+            cpuModel = Compressor(model.channel, model.m, model.k)
+            cpuModel.load_state_dict(model.state_dict())
+            cpuEngine = CompressorEngine(cpuModel, qp=str(QP), device="cpu")
+            crop = img[192:320, 320:448]
+            cardCodes, cpuCodes = engine.encode(crop[None]), cpuEngine.encode(crop[None])
+            agreement = (sum(int((a == c).sum()) for a, c in zip(cardCodes, cpuCodes))
+                         / sum(a.size for a in cardCodes))
+            restoreDiff = float(np.abs(engine.decode(cpuCodes) - cpuEngine.decode(cpuCodes)).max())
+            print(f"  crop 128x128 card vs CPU: codes agree on {agreement:.4%}, restore of "
+                  f"the same codes differs by {restoreDiff:.2e}", flush=True)
+            if agreement < CODES_MIN_AGREEMENT or not restoreDiff <= RESTORE_ATOL:
+                raise AssertionError("the card disagrees with the CPU plain path")
+
+    with Phase("5 CLI round trip"):
+        with tempfile.TemporaryDirectory() as tmp:
+            out = Path(tmp)
+            for args in (["-qp", str(QP), str(PHOTO), str(out / "cli.mcq")],
+                         [str(out / "cli.mcq"), str(out / "cli.png")]):
+                proc = subprocess.run([sys.executable, "-m", "mcquic_tpu_torch", *args],
+                                      cwd=ROOT, capture_output=True, text=True,
+                                      timeout=CLI_TIMEOUT)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"CLI {args} exited {proc.returncode}:\n{proc.stderr}")
+            cliFile = File.deserialize((out / "cli.mcq").read_bytes())
+            cliQuality = psnr(img, readPng(out / "cli.png"))
+            print(f"  CLI: {cliFile.BPP:.4f} bpp, PSNR {cliQuality:.2f} dB, .mcq identical to "
+                  f"the in-process one: {(out / 'cli.mcq').read_bytes() == file.serialize()}",
+                  flush=True)
+            if (abs(cliFile.BPP - REGISTERED_BPP) > BPP_RTOL * REGISTERED_BPP
+                    or abs(cliQuality - REGISTERED_PSNR) > PSNR_ATOL):
+                raise AssertionError("the CLI round trip misses the registered bpp / PSNR")
+
+    kernels = [
+        {"name": "vq_nearest", "route": "cuda", "source": "mcquic_tpu_torch/csrc/vq_encode.cu",
+         "replaces": "mcquic_tpu/ops/vq_pallas.py:162", "launches": launches["K1"],
+         "max_abs_err": k1["err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},
+        {"name": "thin_head", "route": "cuda", "source": "mcquic_tpu_torch/csrc/thin_head.cu",
+         "replaces": "mcquic_tpu/ops/subpixel_pallas.py:118", "launches": launches["K2"],
+         "max_abs_err": k2["err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]},
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,66 @@
+"""Compress / restore by file suffix (counterpart of `mcquic_tpu/demo.py`,
+reference `mcquic/demo.py:45-77`): an image becomes a `.mcq`, a `.mcq`
+becomes a PNG. Models come from the bundled zoo (`assets/zoo/`, by `-qp`,
+sha256-checked) or from a local exported model file; nothing is downloaded.
+"""
+import logging
+from pathlib import Path
+
+from mcquic_tpu_torch.container import File
+from mcquic_tpu_torch.data.png import readPng, writePng
+from mcquic_tpu_torch.models.compressor import Compressor
+from mcquic_tpu_torch.models.engine import CompressorEngine
+from mcquic_tpu_torch.utils import resolveDevice, versionCheck
+from mcquic_tpu_torch.utils.convert import loadZoo, modelGeometry, modelsHash
+
+logger = logging.getLogger("mcquic_tpu_torch")
+ZOO_DIR = Path(__file__).resolve().parent.parent / "assets" / "zoo"
+
+
+def zooPath(qp: int) -> Path:
+    slot = f"qp_{qp}_msssim"
+    hashes = modelsHash()
+    if slot not in hashes:
+        raise RuntimeError(f"No model registered for slot `{slot}`; known: {sorted(hashes)}.")
+    path = ZOO_DIR / f"{slot}_{hashes[slot].lower()}.mcquic.npz"
+    if not path.exists():
+        raise RuntimeError(f"Zoo model {path} is not in the checkout (nothing is downloaded); "
+                           "pass --local with an exported model file.")
+    return path
+
+
+def loadModel(qp: int = None, local=None, device="cuda") -> CompressorEngine:
+    """A zoo slot (`qp`) or a local exported model -> an engine on `device`."""
+    device = resolveDevice(device)
+    path = Path(local) if local else zooPath(qp)
+    stateDict, meta = loadZoo(path, verify=not local)
+    versionCheck(meta["version"])
+    model = Compressor(**modelGeometry(meta))
+    model.load_state_dict(stateDict, strict=True)
+    return CompressorEngine(model, qp=str(meta.get("qp", qp if qp is not None else -1)),
+                            device=device)
+
+
+def main(inputPath, outputPath=None, qp: int = None, local=None, device="cuda") -> Path:
+    """Compress a PNG to `.mcq`, or restore a `.mcq` to PNG."""
+    inputPath = Path(inputPath)
+    if inputPath.suffix.lower() == ".mcq":
+        file = File.deserialize(inputPath.read_bytes())
+        if local is None and qp is None:
+            qp = int(file.FileHeader.QuantizationParameter)   # qp from the header
+        engine = loadModel(qp=qp, local=local, device=device)
+        restored = engine.decompressImage(file)
+        out = Path(outputPath) if outputPath else inputPath.with_suffix(".png")
+        if out.is_dir():
+            out = out / (inputPath.stem + ".png")
+        writePng(out, restored)
+        logger.info("Restored %s -> %s", inputPath, out)
+        return out
+    engine = loadModel(qp=qp, local=local, device=device)
+    file = engine.compressImage(readPng(inputPath))
+    out = Path(outputPath) if outputPath else inputPath.with_suffix(".mcq")
+    if out.is_dir():
+        out = out / (inputPath.stem + ".mcq")
+    out.write_bytes(file.serialize())
+    logger.info("Compressed %s -> %s (%.4f bpp)", inputPath, out, file.BPP)
+    return out

@@ -1,0 +1,68 @@
+"""The v1 `Compressor`, NCHW (reference `mcquic/modules/compressor.py:120-177`).
+
+Counterpart of `mcquic_tpu/models/compressor.py::Compressor.encode/decode`:
+an 8x-downsampling conv/GDN/attention encoder, the UMGM quantizer cascade
+with its six head stacks, and the mirrored pixel-shuffle decoder, whose
+final thin RGB head runs kernel K2 on CUDA.
+"""
+from typing import List, Sequence
+
+import torch
+from torch import nn
+
+from mcquic_tpu_torch.models.quantizer import UMGMQuantizer
+from mcquic_tpu_torch.nn import (AttentionBlock, ResidualBlock, ResidualBlockShuffle,
+                                 ResidualBlockWithStride, conv3x3, pixelShuffle3x3)
+
+
+def _v1Encoder(c: int) -> nn.Sequential:
+    """conv3x3/2, ResB, ResBStride/2, Attn, ResB, ResBStride/2, ResB."""
+    return nn.Sequential(conv3x3(3, c, 2), ResidualBlock(c), ResidualBlockWithStride(c, 2),
+                         AttentionBlock(c), ResidualBlock(c), ResidualBlockWithStride(c, 2),
+                         ResidualBlock(c))
+
+
+def _v1Decoder(c: int) -> nn.Sequential:
+    """Mirror of the encoder, ending in the thin RGB head pixelShuffle3x3(3, 2)."""
+    return nn.Sequential(ResidualBlock(c), ResidualBlockShuffle(c, 2), AttentionBlock(c),
+                         ResidualBlock(c), ResidualBlockShuffle(c, 2), ResidualBlock(c),
+                         pixelShuffle3x3(c, 3, 2))
+
+
+def _heads(c: int) -> dict:
+    return {
+        "latentStageEncoder": lambda: nn.Sequential(
+            ResidualBlockWithStride(c, 2), ResidualBlock(c), AttentionBlock(c)),
+        "quantizationHead": lambda: nn.Sequential(
+            ResidualBlock(c), AttentionBlock(c), conv3x3(c, c)),
+        "latentHead": lambda: nn.Sequential(
+            ResidualBlock(c), AttentionBlock(c), conv3x3(c, c)),
+        "dequantizationHead": lambda: nn.Sequential(
+            AttentionBlock(c), conv3x3(c, c), ResidualBlock(c)),
+        "sideHead": lambda: nn.Sequential(
+            AttentionBlock(c), conv3x3(c, c), ResidualBlock(c)),
+        "restoreHead": lambda: nn.Sequential(
+            AttentionBlock(c), ResidualBlock(c), ResidualBlockShuffle(c, 2)),
+    }
+
+
+class Compressor(nn.Module):
+    """v1 multi-codebook codec: channel, m groups, per-level codebook sizes k."""
+
+    def __init__(self, channel: int, m: int, k: Sequence[int]):
+        super().__init__()
+        self.channel = channel
+        self.m = m
+        self.k = list(k)
+        self._encoder = _v1Encoder(channel)
+        self._decoder = _v1Decoder(channel)
+        self._quantizer = UMGMQuantizer(channel, m, self.k, _heads(channel))
+
+    def encode(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """x [n, 3, H, W] in [-1, 1], H and W multiples of 2^(3 + levels)
+        -> per level codes [n, m, h, w] (compressor.py:79-88)."""
+        return self._quantizer.encode(self._encoder(x))
+
+    def decode(self, codes: Sequence[torch.Tensor]) -> torch.Tensor:
+        """codes -> restored [n, 3, H, W] (compressor.py:114-117)."""
+        return self._decoder(self._quantizer.decode(codes))

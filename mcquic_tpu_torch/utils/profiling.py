@@ -1,0 +1,79 @@
+"""Where the time of one image's compress and restore goes on the card.
+
+    python -m mcquic_tpu_torch.utils.profiling [-qp 2] [--image PATH] [--iters 10]
+
+Loads the zoo model, warms up, then reports for compress and restore:
+  * wall ms (host clock around a call that ends in synchronize; median),
+  * device busy ms: the sum of CUDA kernel and copy time that
+    torch.profiler records over one call, and the idle share
+    1 - busy / wall,
+  * the kernels that take the most device time.
+Needs a CUDA card; it prints the card's name and power limit first.
+"""
+import argparse
+import statistics
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from mcquic_tpu_torch.data.png import readPng
+
+PHOTO = Path(__file__).resolve().parent.parent.parent / "assets" / "photo_768x512.png"
+
+
+def _wallMs(fn, iters: int) -> float:
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    return statistics.median(times)
+
+
+def report(name: str, fn, iters: int, top: int):
+    wall = _wallMs(fn, iters)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    byName = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:            # kernels and copies on the card
+            total, count = byName.get(e.name, (0.0, 0))
+            byName[e.name] = (total + e.time_range.elapsed_us() / 1e3, count + 1)
+    busy = sum(total for total, _ in byName.values())
+    print(f"{name}: wall {wall:.3f} ms (median of {iters}), device busy {busy:.3f} ms, "
+          f"idle share {1 - busy / wall:.3f}")
+    for kernel, (total, count) in sorted(byName.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"  {total:9.3f} ms  {count:5d}x  {kernel[:110]}")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("-qp", type=int, default=2)
+    p.add_argument("--image", default=str(PHOTO))
+    p.add_argument("--iters", type=int, default=10)
+    p.add_argument("--top", type=int, default=12)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling needs a CUDA card")
+    from mcquic_tpu_torch.demo import loadModel
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=20).stdout.strip())
+    engine = loadModel(qp=args.qp, device="cuda")
+    img = readPng(args.image)
+    file = engine.compressImage(img)
+    engine.decompressImage(file)
+    print(f"{Path(args.image).name} {img.shape[1]}x{img.shape[0]}, qp {args.qp}: "
+          f"{file.BPP:.4f} bpp")
+    report("compress", lambda: engine.compressImage(img), args.iters, args.top)
+    report("restore", lambda: engine.decompressImage(file), args.iters, args.top)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,109 @@
+"""The PyTorch port needs torch, numpy and the standard library only.
+
+The machine with the card has none of the JAX package's other dependencies,
+so a subprocess blocks them (and the JAX package itself) with a
+`sys.meta_path` finder, then imports every module of `mcquic_tpu_torch` and
+`chip_smoke`, and runs the tiny model's PNG -> .mcq -> PNG round trip
+through `python -m mcquic_tpu_torch --device cpu`.
+"""
+import ast
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+
+from mcquic_tpu_torch.data.png import readPng, writePng
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "mcquic_tpu_torch"
+TINY = ROOT / "assets" / "tiny_demo_672919fb.mcquic.npz"
+BLOCKED = ["jax", "jaxlib", "flax", "optax", "msgpack", "PIL", "ml_dtypes", "yaml", "click",
+           "joblib", "mcquic_tpu"]
+
+GUARD = textwrap.dedent('''
+    import importlib, pkgutil, runpy, sys
+    BLOCKED = {blocked!r}
+
+    def blocked(name):
+        return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if blocked(name):
+                raise ImportError(f"{{name}} is not on the machine with the card")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    for name in [n for n in sys.modules if blocked(n)]:
+        del sys.modules[name]
+    sys.path.insert(0, {root!r})
+
+    import mcquic_tpu_torch
+    names = ["chip_smoke"] + [m.name for m in pkgutil.walk_packages(
+        mcquic_tpu_torch.__path__, "mcquic_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    print("imported", len(names), flush=True)
+    for argv in {runs!r}:
+        sys.argv = ["mcquic_tpu_torch", *argv]
+        try:
+            runpy.run_module("mcquic_tpu_torch", run_name="__main__", alter_sys=True)
+        except SystemExit as e:
+            if e.code:
+                raise
+    leaked = sorted(n for n in sys.modules if blocked(n))
+    assert not leaked, leaked
+    print("round trip ok", flush=True)
+''')
+
+
+def test_port_runs_without_the_jax_package_and_its_dependencies(tmp_path):
+    image = readPng(ROOT / "assets" / "photo_768x512.png")[150:230, 300:396]   # 80 x 96
+    writePng(tmp_path / "in.png", image)
+    runs = [["--device", "cpu", "--local", str(TINY), str(tmp_path / "in.png"),
+             str(tmp_path / "out.mcq")],
+            ["--device", "cpu", "--local", str(TINY), str(tmp_path / "out.mcq"),
+             str(tmp_path / "out.png")]]
+    script = GUARD.format(blocked=BLOCKED, root=str(ROOT), runs=runs)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "round trip ok" in proc.stdout
+    # the JAX package restores the file the guarded port wrote to the same image
+    from mcquic_tpu.container import File as JaxFile
+    from mcquic_tpu.demo import loadModel
+    restored = readPng(tmp_path / "out.png")
+    want = loadModel(local=str(TINY)).decompressImage(
+        JaxFile.deserialize((tmp_path / "out.mcq").read_bytes()))
+    assert restored.shape == image.shape
+    np.testing.assert_array_equal(restored, want)
+
+
+def _portFiles():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_port_imports_only_torch_numpy_and_the_standard_library():
+    allowed = {"torch", "numpy", "mcquic_tpu_torch"} | set(sys.stdlib_module_names)
+    found = {}
+    for path in _portFiles():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] not in allowed:
+                    found.setdefault(str(path.relative_to(ROOT)), []).append(name)
+    assert not found, found
+
+
+def test_port_never_uses_the_torch_extension_builder():
+    """The card machine's builds go through nvcc and ctypes (utils/build.py)."""
+    needle = "torch.utils." + "cpp_extension"
+    users = [str(p.relative_to(ROOT)) for p in _portFiles() if needle in p.read_text()]
+    assert not users, users

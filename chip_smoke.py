@@ -9,17 +9,26 @@ nvcc and g++. It imports torch, numpy, the standard library and
 ends:
 
   1. environment: torch / CUDA / nvcc versions, the card, its power limit;
-  2. build: kernels K1 (csrc/vq_encode.cu) and K2 (csrc/thin_head.cu) with
-     nvcc and the rANS runtime with g++, all started together;
+  2. build: kernels K1 (csrc/vq_encode.cu), K2 (csrc/thin_head.cu) and K3
+     (csrc/flash_attention.cu) with nvcc and the rANS runtime with g++, all
+     started together;
   3. kernels against their plain versions on the card, fp32 with TF32 off,
-     at the main path's shapes, with CUDA-event times of the kernel, the
+     at the main paths' shapes, with CUDA-event times of the kernel, the
      plain version and one library call computing the same function;
-  4. the main path at full width: the qp-2 zoo model compresses
+  4. the codec path at full width: the qp-2 zoo model compresses
      assets/photo_768x512.png to a `.mcq` and restores it; bpp and PSNR are
      held to the registered 0.1090 bpp / 25.15 dB, the codes and the restore
      to the CPU plain path on a crop, and the kernels' launch counts show
      that the path went through them;
-  5. the CLI round trip, `python -m mcquic_tpu_torch`, in a subprocess.
+  5. the CLI round trip, `python -m mcquic_tpu_torch`, in a subprocess;
+  6. generation at the full width and depth of gen_stage2_neonA: a seeded
+     checkpoint in the JAX package's format goes through the loader; greedy
+     `generate` for four classes with and without the KV cache must give the
+     same codes at all 9 levels, through K3 (depth x levels launches each);
+     K3 is held to its plain version on the q/k/v of every call; the card's
+     codes are held to the CPU plain path at depth 2; one Neon encode and
+     decode of a seeded 256x256 image runs K1, whose codes must equal the
+     plain version's; `python -m mcquic_tpu_torch generate` writes 4 PNGs.
 
 Any failure ends the run with a non-zero exit and no result line. The last
 two lines are the kernel table as JSON and
@@ -44,6 +53,11 @@ PSNR_ATOL = 0.1
 K1_NEAR_TIE_RTOL = 1e-5          # a code mismatch must be a near-tie at this scale
 K1_MAX_MISMATCH = 1e-3           # ... and mismatches at most 0.1 % of tokens
 K2_ATOL = 1e-4
+K3_ATOL = 1e-4
+GEN_CLASSES = [1, 207, 360, 980]
+GEN_CPU_DEPTH = 2                # depth of the card-vs-CPU comparison
+GEN_TIE_ATOL = 1e-3              # a card/CPU code mismatch must be a near-tie of the CPU logits
+GEN_LOGITS_ATOL = 1e-3           # card vs CPU teacher-forced logits, same codes
 RESTORE_ATOL = 1e-3              # card vs CPU restore of the same codes, in [-1, 1]
 CODES_MIN_AGREEMENT = 0.99       # card vs CPU codes of a crop
 CLI_TIMEOUT = 300
@@ -126,6 +140,30 @@ def checkCodes(torch, tokens, codebook, got, want, label):
     return n, (da - db).abs().max().item()
 
 
+def k3Check(torch, flashAttention, flashAttentionPlain, q, k, v, mask=None, scale=None) -> float:
+    """Max |K3 - plain| on one set of inputs; raises past K3_ATOL."""
+    err = (flashAttention(q, k, v, mask, scale)
+           - flashAttentionPlain(q, k, v, mask, scale)).abs().max().item()
+    if not err <= K3_ATOL:
+        raise AssertionError(f"K3 differs from its plain version by {err} at q {tuple(q.shape)}, "
+                             f"k {tuple(k.shape)}, mask {mask is not None}")
+    return err
+
+
+def teacherForcedLogits(model, condition, codes, level):
+    """The logits of `level` given the codes of the levels before it, through
+    the uncached, masked transformer."""
+    capPooled = model._condEmbed(condition)
+    scaffolds, former = [], None
+    for lv in range(level):
+        former = model.residual_forward(codes[lv], former, lv)
+        scaffolds.append(former)
+    seq = model._assembleSequence(scaffolds, capPooled, condition.shape[0])
+    prefix = seq.shape[1]
+    logits = model.transformer(seq, model._mask[:prefix, :prefix], capPooled, capPooled)
+    return logits[:, prefix - model.lengths[level]:]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -145,7 +183,14 @@ def main() -> int:
     from mcquic_tpu_torch.demo import loadModel
     from mcquic_tpu_torch.models.compressor import Compressor
     from mcquic_tpu_torch.models.engine import CompressorEngine
-    from mcquic_tpu_torch.ops import subpixel_cuda, vq_cuda
+    import mcquic_tpu_torch.models.generator as generatorModule
+    import mcquic_tpu_torch.models.quantizer as quantizerModule
+    from mcquic_tpu_torch.data.transforms import modelOutputToImage
+    from mcquic_tpu_torch.generate import GEN_STAGE2_NEON_A, loadGenerator, writeSeededGenerator
+    from mcquic_tpu_torch.models.generator import GeneratorV3SelfAttention, blockCausalMask
+    from mcquic_tpu_torch.ops import attention_cuda, subpixel_cuda, vq_cuda
+    from mcquic_tpu_torch.ops.attention import flashAttentionPlain
+    from mcquic_tpu_torch.ops.attention_cuda import flashAttention
     from mcquic_tpu_torch.ops.subpixel_cuda import conv3x3SubpixelPlain, conv3x3SubpixelThin
     from mcquic_tpu_torch.ops.vq import groupLatent, latentTokens, vqEncodePlain
     from mcquic_tpu_torch.ops.vq_cuda import vqNearest
@@ -174,10 +219,11 @@ def main() -> int:
             start = time.perf_counter()
             fn()
             return name, time.perf_counter() - start
-        with ThreadPoolExecutor(3) as pool:
+        with ThreadPoolExecutor(4) as pool:
             jobs = [pool.submit(timed, name, fn) for name, fn in
                     (("K1 vq_encode.cu (nvcc)", vq_cuda.build),
                      ("K2 thin_head.cu (nvcc)", subpixel_cuda.build),
+                     ("K3 flash_attention.cu (nvcc)", attention_cuda.build),
                      ("rANS mcquic_rans.cpp (g++)", rans.build))]
             for job in jobs:
                 name, seconds = job.result()
@@ -187,9 +233,15 @@ def main() -> int:
     levels = [(2, 1536, 8192, 64), (2, 384, 2048, 64), (2, 96, 512, 64)]   # (m, T, k, d)
     k1 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
     k2 = {}
+    k3 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0,
+          "flops": 0.0, "bytes": 0.0}
+    geometry = GEN_STAGE2_NEON_A
+    lengths = [s * s for s in sorted(geometry["size"])]         # 1, 1, 4, ..., 256: 426 tokens
+    heads, headDim = geometry["nHeads"], geometry["hiddenSize"] // geometry["nHeads"]
+    batch = len(GEN_CLASSES)
     with Phase("3 kernels vs plain"), exactFp32(), torch.inference_mode():
-        print("  kernels: K1 vq_nearest (csrc/vq_encode.cu), K2 thin_head (csrc/thin_head.cu)",
-              flush=True)
+        print("  kernels: K1 vq_nearest (csrc/vq_encode.cu), K2 thin_head (csrc/thin_head.cu), "
+              "K3 flash_attention (csrc/flash_attention.cu)", flush=True)
         for m, T, k, d in levels:
             tokens = torch.randn((m, T, d), device=device, generator=gen)
             codebook = torch.randn((m, k, d), device=device, generator=gen)
@@ -208,6 +260,23 @@ def main() -> int:
             k1["library_ms"] += libMs
             k1["bound_ms"] += boundMs
             k1["err"] = max(k1["err"], err)
+
+        # K1 at the Neon tokenizer's shapes (m 1, k 1024, d 8, T the 9 levels' grids)
+        neonK1 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+        neonCodebook = torch.randn((1, geometry["k"], 8), device=device, generator=gen)
+        for T in lengths:
+            tokens = torch.randn((1, T, 8), device=device, generator=gen)
+            checkCodes(torch, tokens, neonCodebook, vqNearest(tokens, neonCodebook),
+                       vqEncodePlain(tokens, neonCodebook), f"K1 random Neon (m,T,k,d)=(1, {T}, 1024, 8)")
+            neonK1["ms"] += medianMs(torch, lambda: vqNearest(tokens, neonCodebook))
+            neonK1["plain_ms"] += medianMs(torch, lambda: vqEncodePlain(tokens, neonCodebook))
+            neonK1["library_ms"] += medianMs(
+                torch, lambda: torch.cdist(tokens, neonCodebook).argmin(-1))
+            neonK1["bound_ms"] += bound(2.0 * T * geometry["k"] * 9,
+                                        4.0 * (T * 8 + geometry["k"] * 8 + T))[0]
+        print(f"  K1 Neon, 9 levels (T 1..256, k 1024, d 8): kernel {neonK1['ms']:.4f} ms, plain "
+              f"{neonK1['plain_ms']:.4f} ms, cdist+argmin {neonK1['library_ms']:.4f} ms, bound "
+              f"{neonK1['bound_ms']:.5f} ms", flush=True)
 
         x = torch.randn((1, 128, 256, 384), device=device, generator=gen)   # the photo's head input
         w = torch.randn((12, 128, 3, 3), device=device, generator=gen) * 0.05
@@ -228,6 +297,51 @@ def main() -> int:
         print(f"  K2 [1,128,256,384]: kernel {k2['ms']:.4f} ms, plain {k2['plain_ms']:.4f} ms, "
               f"conv2d+pixel_shuffle {k2['library_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms",
               flush=True)
+
+        # K3 at the generation path's shapes: each level's queries against the
+        # running prefix of a [B, 426, H, D] KV cache, then the uncached path's
+        # largest call, 426 tokens under the block-causal mask.
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        total = sum(lengths)
+        cache = torch.randn((2, batch, total, heads, headDim), device=device, generator=gen)
+        prefix = 0
+        for hw in lengths:
+            prefix += hw
+            q = torch.randn((batch, hw, heads, headDim), device=device, generator=gen)
+            k, v = cache[0, :, :prefix], cache[1, :, :prefix]
+            err = k3Check(torch, flashAttention, flashAttentionPlain, q, k, v)
+            ms = medianMs(torch, lambda: flashAttention(q, k, v))
+            plainMs = medianMs(torch, lambda: flashAttentionPlain(q, k, v))
+            libMs = medianMs(torch, lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                                                 v.transpose(1, 2)))
+            flops = 4.0 * batch * heads * hw * prefix * headDim
+            nbytes = 4.0 * batch * heads * headDim * (2 * hw + 2 * prefix)
+            boundMs, k3["bound_by"] = bound(flops, nbytes)
+            print(f"  K3 (B,H,Tq,Tk,D)={batch, heads, hw, prefix, headDim}: max abs diff {err:.3e}, "
+                  f"kernel {ms:.4f} ms, plain {plainMs:.4f} ms, SDPA {libMs:.4f} ms, "
+                  f"bound {boundMs:.5f} ms", flush=True)
+            for key, value in (("ms", ms), ("plain_ms", plainMs), ("library_ms", libMs),
+                               ("bound_ms", boundMs), ("flops", flops), ("bytes", nbytes)):
+                k3[key] += value
+            k3["err"] = max(k3["err"], err)
+        print(f"  K3 over the 9 levels: kernel {k3['ms']:.4f} ms, plain {k3['plain_ms']:.4f} ms, "
+              f"SDPA {k3['library_ms']:.4f} ms, bound {k3['bound_ms']:.5f} ms "
+              f"({k3['flops'] / 1e9:.3f} GFLOP, {k3['bytes'] / 1e6:.3f} MB)", flush=True)
+        q, k, v = (torch.randn((batch, total, heads, headDim), device=device, generator=gen)
+                   for _ in range(3))
+        mask = torch.from_numpy(blockCausalMask(lengths)).to(device, torch.int8)
+        err = k3Check(torch, flashAttention, flashAttentionPlain, q, k, v, mask)
+        k3["err"] = max(k3["err"], err)
+        maskBool = mask.bool()
+        masked = {"ms": medianMs(torch, lambda: flashAttention(q, k, v, mask)),
+                  "plain_ms": medianMs(torch, lambda: flashAttentionPlain(q, k, v, mask)),
+                  "library_ms": medianMs(torch, lambda: sdpa(
+                      q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=maskBool))}
+        masked["bound_ms"], _ = bound(4.0 * batch * heads * total * total * headDim,
+                                      4.0 * batch * heads * headDim * 4 * total + total * total)
+        print(f"  K3 masked (B,H,T,D)={batch, heads, total, headDim}: max abs diff {err:.3e}, "
+              f"kernel {masked['ms']:.4f} ms, plain {masked['plain_ms']:.4f} ms, "
+              f"SDPA {masked['library_ms']:.4f} ms, bound {masked['bound_ms']:.5f} ms", flush=True)
         torch.cuda.synchronize()
 
     with Phase("4 main path"):
@@ -331,6 +445,164 @@ def main() -> int:
                     or abs(cliQuality - REGISTERED_PSNR) > PSNR_ATOL):
                 raise AssertionError("the CLI round trip misses the registered bpp / PSNR")
 
+    with Phase("6 generation"), tempfile.TemporaryDirectory() as tmp:
+        start = time.perf_counter()
+        ckpt = writeSeededGenerator(Path(tmp) / "gen_stage2_neonA.ckpt.npz", geometry, seed=0)
+        model = loadGenerator(ckpt, device="cuda")
+        levels, depth = len(lengths), geometry["depth"]
+        print(f"  seeded gen_stage2_neonA checkpoint (configs/rd5/gen_stage2_neonA.yaml widths and "
+              f"depth), {ckpt.stat().st_size / 1e6:.1f} MB, written and loaded in "
+              f"{time.perf_counter() - start:.2f} s", flush=True)
+        condition = torch.tensor(GEN_CLASSES, device=device)
+
+        # warm-up of both modes, decode included, keeping the q/k/v of every K3 call
+        calls = []
+        original = generatorModule.flashAttention
+
+        def capture(q, k, v, mask=None, scale=None):
+            calls.append((q.clone(), k.clone(), v.clone(), mask, scale))
+            return original(q, k, v, mask, scale)
+
+        generatorModule.flashAttention = capture
+        try:
+            with exactFp32(), torch.inference_mode():
+                for kvCache in (True, False):
+                    model.generate(condition, kvCache=kvCache)
+        finally:
+            generatorModule.flashAttention = original
+        if len(calls) != 2 * depth * levels:
+            raise AssertionError(f"{len(calls)} attention calls, expected {2 * depth * levels}")
+        with torch.inference_mode():
+            for mode, kvCache in enumerate((True, False)):
+                worst = []
+                for level in range(levels):
+                    errs = [k3Check(torch, flashAttention, flashAttentionPlain, *calls[i])
+                            for i in range((mode * levels + level) * depth,
+                                           (mode * levels + level + 1) * depth)]
+                    worst.append(max(errs))
+                q, k = calls[(mode * levels + levels - 1) * depth][:2]
+                print(f"  K3 on the path's own q/k/v, kvCache={kvCache}, max abs diff by level: "
+                      + ", ".join(f"{e:.2e}" for e in worst)
+                      + f" (last level q {tuple(q.shape)}, k {tuple(k.shape)})", flush=True)
+                k3["err"] = max(k3["err"], max(worst))
+        del calls
+
+        # the generation path, counted, in both modes
+        results = {}
+        for kvCache in (True, False):
+            with exactFp32(), torch.inference_mode():
+                flashAttention.launches = 0
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                codes, restored = model.generate(condition, kvCache=kvCache)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - start
+                k3Launches = flashAttention.launches
+                finite = bool(torch.isfinite(restored).all())
+                images = modelOutputToImage(restored.permute(0, 2, 3, 1).cpu().numpy())
+            results[kvCache] = codes
+            print(f"  greedy generate, kvCache={kvCache}, classes {GEN_CLASSES}: {wall * 1e3:.1f} ms "
+                  f"(host clock, Neon decode included), K3 launches {k3Launches}, restored "
+                  f"{tuple(restored.shape)} finite {finite}, range [{restored.min().item():.3f}, "
+                  f"{restored.max().item():.3f}]", flush=True)
+            if k3Launches != depth * levels:
+                raise AssertionError(f"K3 launched {k3Launches} times, expected {depth * levels}")
+            if not finite or images.shape != (batch, 256, 256, 3):
+                raise AssertionError(f"restored images {images.shape}, finite {finite}")
+            if kvCache:
+                k3["launches"] = k3Launches
+        same = [torch.equal(a, b) for a, b in zip(results[True], results[False])]
+        print(f"  codes with and without the KV cache identical by level: {same}; "
+              f"{sum(c.numel() for c in results[True]) // batch} tokens per image", flush=True)
+        if not all(same) or len(same) != levels:
+            raise AssertionError("the KV-cached codes differ from the uncached ones")
+
+        # the card against the CPU plain path, same weights, depth cut to GEN_CPU_DEPTH
+        kept = {key: value for key, value in model.state_dict().items()
+                if not key.startswith("transformer.blocks.")
+                or int(key.split(".")[2]) < GEN_CPU_DEPTH}
+        small = dict(geometry, depth=GEN_CPU_DEPTH)
+        cardSmall, cpuSmall = GeneratorV3SelfAttention(**small), GeneratorV3SelfAttention(**small)
+        cardSmall.load_state_dict(kept)
+        cpuSmall.load_state_dict(kept)
+        cardSmall, cpuSmall = cardSmall.to(device).eval(), cpuSmall.eval()
+        with exactFp32(), torch.inference_mode():
+            cardCodes = [c.cpu() for c in cardSmall.sampleCodes(condition)]
+            cpuCodes = cpuSmall.sampleCodes(condition.cpu())
+            agree = (sum(int((a == b).sum()) for a, b in zip(cardCodes, cpuCodes))
+                     / sum(a.numel() for a in cardCodes))
+            firstDiff = next((lv for lv, (a, b) in enumerate(zip(cardCodes, cpuCodes))
+                              if not torch.equal(a, b)), None)
+            tie = 0.0
+            if firstDiff is not None:
+                cpuLogits = teacherForcedLogits(cpuSmall, condition.cpu(), cpuCodes, firstDiff)
+                a, b = cardCodes[firstDiff].reshape(batch, -1), cpuCodes[firstDiff].reshape(batch, -1)
+                gap = (cpuLogits.gather(-1, b[..., None].long())
+                       - cpuLogits.gather(-1, a[..., None].long()))
+                tie = gap.abs().max().item()
+            last = levels - 1
+            cardLogits = teacherForcedLogits(cardSmall, condition, [c.to(device) for c in cardCodes],
+                                             last).cpu()
+            cpuLogits = teacherForcedLogits(cpuSmall, condition.cpu(), cardCodes, last)
+            logitsDiff = (cardLogits - cpuLogits).abs().max().item()
+        print(f"  depth {GEN_CPU_DEPTH}, card vs CPU: greedy codes agree on {agree:.4%}"
+              + ("" if firstDiff is None else
+                 f", first differing level {firstDiff} (CPU logit gap there {tie:.2e})")
+              + f"; teacher-forced level-{last} logits on the card's codes differ by "
+                f"{logitsDiff:.2e}", flush=True)
+        if tie > GEN_TIE_ATOL or not logitsDiff <= GEN_LOGITS_ATOL:
+            raise AssertionError("the card's generation disagrees with the CPU plain path")
+        del cardSmall, cpuSmall
+
+        # Neon encode -> decode of a seeded 256x256 image: K1 at (m, k, d) = (1, 1024, 8)
+        neon = model.compressor
+        image = torch.from_numpy(np.random.default_rng(0).uniform(-1, 1, (1, 3, 256, 256))
+                                 .astype(np.float32)).to(device)
+        searches = []
+        originalEncode = quantizerModule.vqEncode
+
+        def captureSearch(x, codebook):
+            searches.append((latentTokens(x), codebook.float().contiguous()))
+            return originalEncode(x, codebook)
+
+        quantizerModule.vqEncode = captureSearch
+        try:
+            with exactFp32(), torch.inference_mode():
+                neon.encode(image)
+        finally:
+            quantizerModule.vqEncode = originalEncode
+        with exactFp32(), torch.inference_mode():
+            for level, (tokens, codebook) in enumerate(searches):
+                n, _ = checkCodes(torch, tokens, codebook, vqNearest(tokens, codebook),
+                                  vqEncodePlain(tokens, codebook),
+                                  f"K1 Neon level {level} {tuple(tokens.shape)} k {codebook.shape[1]}")
+                if n:
+                    raise AssertionError(f"K1 codes differ from the plain version at level {level}")
+            vqNearest.launches = 0
+            neonCodes = neon.encode(image)
+            neonLaunches = vqNearest.launches
+            neonRestored = neon.decode(neonCodes)
+        print(f"  Neon round trip of a seeded 256x256 image: K1 launches {neonLaunches}, codes "
+              f"{[tuple(c.shape[2:]) for c in neonCodes]}, restored {tuple(neonRestored.shape)} "
+              f"finite {bool(torch.isfinite(neonRestored).all())}", flush=True)
+        if neonLaunches != levels or not torch.isfinite(neonRestored).all():
+            raise AssertionError(f"Neon round trip: K1 launched {neonLaunches} times")
+
+        # the CLI, in a subprocess
+        out = Path(tmp) / "samples"
+        start = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "mcquic_tpu_torch", "generate", "-c",
+                               ",".join(map(str, GEN_CLASSES)), str(ckpt), str(out)],
+                              cwd=ROOT, capture_output=True, text=True, timeout=CLI_TIMEOUT)
+        if proc.returncode != 0:
+            raise RuntimeError(f"generate CLI exited {proc.returncode}:\n{proc.stderr}")
+        pngs = sorted(out.glob("*.png"))
+        shapes = [readPng(p).shape for p in pngs]
+        print(f"  CLI generate: {[p.name for p in pngs]}, {shapes} in "
+              f"{time.perf_counter() - start:.2f} s (process start and load included)", flush=True)
+        if len(pngs) != batch or any(sh != (256, 256, 3) for sh in shapes):
+            raise AssertionError("the generate CLI did not write 4 256x256 PNGs")
+
     kernels = [
         {"name": "vq_nearest", "route": "cuda", "source": "mcquic_tpu_torch/csrc/vq_encode.cu",
          "replaces": "mcquic_tpu/ops/vq_pallas.py:162", "launches": launches["K1"],
@@ -340,6 +612,11 @@ def main() -> int:
          "replaces": "mcquic_tpu/ops/subpixel_pallas.py:118", "launches": launches["K2"],
          "max_abs_err": k2["err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "mcquic_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "mcquic_tpu/ops/attention_pallas.py:144", "launches": k3["launches"],
+         "max_abs_err": k3["err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -33,3 +33,9 @@ def centerCropTo(x: np.ndarray, h: int, w: int) -> np.ndarray:
     top = (x.shape[-3] - h) // 2
     left = (x.shape[-2] - w) // 2
     return x[..., top:top + h, left:left + w, :]
+
+
+def modelOutputToImage(x: np.ndarray) -> np.ndarray:
+    """[-1, 1] float -> uint8, as the reference DeTransform (vision.py:135-146)
+    and `mcquic_tpu/data/transforms.py:62-64`."""
+    return np.clip(np.round((x * 0.5 + 0.5) * 255.0), 0, 255).astype(np.uint8)

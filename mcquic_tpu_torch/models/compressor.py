@@ -1,16 +1,22 @@
-"""The v1 `Compressor`, NCHW (reference `mcquic/modules/compressor.py:120-177`).
+"""The codecs, NCHW, inference half.
 
-Counterpart of `mcquic_tpu/models/compressor.py::Compressor.encode/decode`:
-an 8x-downsampling conv/GDN/attention encoder, the UMGM quantizer cascade
-with its six head stacks, and the mirrored pixel-shuffle decoder, whose
-final thin RGB head runs kernel K2 on CUDA.
+* `Compressor`, the v1 codec (reference `mcquic/modules/compressor.py:120-177`),
+  counterpart of `mcquic_tpu/models/compressor.py::Compressor.encode/decode`:
+  an 8x-downsampling conv/GDN/attention encoder, the UMGM quantizer cascade
+  with its six head stacks, and the mirrored pixel-shuffle decoder, whose
+  final thin RGB head runs kernel K2 on CUDA.
+* `Neon`, the v2 tokenizer (reference `compressor.py:181-233`), counterpart
+  of `mcquic_tpu/models/compressor.py:179-285`: an 8x-downsampling encoder
+  into an 8-channel latent, the `ResidualBackwardQuantizer`, and a mirrored
+  decoder ending in a plain conv3x3 to RGB. The JAX package's `useRemat`
+  only matters for training and is not taken.
 """
 from typing import List, Sequence
 
 import torch
 from torch import nn
 
-from mcquic_tpu_torch.models.quantizer import UMGMQuantizer
+from mcquic_tpu_torch.models.quantizer import ResidualBackwardQuantizer, UMGMQuantizer
 from mcquic_tpu_torch.nn import (AttentionBlock, ResidualBlock, ResidualBlockShuffle,
                                  ResidualBlockWithStride, conv3x3, pixelShuffle3x3)
 
@@ -65,4 +71,50 @@ class Compressor(nn.Module):
 
     def decode(self, codes: Sequence[torch.Tensor]) -> torch.Tensor:
         """codes -> restored [n, 3, H, W] (compressor.py:114-117)."""
+        return self._decoder(self._quantizer.decode(codes))
+
+
+def _neonEncoder(c: int) -> nn.Sequential:
+    """16 stages (compressor.py:186-207), three of them stride 2, ending in
+    the quantizer's 8-channel latent."""
+    latent = ResidualBackwardQuantizer.channel
+    return nn.Sequential(
+        conv3x3(3, c), AttentionBlock(c), ResidualBlock(c), ResidualBlock(c),
+        ResidualBlockWithStride(c, 2), ResidualBlock(c), ResidualBlockWithStride(c, 2),
+        ResidualBlock(c), ResidualBlockWithStride(c, 2), AttentionBlock(c),
+        ResidualBlock(c, 2 * c), ResidualBlock(2 * c), ResidualBlock(2 * c), ResidualBlock(2 * c),
+        ResidualBlock(2 * c, latent), AttentionBlock(latent))
+
+
+def _neonDecoder(c: int) -> nn.Sequential:
+    """17 stages (compressor.py:208-228), three pixel-shuffle upsamples, then
+    conv3x3 to RGB."""
+    latent = ResidualBackwardQuantizer.channel
+    return nn.Sequential(
+        AttentionBlock(latent), ResidualBlock(latent, 2 * c), ResidualBlock(2 * c),
+        ResidualBlock(2 * c), ResidualBlock(2 * c), ResidualBlock(2 * c, c), AttentionBlock(c),
+        ResidualBlock(c), ResidualBlockShuffle(c, 2), ResidualBlock(c), ResidualBlockShuffle(c, 2),
+        ResidualBlock(c), ResidualBlockShuffle(c, 2), ResidualBlock(c), ResidualBlock(c),
+        AttentionBlock(c), conv3x3(c, 3))
+
+
+class Neon(nn.Module):
+    """v2 tokenizer: channel, one shared codebook of k codewords, per-level
+    latent grids `size` (large -> small)."""
+
+    def __init__(self, channel: int, k: int, size: Sequence[int]):
+        super().__init__()
+        self.channel = channel
+        self.k = k
+        self.size = list(size)
+        self._encoder = _neonEncoder(channel)
+        self._decoder = _neonDecoder(channel)
+        self._quantizer = ResidualBackwardQuantizer(k, self.size)
+
+    def encode(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """x [n, 3, H, W] in [-1, 1] -> codes small -> large, each [n, 1, h, w]."""
+        return self._quantizer.encode(self._encoder(x))
+
+    def decode(self, codes: Sequence[torch.Tensor]) -> torch.Tensor:
+        """codes small -> large -> restored [n, 3, H, W]."""
         return self._decoder(self._quantizer.decode(codes))

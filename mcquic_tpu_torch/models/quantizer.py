@@ -1,4 +1,7 @@
-"""The v1 cascaded multi-codebook quantizer, inference half.
+"""The quantizers, inference half.
+
+`UMGMQuantizer` is the v1 cascade; `ResidualBackwardQuantizer` is the v2
+(Neon) multi-scale residual quantizer, described at its class.
 
 Counterpart of `mcquic_tpu/models/quantizer.py::UMGMQuantizer.encode/decode`
 (reference `mcquic/modules/quantizer.py:368-467`), named like the reference
@@ -16,6 +19,8 @@ from typing import Callable, List, Mapping, Sequence
 import torch
 from torch import nn
 
+from mcquic_tpu_torch.nn import (AttentionBlock, ResidualBlock, ResidualBlockShuffle,
+                                 ResidualBlockWithStride, conv1x1)
 from mcquic_tpu_torch.ops.vq import groupLatent, vqDequantizeCodes, vqEncode
 
 
@@ -104,3 +109,113 @@ class UMGMQuantizer(nn.Module):
 
     def frequencies(self) -> List[torch.Tensor]:
         return list(self._entropyCoder._freqEMA)
+
+
+# --------------------------------------------------------------------- v2
+
+
+def _sequentialEnc(ch: int, halving: bool) -> nn.Sequential:
+    """A level's encoder stack (`quantizer.py:317-341`): ResB(ch->4ch), Attn,
+    ResBStride/2 or ResB, conv1x1(4ch->ch) without bias."""
+    wide = 4 * ch
+    return nn.Sequential(ResidualBlock(ch, wide), AttentionBlock(wide),
+                         ResidualBlockWithStride(wide, 2) if halving else ResidualBlock(wide),
+                         conv1x1(wide, ch, bias=False))
+
+
+def _sequentialUp(ch: int, upsample: bool) -> nn.Sequential:
+    """A level's backward or decoder stack (`quantizer.py:344-367`):
+    conv1x1(ch->4ch) without bias, ResBShuffle*2 or ResB, Attn, ResB(4ch->ch)."""
+    wide = 4 * ch
+    return nn.Sequential(conv1x1(ch, wide, bias=False),
+                         ResidualBlockShuffle(wide, 2) if upsample else ResidualBlock(wide),
+                         AttentionBlock(wide), ResidualBlock(wide, ch))
+
+
+class _LevelQuantizer(nn.Module):
+    """Reference `_quantizers.L`: every level has a temperature; the one
+    codebook all levels share sits at level 0."""
+
+    def __init__(self, k: int = 0, d: int = 0):
+        super().__init__()
+        if k:
+            self._codebook = nn.Parameter(torch.zeros(1, k, d))
+        self._temperature = nn.Parameter(torch.ones(1, 1, 1, 1))
+
+
+class ResidualBackwardQuantizer(nn.Module):
+    """The v2 shared-codebook multi-scale residual quantizer, inference half
+    (`mcquic_tpu/models/quantizer.py:181-314`, reference
+    `mcquic/modules/quantizer.py:577-765`).
+
+    `size` lists each level's latent grid from large to small; every entry
+    equals or halves the previous one, and the list ends in an equal pair,
+    because the smallest level's backward is the identity. Modules sit in
+    construction order (large -> small) under the reference names
+    `_encoders.L`, `_backwards.L` (an `nn.Identity` at the last), `_decoders.L`
+    and `_quantizers.L`; codes and `_entropyCoder._freqEMA.L` run small ->
+    large. Codes are `[n, 1, h, w]`; the nearest-codeword search is
+    `ops/vq.py::vqEncode` (kernel K1 on CUDA), d = `channel` = 8.
+    """
+
+    channel = 8
+
+    def __init__(self, k: int, size: Sequence[int]):
+        super().__init__()
+        self.k = k
+        self.size = list(size)
+        L = len(self.size)
+        if L >= 2 and self.size[-1] != self.size[-2]:
+            raise ValueError(f"size {tuple(self.size)} must end with an equal pair (e.g. ...,16,16): "
+                             "the smallest level's backward is identity, so size[-1] must equal "
+                             "size[-2]")
+        ch = self.channel
+        encoders, backwards, decoders = [], [], []
+        lastSize = self.size[0] * 2
+        for i, thisSize in enumerate(self.size):
+            if thisSize not in (lastSize, lastSize // 2):
+                raise ValueError("The given size sequence does not half or equal from left to right.")
+            halving = thisSize == lastSize // 2
+            encoders.append(_sequentialEnc(ch, halving))
+            backwards.append(_sequentialUp(ch, halving) if i < L - 1 else nn.Identity())
+            decoders.append(_sequentialUp(ch, halving))
+            lastSize = thisSize
+        self._encoders = nn.ModuleList(encoders)
+        self._backwards = nn.ModuleList(backwards)
+        self._decoders = nn.ModuleList(decoders)
+        self._quantizers = nn.ModuleList([_LevelQuantizer(k, ch)] +
+                                         [_LevelQuantizer() for _ in range(L - 1)])
+        self._entropyCoder = _EntropyCoderState(1, [k] * L)
+
+    @property
+    def codebook(self) -> torch.Tensor:
+        return self._quantizers[0]._codebook
+
+    def encode(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """x [n, 8, h, w] -> codes small -> large, each [n, 1, h_l, w_l]
+        (quantizer.py:676-693): top-down residual peeling."""
+        latents = []
+        for enc in self._encoders:
+            x = enc(x)
+            latents.append(x)
+        codes = []
+        current = torch.zeros_like(latents[-1])
+        for i in reversed(range(len(self.size))):
+            code = vqEncode(groupLatent(latents[i] - current, 1), self.codebook)
+            codes.append(code)
+            current = self._backwards[i](vqDequantizeCodes(code, self.codebook))
+        return codes
+
+    def residual_forward(self, code: torch.Tensor, formerLevel, level: int) -> torch.Tensor:
+        """One decode step (quantizer.py:705-712); level 0 is the smallest."""
+        quantized = vqDequantizeCodes(code, self.codebook)
+        if formerLevel is not None:
+            quantized = quantized + formerLevel
+        return self._decoders[len(self.size) - 1 - level](quantized)
+
+    def decode(self, codes: Sequence[torch.Tensor]) -> torch.Tensor:
+        """codes small -> large -> latent [n, 8, H, W] (quantizer.py:695-703)."""
+        formerLevel = None
+        for level, code in enumerate(codes):
+            formerLevel = self.residual_forward(code, formerLevel, level)
+        return formerLevel

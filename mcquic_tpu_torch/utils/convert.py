@@ -1,12 +1,19 @@
 """Weights of the JAX package -> the port's state dict, and the zoo loader.
 
-The port's modules carry the reference McQuic (PyTorch) names, so this is
-the inverse of `mcquic_tpu/utils/convert.py::buildCompressorMap`, which maps
-those names onto the flax tree. Transforms:
-  * conv kernels HWIO -> OIHW;
+The port's codecs carry the reference McQuic (PyTorch) names, so their maps
+are the inverses of `mcquic_tpu/utils/convert.py::buildCompressorMap` (v1)
+and `buildNeonMap` (Neon), which map those names onto the flax tree. The
+generator has no reference names to keep: its torch keys are the flax path
+with dots (`transformer/block3/attention/wq` -> `transformer.blocks.3.attention.wq`).
+Transforms:
+  * conv kernels HWIO -> OIHW; dense kernels [in, out] -> [out, in];
+    flax LayerNorm `scale` -> torch `weight`;
   * GDN gamma [1, in, out] -> [out, in] (beta and gamma stay in reparam space);
-  * temperature [m] -> [m, 1, 1, 1]; codebooks [m, k, d] as they are;
-  * `coder/_quantizer/freqEMA{L}` -> `_quantizer._entropyCoder._freqEMA.{L}`.
+  * v1 temperature [m] -> [m, 1, 1, 1]; codebooks [m, k, d] as they are;
+  * `coder/_quantizer/freqEMA{L}` -> `_quantizer._entropyCoder._freqEMA.{L}`;
+  * Neon's stacked temperature [L, 1] (row 0 = smallest level) -> one
+    [1, 1, 1, 1] per reference level `_quantizers.{L-1-row}`, and its stacked
+    freqEMA [L, 1, k] -> `_entropyCoder._freqEMA.{row}`.
 
 Zoo files (`train/saver.py` format) are npz archives of the flattened flax
 tree, '/'-joined, where bf16 leaves are stored as their uint16 bits under
@@ -14,7 +21,7 @@ tree, '/'-joined, where bf16 leaves are stored as their uint16 bits under
 """
 import json
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +48,27 @@ def _same(a):
     return a
 
 
+def _dense(w):
+    return np.transpose(w, (1, 0))              # [in, out] -> [out, in]
+
+
+class _Row:
+    """Row i of a stacked flax leaf, as a torch value of `shape`; a flax row
+    is `rowShape` (the inverse, for writing the stacked leaf back)."""
+
+    def __init__(self, i: int, shape, rowShape):
+        self.i, self.shape, self.rowShape = i, shape, rowShape
+
+    def __call__(self, a):
+        return np.asarray(a)[self.i].reshape(self.shape)
+
+
+# flax leaf from a torch value, for the transforms the generator's map uses
+# besides _Row
+_INVERSE = {_conv: lambda w: np.transpose(w, (2, 3, 1, 0)), _dense: _dense,
+            _gamma: lambda g: np.transpose(g, (1, 0))[None], _same: _same}
+
+
 class _Map:
     """torch key -> (flax key, transform), built in the port's module order."""
 
@@ -51,18 +79,30 @@ class _Map:
         assert torchKey not in self.entries, torchKey
         self.entries[torchKey] = ("/".join(flaxPath), fn)
 
-    def conv(self, torchPrefix: str, flaxPrefix: Tuple[str, ...]):
+    def conv(self, torchPrefix: str, flaxPrefix: Tuple[str, ...], bias: bool = True):
         # the JAX package's conv modules wrap an inner nn.Conv named Conv_0
         self.add(f"{torchPrefix}.weight", (*flaxPrefix, "Conv_0", "kernel"), _conv)
-        self.add(f"{torchPrefix}.bias", (*flaxPrefix, "Conv_0", "bias"))
+        if bias:
+            self.add(f"{torchPrefix}.bias", (*flaxPrefix, "Conv_0", "bias"))
+
+    def dense(self, torchPrefix: str, flaxPrefix: Tuple[str, ...], bias: bool = True):
+        self.add(f"{torchPrefix}.weight", (*flaxPrefix, "kernel"), _dense)
+        if bias:
+            self.add(f"{torchPrefix}.bias", (*flaxPrefix, "bias"))
+
+    def layerNorm(self, torchPrefix: str, flaxPrefix: Tuple[str, ...]):
+        self.add(f"{torchPrefix}.weight", (*flaxPrefix, "scale"))
+        self.add(f"{torchPrefix}.bias", (*flaxPrefix, "bias"))
 
     def gdn(self, torchPrefix: str, flaxPrefix: Tuple[str, ...]):
         self.add(f"{torchPrefix}.beta", (*flaxPrefix, "beta"))
         self.add(f"{torchPrefix}.gamma", (*flaxPrefix, "gamma"), _gamma)
 
-    def residualBlock(self, t: str, f: Tuple[str, ...]):
+    def residualBlock(self, t: str, f: Tuple[str, ...], skip: bool = False):
         self.conv(f"{t}._branch.1", (*f, "Conv_0"))
         self.conv(f"{t}._branch.3", (*f, "Conv_1"))
+        if skip:                        # conv1x1 where the block changes width
+            self.conv(f"{t}._skip", (*f, "Conv_2"))
 
     def residualBlockStride(self, t: str, f: Tuple[str, ...]):
         self.conv(f"{t}._branch.1", (*f, "Conv_0"))
@@ -143,7 +183,125 @@ def fromJaxParams(flat: Dict[str, np.ndarray], levels: int = None) -> Dict[str, 
     state dict. Missing or unused keys raise."""
     if levels is None:
         levels = sum(1 for key in flat if key.startswith("params/_quantizer/codebook"))
-    mp = compressorMap(levels)
+    return _applyMap(compressorMap(levels), flat)
+
+
+def neonMap(halving: Sequence[bool], t: str = "", f: Tuple[str, ...] = ("params",),
+            coder: Tuple[str, ...] = ("coder",)) -> _Map:
+    """The `Neon` tokenizer's name map (the inverse of the JAX package's
+    `buildNeonMap` plus the stacked temperature and freqEMA of its
+    `convertNeon`). `halving[i]` says whether construction level i (large ->
+    small) halves its grid. Torch keys get prefix `t`, flax paths `f` and
+    `coder`."""
+    mp = _Map()
+    e = (*f, "_encoder")
+    mp.conv(f"{t}_encoder.0", (*e, "Conv_0"))
+    for fi, ti in enumerate([1, 9, 15]):
+        mp.attentionBlock(f"{t}_encoder.{ti}", (*e, f"AttentionBlock_{fi}"))
+    for fi, ti in enumerate([2, 3, 5, 7, 10, 11, 12, 13, 14]):
+        mp.residualBlock(f"{t}_encoder.{ti}", (*e, f"ResidualBlock_{fi}"), skip=ti in (10, 14))
+    for fi, ti in enumerate([4, 6, 8]):
+        mp.residualBlockStride(f"{t}_encoder.{ti}", (*e, f"ResidualBlockWithStride_{fi}"))
+    d = (*f, "_decoder")
+    for fi, ti in enumerate([0, 6, 15]):
+        mp.attentionBlock(f"{t}_decoder.{ti}", (*d, f"AttentionBlock_{fi}"))
+    for fi, ti in enumerate([1, 2, 3, 4, 5, 7, 9, 11, 13, 14]):
+        mp.residualBlock(f"{t}_decoder.{ti}", (*d, f"ResidualBlock_{fi}"), skip=ti in (1, 5))
+    for fi, ti in enumerate([8, 10, 12]):
+        mp.residualBlockShuffle(f"{t}_decoder.{ti}", (*d, f"ResidualBlockShuffle_{fi}"))
+    mp.conv(f"{t}_decoder.16", (*d, "Conv_0"))
+
+    q, tq, L = (*f, "_quantizer"), f"{t}_quantizer", len(halving)
+    mp.add(f"{tq}._quantizers.0._codebook", (*q, "codebook"))
+    for i in range(L):
+        mp.add(f"{tq}._quantizers.{i}._temperature", (*q, "temperature"),
+               _Row(L - 1 - i, (1, 1, 1, 1), (1,)))
+        mp.add(f"{tq}._entropyCoder._freqEMA.{i}", (*coder, "_quantizer", "freqEMA"),
+               _Row(i, (1, -1), (1, -1)))
+
+    def upStack(torchBase, flaxBase, halves):
+        mp.conv(f"{torchBase}.0", (*flaxBase, "Conv_0"), bias=False)
+        if halves:
+            mp.residualBlockShuffle(f"{torchBase}.1", (*flaxBase, "ResidualBlockShuffle_0"))
+        else:
+            mp.residualBlock(f"{torchBase}.1", (*flaxBase, "ResidualBlock_0"))
+        mp.attentionBlock(f"{torchBase}.2", (*flaxBase, "AttentionBlock_0"))
+        mp.residualBlock(f"{torchBase}.3", (*flaxBase, f"ResidualBlock_{0 if halves else 1}"),
+                         skip=True)
+
+    for i, halves in enumerate(halving):
+        enc, te = (*q, f"_encoders_{i}"), f"{tq}._encoders.{i}"
+        mp.residualBlock(f"{te}.0", (*enc, "ResidualBlock_0"), skip=True)
+        mp.attentionBlock(f"{te}.1", (*enc, "AttentionBlock_0"))
+        if halves:
+            mp.residualBlockStride(f"{te}.2", (*enc, "ResidualBlockWithStride_0"))
+        else:
+            mp.residualBlock(f"{te}.2", (*enc, "ResidualBlock_1"))
+        mp.conv(f"{te}.3", (*enc, "Conv_0"), bias=False)
+        if i < L - 1:
+            upStack(f"{tq}._backwards.{i}", (*q, f"_backwards_{i}"), halves)
+        upStack(f"{tq}._decoders.{i}", (*q, f"_decoders_{i}"), halves)
+    return mp
+
+
+def halvingOf(size: Sequence[int]) -> List[bool]:
+    """Per construction level, whether its grid halves the previous one."""
+    last, out = size[0] * 2, []
+    for s in size:
+        out.append(s == last // 2)
+        last = s
+    return out
+
+
+RMS_NORMS = ("attentionNorm", "attentionNorm1", "ffnNorm", "ffnNorm1", "attentionYNorm")
+
+
+def generatorMap(halving: Sequence[bool], depth: int, useAda: bool = True,
+                 qkNorm: bool = True) -> _Map:
+    """`GeneratorV3SelfAttention` (and its NoAda variant): the flax tree with
+    the frozen Neon under `compressor`. The generator's own scaffold decoder
+    at construction level 0 (the largest) never runs and has no weights."""
+    mp = neonMap(halving, t="compressor.", f=("params", "compressor"),
+                 coder=("coder", "compressor"))
+    p = ("params",)
+    for name in ("classEmbed", "scaffoldCodebook", "firstLevelPosEmbed", "levelEmbed"):
+        mp.add(name, (*p, name))
+    mp.layerNorm("capToFirstNorm", (*p, "capToFirstNorm"))
+    mp.dense("capToFirst", (*p, "capToFirst"))
+    for i, halves in enumerate(halving):
+        if i > 0:
+            mp.conv(f"_decoders.{i}.0" if halves else f"_decoders.{i}", (*p, f"_decoders_{i}"))
+    tr = (*p, "transformer")
+    mp.layerNorm("transformer.tokenNorm", (*tr, "tokenNorm"))
+    mp.dense("transformer.tokenEmbed", (*tr, "tokenEmbed"))
+    mp.add("transformer.posEmbed", (*tr, "posEmbed"))
+    for name in ("capNorm", "capCondNorm"):
+        mp.layerNorm(f"transformer.{name}", (*tr, name))
+    for name in ("capEmbed", "capCondEmbed"):
+        mp.dense(f"transformer.{name}", (*tr, name))
+    for b in range(depth):
+        tb, fb = f"transformer.blocks.{b}", (*tr, f"block{b}")
+        for name in RMS_NORMS:
+            mp.add(f"{tb}.{name}.scale", (*fb, name, "scale"))
+        if useAda:
+            mp.dense(f"{tb}.adaLN", (*fb, "adaLN"))
+        at, fa = f"{tb}.attention", (*fb, "attention")
+        for name in ("wq", "wk", "wv", "wo", "wkY", "wvY"):
+            mp.dense(f"{at}.{name}", (*fa, name), bias=False)
+        mp.add(f"{at}.gate", (*fa, "gate"))
+        if qkNorm:
+            for name in ("qNorm", "kNorm", "kyNorm"):
+                mp.layerNorm(f"{at}.{name}", (*fa, name))
+        for name in ("w1", "w2", "w3"):
+            mp.dense(f"{tb}.ffn.{name}", (*fb, "ffn", name), bias=False)
+    if useAda:
+        mp.dense("transformer.finalAdaLN", (*tr, "finalAdaLN"))
+    mp.dense("transformer.finalLinear", (*tr, "finalLinear"))
+    return mp
+
+
+def _applyMap(mp: _Map, flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Every torch key of the map from `flat`; missing or unused keys raise."""
     missing = [fk for fk, _ in mp.entries.values() if fk not in flat]
     unused = sorted(set(flat) - {fk for fk, _ in mp.entries.values()})
     if missing or unused:
@@ -151,6 +309,42 @@ def fromJaxParams(flat: Dict[str, np.ndarray], levels: int = None) -> Dict[str, 
                        f"{len(unused)} not used (e.g. {unused[:3]})")
     return {tk: torch.from_numpy(np.array(fn(np.asarray(flat[fk])), copy=True))
             for tk, (fk, fn) in mp.entries.items()}
+
+
+def generatorGeometry(flat: Dict[str, np.ndarray]) -> dict:
+    """What the name map needs, read off a generator's flat params:
+    halving per level, depth, adaLN and qk-norm."""
+    L = flat["params/levelEmbed"].shape[0]
+    enc = "params/compressor/_quantizer/_encoders_{}/ResidualBlockWithStride_0/Conv_0/Conv_0/kernel"
+    blocks = {key.split("/")[2] for key in flat if key.startswith("params/transformer/block")}
+    return {"halving": [enc.format(i) in flat for i in range(L)], "depth": len(blocks),
+            "useAda": "params/transformer/finalAdaLN/kernel" in flat,
+            "qkNorm": "params/transformer/block0/attention/qNorm/scale" in flat}
+
+
+def fromJaxGeneratorParams(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """A generator's flattened flax variables (`params/...`, `coder/...`) ->
+    the port's `GeneratorV3SelfAttention` state dict. Missing or unused keys
+    raise."""
+    return _applyMap(generatorMap(**generatorGeometry(flat)), flat)
+
+
+def toJaxGeneratorParams(stateDict: Dict[str, torch.Tensor], halving: Sequence[bool],
+                         depth: int, useAda: bool = True,
+                         qkNorm: bool = True) -> Dict[str, np.ndarray]:
+    """The inverse of `fromJaxGeneratorParams`: the port's generator state
+    dict -> flat flax variables, for writing a checkpoint in the JAX
+    package's format (`writeExport`)."""
+    flat, rows = {}, {}
+    for tk, (fk, fn) in generatorMap(halving, depth, useAda, qkNorm).entries.items():
+        value = stateDict[tk].detach().cpu().numpy()
+        if isinstance(fn, _Row):
+            rows.setdefault(fk, {})[fn.i] = value.reshape(fn.rowShape)
+        else:
+            flat[fk] = _INVERSE[fn](value)
+    for fk, byRow in rows.items():
+        flat[fk] = np.stack([byRow[i] for i in range(len(byRow))])
+    return flat
 
 
 def bf16ToFloat32(u16: np.ndarray) -> np.ndarray:
@@ -173,6 +367,18 @@ def readExport(path) -> Tuple[Dict[str, np.ndarray], dict]:
     if not metaPath.exists():
         raise RuntimeError(f"Model file {path} lacks its metadata sidecar {metaPath.name}.")
     return flat, json.loads(metaPath.read_text())
+
+
+def writeExport(path, flat: Dict[str, np.ndarray], meta: dict) -> Path:
+    """Flat arrays ('/'-joined keys) -> an npz and its json sidecar, the
+    format `readExport` and the JAX package's `train/saver.py::loadTree`
+    read."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as fp:
+        np.savez(fp, **flat)
+    path.with_suffix(".json").write_text(json.dumps(meta))
+    return path
 
 
 def modelsHash() -> Dict[str, str]:

@@ -1,8 +1,15 @@
-"""Where the time of one image's compress and restore goes on the card.
+"""Where the time goes on the card.
 
     python -m mcquic_tpu_torch.utils.profiling [-qp 2] [--image PATH] [--iters 10]
+    python -m mcquic_tpu_torch.utils.profiling --mode generate [--checkpoint PATH]
+                                               [--classes 1,207,360,980] [--iters 10]
 
-Loads the zoo model, warms up, then reports for compress and restore:
+The codec mode loads the zoo model and reports compress and restore of one
+image. The generate mode loads a generator checkpoint, or, without one,
+writes a seeded gen_stage2_neonA checkpoint (`generate.writeSeededGenerator`)
+to a temporary directory, and reports greedy sampling of the given classes:
+the whole `generate` with and without the KV cache, its codes alone and
+Neon's decode alone. For each call it reports:
   * wall ms (host clock around a call that ends in synchronize; median),
   * device busy ms: the sum of CUDA kernel and copy time that
     torch.profiler records over one call, and the idle share
@@ -55,6 +62,9 @@ def report(name: str, fn, iters: int, top: int):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--mode", choices=("codec", "generate"), default="codec")
+    p.add_argument("--checkpoint", default=None, help="generator checkpoint (generate mode)")
+    p.add_argument("--classes", default="1,207,360,980", help="class ids (generate mode)")
     p.add_argument("-qp", type=int, default=2)
     p.add_argument("--image", default=str(PHOTO))
     p.add_argument("--iters", type=int, default=10)
@@ -62,9 +72,11 @@ def main(argv=None):
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA card")
-    from mcquic_tpu_torch.demo import loadModel
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=20).stdout.strip())
+    if args.mode == "generate":
+        return generateReport(args)
+    from mcquic_tpu_torch.demo import loadModel
     engine = loadModel(qp=args.qp, device="cuda")
     img = readPng(args.image)
     file = engine.compressImage(img)
@@ -73,6 +85,27 @@ def main(argv=None):
           f"{file.BPP:.4f} bpp")
     report("compress", lambda: engine.compressImage(img), args.iters, args.top)
     report("restore", lambda: engine.decompressImage(file), args.iters, args.top)
+
+
+def generateReport(args):
+    import tempfile
+
+    from mcquic_tpu_torch.generate import loadGenerator, writeSeededGenerator
+    from mcquic_tpu_torch.utils import exactFp32
+    with tempfile.TemporaryDirectory() as tmp:
+        path = args.checkpoint or writeSeededGenerator(Path(tmp) / "gen_stage2_neonA.npz")
+        model = loadGenerator(path, device="cuda")
+    classes = [int(c) for c in args.classes.split(",")]
+    condition = torch.tensor(classes, device="cuda")
+    print(f"generator {model.hiddenSize} wide, depth {model.depth}, {sum(model.lengths)} tokens "
+          f"over {len(model.lengths)} levels, batch {len(classes)} (greedy, fp32, TF32 off)")
+    with exactFp32(), torch.inference_mode():
+        codes = model.sampleCodes(condition)
+        for kvCache in (True, False):
+            report(f"generate kvCache={kvCache}",
+                   lambda: model.generate(condition, kvCache=kvCache), args.iters, args.top)
+        report("codes only (kvCache)", lambda: model.sampleCodes(condition), args.iters, args.top)
+        report("Neon decode", lambda: model.compressor.decode(codes), args.iters, args.top)
 
 
 if __name__ == "__main__":

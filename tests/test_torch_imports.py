@@ -4,7 +4,8 @@ The machine with the card has none of the JAX package's other dependencies,
 so a subprocess blocks them (and the JAX package itself) with a
 `sys.meta_path` finder, then imports every module of `mcquic_tpu_torch` and
 `chip_smoke`, and runs the tiny model's PNG -> .mcq -> PNG round trip
-through `python -m mcquic_tpu_torch --device cpu`.
+through `python -m mcquic_tpu_torch --device cpu`, and a tiny generator's
+sampling through `python -m mcquic_tpu_torch generate --device cpu`.
 """
 import ast
 import subprocess
@@ -79,6 +80,24 @@ def test_port_runs_without_the_jax_package_and_its_dependencies(tmp_path):
         JaxFile.deserialize((tmp_path / "out.mcq").read_bytes()))
     assert restored.shape == image.shape
     np.testing.assert_array_equal(restored, want)
+
+
+def test_generate_runs_without_the_jax_package_and_its_dependencies(tmp_path):
+    from test_torch_generate import writeTinyCheckpoint
+    checkpoint = tmp_path / "gen.ckpt.npz"
+    writeTinyCheckpoint(checkpoint, seed=2)
+    runs = [["generate", "-c", "0,5,9", "--top-k", "3", "--seed", "1", "--device", "cpu",
+             str(checkpoint), str(tmp_path / "samples")]]
+    script = GUARD.format(blocked=BLOCKED, root=str(ROOT), runs=runs)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "round trip ok" in proc.stdout
+    pngs = sorted((tmp_path / "samples").iterdir())
+    assert [p.name for p in pngs] == ["class0_0.png", "class5_1.png", "class9_2.png"]
+    for png in pngs:
+        image = readPng(png)
+        assert image.shape == (32, 32, 3) and image.dtype == np.uint8
 
 
 def _portFiles():

@@ -10,7 +10,10 @@ without the JAX package (tests/conftest.py imports JAX, hence
 import pytest
 import torch
 
-from mcquic_tpu_torch.ops import subpixel_cuda, vq_cuda
+from mcquic_tpu_torch.models.generator import blockCausalMask
+from mcquic_tpu_torch.ops import attention_cuda, subpixel_cuda, vq_cuda
+from mcquic_tpu_torch.ops.attention import flashAttentionPlain
+from mcquic_tpu_torch.ops.attention_cuda import flashAttention
 from mcquic_tpu_torch.ops.subpixel_cuda import conv3x3SubpixelPlain, conv3x3SubpixelThin
 from mcquic_tpu_torch.ops.vq import vqEncodePlain
 from mcquic_tpu_torch.ops.vq_cuda import vqNearest
@@ -29,6 +32,7 @@ def cuda():
 def test_kernel_libraries_build(cuda):
     vq_cuda.build()
     subpixel_cuda.build()
+    attention_cuda.build()
 
 
 @pytest.mark.parametrize("m,T,k,d", [(2, 1536, 8192, 64), (2, 96, 512, 64), (1, 77, 200, 8),
@@ -79,3 +83,66 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         vqNearest(torch.randn((1, 4, 300), device=cuda), torch.randn((1, 8, 300), device=cuda))
     with pytest.raises(TypeError, match="fp32"):
         vqNearest(torch.randn((1, 4, 8), device=cuda).half(), torch.randn((1, 8, 8), device=cuda).half())
+
+
+GEN_LENGTHS = [1, 1, 4, 4, 16, 16, 64, 64, 256]     # gen_stage2_neonA, 426 tokens
+
+
+@pytest.mark.parametrize("B,H,Tq,Tk,D", [(4, 8, 1, 1, 64), (4, 8, 4, 10, 64), (4, 8, 256, 426, 64),
+                                         (2, 4, 40, 130, 8), (1, 2, 33, 7, 128), (3, 1, 17, 65, 40),
+                                         (1, 2, 5, 33, 6), (2, 1, 3, 70, 127)])
+def test_k3_matches_plain_over_a_cache_prefix(cuda, B, H, Tq, Tk, D):
+    """k and v are a prefix slice of a longer [B, Lmax, H, D] cache."""
+    gen = torch.Generator(device=cuda).manual_seed(B * Tq + Tk + D)
+    q = torch.randn((B, Tq, H, D), device=cuda, generator=gen)
+    cache = torch.randn((2, B, Tk + 9, H, D), device=cuda, generator=gen)
+    k, v = cache[0, :, :Tk], cache[1, :, :Tk]
+    launches = flashAttention.launches
+    with torch.no_grad():
+        got = flashAttention(q, k, v)
+        want = flashAttentionPlain(q, k, v)
+    torch.cuda.synchronize()
+    assert flashAttention.launches == launches + 1
+    assert got.shape == (B, Tq, H, D)
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("lengths", [GEN_LENGTHS, [1, 1, 4]])
+def test_k3_matches_plain_under_the_block_causal_mask(cuda, lengths):
+    t = sum(lengths)
+    gen = torch.Generator(device=cuda).manual_seed(t)
+    q, k, v = (torch.randn((4, t, 8, 64), device=cuda, generator=gen) for _ in range(3))
+    full = torch.from_numpy(blockCausalMask(lengths)).to(cuda, torch.int8)
+    with torch.no_grad():
+        for prefix in (t, t - lengths[-1]):           # the uncached path's mask slices
+            if prefix == 0:
+                continue
+            mask = full[:prefix, :prefix]
+            got = flashAttention(q[:, :prefix], k[:, :prefix], v[:, :prefix], mask)
+            want = flashAttentionPlain(q[:, :prefix], k[:, :prefix], v[:, :prefix], mask)
+            assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_k3_fully_masked_rows_stay_finite(cuda):
+    q, k, v = (torch.randn((1, 40, 1, 32), device=cuda) for _ in range(3))
+    mask = torch.zeros((40, 40), dtype=torch.int8, device=cuda)
+    mask[:20] = 1
+    with torch.no_grad():
+        got = flashAttention(q, k, v, mask)
+    assert torch.isfinite(got).all()
+    want = flashAttentionPlain(q, k, v, mask)
+    assert (got[:, :20] - want[:, :20]).abs().max().item() <= 1e-4
+
+
+def test_k3_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.randn((1, 4, 2, 8), device=cuda)
+    with pytest.raises(TypeError, match="fp32"):
+        flashAttention(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="outside the kernel's range"):
+        big = torch.randn((1, 4, 1, 130), device=cuda)
+        flashAttention(big, big, big)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.randn((1, 4, 8, 2), device=cuda).transpose(2, 3)
+        flashAttention(t, t, t)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flashAttention(q.clone().requires_grad_(), q, q)

@@ -132,6 +132,33 @@ def test_residual_block_shuffle():
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("form,outC", [("plain", 2 * C), ("plain", C // 2), ("stride2", 2 * C),
+                                       ("stride1", C // 2), ("shuffle", 2 * C)])
+def test_channel_changing_blocks(form, outC):
+    """The forms Neon's encoder, decoder and quantizer stacks use: a conv1x1
+    skip (ResidualBlock, stride-1 ResidualBlockWithStride), a strided conv3x3
+    skip, a pixelShuffle3x3 skip."""
+    jaxBlock, portBlock, fill = {
+        "plain": (jnn.ResidualBlock(outC, dtype=F64), tnn.ResidualBlock(C, outC),
+                  lambda j, p: (j.residualBlock(("params",), "b", skip=True),
+                                p.residualBlock("b", ("params",), skip=True))),
+        "stride2": (jnn.ResidualBlockWithStride(outC, 2, dtype=F64),
+                    tnn.ResidualBlockWithStride(C, 2, outC),
+                    lambda j, p: (j.residualBlockStride(("params",), "b"),
+                                  p.residualBlockStride("b", ("params",)))),
+        "stride1": (jnn.ResidualBlockWithStride(outC, 1, dtype=F64),
+                    tnn.ResidualBlockWithStride(C, 1, outC),
+                    lambda j, p: (j.residualBlockStride(("params",), "b"),
+                                  p.residualBlockStride("b", ("params",)))),
+        "shuffle": (jnn.ResidualBlockShuffle(outC, 2, dtype=F64), tnn.ResidualBlockShuffle(C, 2, outC),
+                    lambda j, p: (j.residualBlockShuffle(("params",), "b"),
+                                  p.residualBlockShuffle("b", ("params",)))),
+    }[form]
+    want, got = runBlock(jaxBlock, portBlock, fill, (2, 8, 6, C))
+    assert got.shape[-1] == outC
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
 def test_attention_block():
     want, got = runBlock(jnn.AttentionBlock(dtype=F64), tnn.AttentionBlock(C),
                          lambda j, p: (j.attentionBlock(("params",), "b"),

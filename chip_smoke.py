@@ -9,9 +9,9 @@ nvcc and g++. It imports torch, numpy, the standard library and
 ends:
 
   1. environment: torch / CUDA / nvcc versions, the card, its power limit;
-  2. build: kernels K1 (csrc/vq_encode.cu), K2 (csrc/thin_head.cu) and K3
-     (csrc/flash_attention.cu) with nvcc and the rANS runtime with g++, all
-     started together;
+  2. build: kernels K1 (csrc/vq_encode.cu), K1b (csrc/vq_grouped.cu), K2
+     (csrc/thin_head.cu) and K3 (csrc/flash_attention.cu) with nvcc and the
+     rANS runtime with g++, all started together;
   3. kernels against their plain versions on the card, fp32 with TF32 off,
      at the main paths' shapes, with CUDA-event times of the kernel, the
      plain version and one library call computing the same function;
@@ -28,13 +28,25 @@ ends:
      K3 is held to its plain version on the q/k/v of every call; the card's
      codes are held to the CPU plain path at depth 2; one Neon encode and
      decode of a seeded 256x256 image runs K1, whose codes must equal the
-     plain version's; `python -m mcquic_tpu_torch generate` writes 4 PNGs.
+     plain version's; `python -m mcquic_tpu_torch generate` writes 4 PNGs;
+  7. the validation, batched and tiled codec paths: `python -m
+     mcquic_tpu_torch validate -e` on a folder holding the photo with the
+     qp-2 zoo model (bpp and PSNR held to phase 4's; the reference's speed
+     protocol, 50 iterations); `Validator.speed` and the model alone at qp-2
+     and at the qp-12 geometry (seeded), cut to SPEED_ITERS iterations; the
+     past-budget model (channel 128, m 2, k [16384, 2048, 512], seeded),
+     whose level 0 takes K1b, compresses and restores the photo (K1b once
+     and K1 twice per compress; K1b's codes equal the plain version's on its
+     real latents, and the card's codes the CPU's on a crop);
+     `compressMany` / `decompressMany` against per-batch calls; a `--tile
+     256` round trip through the CLI against the same tiles coded whole.
 
 Any failure ends the run with a non-zero exit and no result line. The last
 two lines are the kernel table as JSON and
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 """
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -48,6 +60,7 @@ PHOTO = ROOT / "assets" / "photo_768x512.png"
 QP = 2
 REGISTERED_BPP = 0.1090          # VERDICT.md / README.md, qp-2 on the photo
 REGISTERED_PSNR = 25.15
+VALIDATE_PSNR_ATOL = 0.01        # validate's fp32 PSNR vs phase 4's fp64 one, same images
 BPP_RTOL = 0.01
 PSNR_ATOL = 0.1
 K1_NEAR_TIE_RTOL = 1e-5          # a code mismatch must be a near-tie at this scale
@@ -61,6 +74,14 @@ GEN_LOGITS_ATOL = 1e-3           # card vs CPU teacher-forced logits, same codes
 RESTORE_ATOL = 1e-3              # card vs CPU restore of the same codes, in [-1, 1]
 CODES_MIN_AGREEMENT = 0.99       # card vs CPU codes of a crop
 CLI_TIMEOUT = 300
+SPEED_ITERS = 10                 # the in-process speed runs; the validate CLI runs the full 50
+K1B_SHAPES = [(2, 1536, 16384, 64),      # level 0 of the past-budget model on the photo
+              (2, 1536, 65536, 64), (1, 512, 1024, 512)]
+QP12 = (192, 12, [8192, 2048, 512])      # channel, m, k (no zoo file: seeded weights)
+PAST_BUDGET = (128, 2, [16384, 2048, 512])
+TILE = 256
+TILE_BATCH_MAX_DIFF = 1          # uint8 levels: cuDNN picks algorithms by batch size, so the same
+                                 # codes decoded one by one and as a batch of 6 round differently
 
 # H100 SXM peaks (NVIDIA data sheet; dense, 700 W): fp32 on the CUDA cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -180,22 +201,27 @@ def main() -> int:
     from mcquic_tpu_torch.coding import rans
     from mcquic_tpu_torch.container import File
     from mcquic_tpu_torch.data.png import readPng, writePng
-    from mcquic_tpu_torch.demo import loadModel
-    from mcquic_tpu_torch.models.compressor import Compressor
+    from mcquic_tpu_torch.demo import loadModel, zooPath
+    from mcquic_tpu_torch.models.compressor import Compressor, seededCompressor
     from mcquic_tpu_torch.models.engine import CompressorEngine
+    from mcquic_tpu_torch.models.tiling import (TiledFile, compressTiled, decompressTiled,
+                                                fromTiles, toTiles)
     import mcquic_tpu_torch.models.generator as generatorModule
     import mcquic_tpu_torch.models.quantizer as quantizerModule
-    from mcquic_tpu_torch.data.transforms import modelOutputToImage
+    from mcquic_tpu_torch.data.transforms import imageToModelInput, modelOutputToImage
     from mcquic_tpu_torch.generate import GEN_STAGE2_NEON_A, loadGenerator, writeSeededGenerator
     from mcquic_tpu_torch.models.generator import GeneratorV3SelfAttention, blockCausalMask
-    from mcquic_tpu_torch.ops import attention_cuda, subpixel_cuda, vq_cuda
+    from mcquic_tpu_torch.ops import attention_cuda, subpixel_cuda, vq_cuda, vq_grouped_cuda
     from mcquic_tpu_torch.ops.attention import flashAttentionPlain
     from mcquic_tpu_torch.ops.attention_cuda import flashAttention
     from mcquic_tpu_torch.ops.subpixel_cuda import conv3x3SubpixelPlain, conv3x3SubpixelThin
     from mcquic_tpu_torch.ops.vq import groupLatent, latentTokens, vqEncodePlain
     from mcquic_tpu_torch.ops.vq_cuda import vqNearest
+    from mcquic_tpu_torch.ops.vq_grouped_cuda import vqNearestGrouped
     from mcquic_tpu_torch.utils import exactFp32
     from mcquic_tpu_torch.utils.build import findNvcc
+    from mcquic_tpu_torch.utils.convert import readExport
+    from mcquic_tpu_torch.validate.validator import Validator
 
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -219,9 +245,10 @@ def main() -> int:
             start = time.perf_counter()
             fn()
             return name, time.perf_counter() - start
-        with ThreadPoolExecutor(4) as pool:
+        with ThreadPoolExecutor(5) as pool:
             jobs = [pool.submit(timed, name, fn) for name, fn in
                     (("K1 vq_encode.cu (nvcc)", vq_cuda.build),
+                     ("K1b vq_grouped.cu (nvcc)", vq_grouped_cuda.build),
                      ("K2 thin_head.cu (nvcc)", subpixel_cuda.build),
                      ("K3 flash_attention.cu (nvcc)", attention_cuda.build),
                      ("rANS mcquic_rans.cpp (g++)", rans.build))]
@@ -240,8 +267,9 @@ def main() -> int:
     heads, headDim = geometry["nHeads"], geometry["hiddenSize"] // geometry["nHeads"]
     batch = len(GEN_CLASSES)
     with Phase("3 kernels vs plain"), exactFp32(), torch.inference_mode():
-        print("  kernels: K1 vq_nearest (csrc/vq_encode.cu), K2 thin_head (csrc/thin_head.cu), "
-              "K3 flash_attention (csrc/flash_attention.cu)", flush=True)
+        print("  kernels: K1 vq_nearest (csrc/vq_encode.cu), K1b vq_grouped (csrc/vq_grouped.cu), "
+              "K2 thin_head (csrc/thin_head.cu), K3 flash_attention (csrc/flash_attention.cu)",
+              flush=True)
         for m, T, k, d in levels:
             tokens = torch.randn((m, T, d), device=device, generator=gen)
             codebook = torch.randn((m, k, d), device=device, generator=gen)
@@ -277,6 +305,29 @@ def main() -> int:
         print(f"  K1 Neon, 9 levels (T 1..256, k 1024, d 8): kernel {neonK1['ms']:.4f} ms, plain "
               f"{neonK1['plain_ms']:.4f} ms, cdist+argmin {neonK1['library_ms']:.4f} ms, bound "
               f"{neonK1['bound_ms']:.5f} ms", flush=True)
+
+        # K1b past the resident budget and past K1's d: every code must equal the
+        # plain version's; the JSON row is the past-budget model's level-0 shape
+        k1b = {}
+        for m, T, k, d in K1B_SHAPES:
+            tokens = torch.randn((m, T, d), device=device, generator=gen)
+            codebook = torch.randn((m, k, d), device=device, generator=gen)
+            differ = int((vqNearestGrouped(tokens, codebook) != vqEncodePlain(tokens, codebook)).sum())
+            print(f"  K1b random (m,T,k,d)={m, T, k, d}: " + (
+                f"all {m * T} codes identical" if differ == 0 else f"{differ} of {m * T} codes differ"),
+                flush=True)
+            if differ:
+                raise AssertionError(f"K1b differs from the plain version at {m, T, k, d}")
+            row = {"ms": medianMs(torch, lambda: vqNearestGrouped(tokens, codebook)),
+                   "plain_ms": medianMs(torch, lambda: vqEncodePlain(tokens, codebook)),
+                   "library_ms": medianMs(torch, lambda: torch.cdist(tokens, codebook).argmin(-1))}
+            row["bound_ms"], row["bound_by"] = bound(2.0 * m * T * k * (d + 1),
+                                                     4.0 * (m * T * d + m * k * d + m * T))
+            print(f"  K1b (m,T,k,d)={m, T, k, d}: kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, cdist+argmin {row['library_ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+            k1b = k1b or dict(row, err=0.0)
+            del tokens, codebook
 
         x = torch.randn((1, 128, 256, 384), device=device, generator=gen)   # the photo's head input
         w = torch.randn((12, 128, 3, 3), device=device, generator=gen) * 0.05
@@ -603,11 +654,157 @@ def main() -> int:
         if len(pngs) != batch or any(sh != (256, 256, 3) for sh in shapes):
             raise AssertionError("the generate CLI did not write 4 256x256 PNGs")
 
+    with Phase("7 validation path"), tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        folder = tmp / "val"
+        folder.mkdir()
+        shutil.copy(PHOTO, folder / PHOTO.name)
+        start = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "mcquic_tpu_torch", "validate", "-e",
+                               str(tmp / "export.npz"), str(zooPath(QP)), str(folder)],
+                              cwd=ROOT, capture_output=True, text=True, timeout=CLI_TIMEOUT)
+        if proc.returncode != 0:
+            raise RuntimeError(f"validate CLI exited {proc.returncode}:\n{proc.stderr}")
+        lines = proc.stdout.strip().splitlines()
+        results, exported, speed = json.loads(lines[-3]), Path(lines[-2]), json.loads(lines[-1])
+        exportedFlat, exportedMeta = readExport(exported)
+        print(f"  validate CLI, {PHOTO.name}, qp-{QP} zoo: {results['bpp']:.4f} bpp, PSNR "
+              f"{results['psnr']:.2f} dB, MS-SSIM {results['msssim']:.4f}, ideal bpp "
+              f"{results['idealBpp']:.4f}; export {exported.name} ({len(exportedFlat)} arrays, qp "
+              f"{exportedMeta['qp']}); {time.perf_counter() - start:.1f} s with process start",
+              flush=True)
+        print(f"  validate CLI speed, the reference protocol (50 x [10, 768, 512, 3], rANS and "
+              f"transfers in): encode {speed['encodeMpps']:.2f} Mpps, decode "
+              f"{speed['decodeMpps']:.2f} Mpps on {speed['device']} ({smi})", flush=True)
+        if (results["images"] != 1 or results["bpp"] != bpp
+                or abs(results["psnr"] - quality) > VALIDATE_PSNR_ATOL):
+            raise AssertionError(f"validate gives {results}, phase 4 {bpp} bpp / {quality} dB")
+        zooFlat, _ = readExport(zooPath(QP))
+        if speed["device"] != kind or set(exportedFlat) != set(zooFlat) or not all(
+                np.array_equal(exportedFlat[key], zooFlat[key]) for key in zooFlat):
+            raise AssertionError(f"validate ran on {speed['device']}, or its export differs "
+                                 "from the zoo file")
+
+        qp12 = CompressorEngine(seededCompressor(*QP12), device="cuda")
+        for cell, cellEngine in ((f"qp-{QP}", engine), ("qp-12 (seeded)", qp12)):
+            validator = Validator(cellEngine)
+            vqNearest.launches = vqNearestGrouped.launches = 0
+            encode, decode = validator.speed(SPEED_ITERS)
+            perCompress = vqNearest.launches / (SPEED_ITERS + 1)
+            modelEncode, modelDecode = validator.speedModel(SPEED_ITERS)
+            print(f"  {cell} speed, {SPEED_ITERS} x [10, 768, 512, 3]: encode {encode:.2f} / decode "
+                  f"{decode:.2f} Mpps with rANS and transfers; model alone encode "
+                  f"{modelEncode:.2f} / decode {modelDecode:.2f} Mpps; K1 {perCompress:g} and K1b "
+                  f"{vqNearestGrouped.launches} per compress ({smi})", flush=True)
+            if perCompress != 3 or vqNearestGrouped.launches:
+                raise AssertionError(f"{cell}: the VQ searches did not all take K1")
+        del qp12, validator, cellEngine
+        torch.cuda.empty_cache()
+
+        # the past-budget model: level 0 takes K1b, levels 1 and 2 take K1
+        pastModel = seededCompressor(*PAST_BUDGET)
+        cpuPast = Compressor(*PAST_BUDGET)
+        cpuPast.load_state_dict(pastModel.state_dict())
+        past = CompressorEngine(pastModel, device="cuda")
+        latents = []
+        hook = past.model._quantizer._encoders[0]._quantizationHead.register_forward_hook(
+            lambda mod, inp, out: latents.append(out.clone()))
+        past.decompressImage(past.compressImage(img))
+        hook.remove()
+        with exactFp32(), torch.inference_mode():
+            tokens = latentTokens(groupLatent(latents[0], PAST_BUDGET[1]))
+            codebook = past.model._quantizer.codebook(0).contiguous()
+            differ = int((vqNearestGrouped(tokens, codebook) != vqEncodePlain(tokens, codebook)).sum())
+        print(f"  K1b past-budget level 0 on the photo {tuple(tokens.shape)} k {codebook.shape[1]}: "
+              + ("all codes identical" if differ == 0 else f"{differ} codes differ"), flush=True)
+        if differ:
+            raise AssertionError("K1b differs from the plain version on the real level-0 latents")
+        vqNearest.launches = vqNearestGrouped.launches = 0
+        start = time.perf_counter()
+        pastFile = past.compressImage(img)
+        pastRestored = past.decompressImage(File.deserialize(pastFile.serialize()))
+        pastS = time.perf_counter() - start
+        pastLaunches = {"K1b": vqNearestGrouped.launches, "K1": vqNearest.launches}
+        crop = img[192:320, 320:448]
+        cardCodes = past.encode(crop[None])
+        cpuCodes = CompressorEngine(cpuPast, device="cpu").encode(crop[None])
+        same = all(np.array_equal(a, c) for a, c in zip(cardCodes, cpuCodes))
+        print(f"  past-budget model {PAST_BUDGET} (seeded): launches per compress {pastLaunches}; "
+              f"{pastFile.BPP:.4f} bpp, restored {pastRestored.shape} {pastRestored.dtype}, "
+              f"compress + restore {pastS * 1e3:.1f} ms; crop 128x128 codes card == CPU: {same}",
+              flush=True)
+        if pastLaunches != {"K1b": 1, "K1": 2} or not same or pastRestored.shape != img.shape:
+            raise AssertionError("the past-budget path did not run as it should")
+        del past, pastModel, cpuPast, latents, tokens, codebook
+        torch.cuda.empty_cache()
+
+        # compressMany / decompressMany against one call per batch
+        batches = [np.random.default_rng(i).uniform(-1, 1, (10, 768, 512, 3)).astype(np.float32)
+                   for i in range(4)]
+        engine.compressMany(batches[:1])
+        start = time.perf_counter()
+        many = engine.compressMany(batches)
+        manyS = time.perf_counter() - start
+        start = time.perf_counter()
+        once = [engine.compress(b)[1:] for b in batches]
+        onceS = time.perf_counter() - start
+        sameBytes = all(m[0] == o[0] for m, o in zip(many, once))
+        start = time.perf_counter()
+        restoredMany = engine.decompressMany(many)
+        manyRestoreS = time.perf_counter() - start
+        start = time.perf_counter()
+        restoredOnce = [engine.decompress(*o) for o in once]
+        onceRestoreS = time.perf_counter() - start
+        sameImages = all(np.array_equal(a, b) for a, b in zip(restoredMany, restoredOnce))
+        print(f"  compressMany of 4 x [10, 768, 512, 3]: bytes equal to per-batch compress: "
+              f"{sameBytes}, {manyS * 1e3:.1f} ms against {onceS * 1e3:.1f} ms; decompressMany "
+              f"equal: {sameImages}, {manyRestoreS * 1e3:.1f} ms against {onceRestoreS * 1e3:.1f} ms "
+              f"(host clock)", flush=True)
+        if not (sameBytes and sameImages):
+            raise AssertionError("the pipelined batches differ from per-batch calls")
+        del batches, many, once, restoredMany, restoredOnce
+
+        # --tile through the CLI, against the same tiles coded whole
+        tiled, tiledPng = tmp / "tiled.mcq", tmp / "tiled.png"
+        for args in (["-qp", str(QP), "--tile", str(TILE), str(PHOTO), str(tiled)],
+                     [str(tiled), str(tiledPng)]):
+            proc = subprocess.run([sys.executable, "-m", "mcquic_tpu_torch", *args], cwd=ROOT,
+                                  capture_output=True, text=True, timeout=CLI_TIMEOUT)
+            if proc.returncode != 0:
+                raise RuntimeError(f"CLI {args} exited {proc.returncode}:\n{proc.stderr}")
+        data = tiled.read_bytes()
+        tf = TiledFile.deserialize(data)
+        cliRestored = readPng(tiledPng)
+        sameFile = data == compressTiled(engine, img, TILE).serialize()
+        sameRestore = np.array_equal(cliRestored, decompressTiled(engine, tf))
+        tiles, rows, cols = toTiles(img, TILE)
+        files = [engine.compressImage(t) for t in tiles]
+        sameStreams = sum(f.Content == b for f, b in zip(files, tf.binaries))
+        together = fromTiles(engine.decompress([f.Content for f in files],
+                                               [f.FileHeader for f in files], toImage=True),
+                             rows, cols, *img.shape[:2])
+        oneByOne = fromTiles(np.stack([engine.decompressImage(f) for f in files]), rows, cols,
+                             *img.shape[:2])
+        diff = np.abs(oneByOne.astype(np.int16) - cliRestored.astype(np.int16))
+        print(f"  --tile {TILE} CLI: {rows}x{cols} tiles, {tf.BPP:.4f} bpp, PSNR "
+              f"{psnr(img, cliRestored):.2f} dB; .mcq identical to in-process: {sameFile}; restore "
+              f"equal to in-process: {sameRestore}. The tiles coded whole: {sameStreams} of "
+              f"{len(files)} streams identical; restored as one batch, pixels equal: "
+              f"{np.array_equal(together, cliRestored)}; restored one by one, pixels equal on "
+              f"{(diff == 0).mean():.6%}, max diff {int(diff.max())}", flush=True)
+        if not (TiledFile.isTiled(data) and sameFile and sameRestore and sameStreams == len(files)
+                and np.array_equal(together, cliRestored) and diff.max() <= TILE_BATCH_MAX_DIFF):
+            raise AssertionError("the tiled round trip disagrees")
+
     kernels = [
         {"name": "vq_nearest", "route": "cuda", "source": "mcquic_tpu_torch/csrc/vq_encode.cu",
          "replaces": "mcquic_tpu/ops/vq_pallas.py:162", "launches": launches["K1"],
          "max_abs_err": k1["err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},
+        {"name": "vq_grouped", "route": "cuda", "source": "mcquic_tpu_torch/csrc/vq_grouped.cu",
+         "replaces": "mcquic_tpu/ops/vq_pallas.py:75", "launches": pastLaunches["K1b"],
+         "max_abs_err": k1b["err"], "ms": k1b["ms"], "plain_ms": k1b["plain_ms"],
+         "bound_ms": k1b["bound_ms"], "bound_by": k1b["bound_by"], "library_ms": k1b["library_ms"]},
         {"name": "thin_head", "route": "cuda", "source": "mcquic_tpu_torch/csrc/thin_head.cu",
          "replaces": "mcquic_tpu/ops/subpixel_pallas.py:118", "launches": launches["K2"],
          "max_abs_err": k2["err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],

@@ -1,6 +1,9 @@
 """`python -m mcquic_tpu_torch`: compress a PNG to `.mcq`, or restore a
 `.mcq` to PNG, by the input's suffix (the default command of
-`mcquic_tpu/cli.py`, reference `mcquic/cli.py:40-61`); or, as
+`mcquic_tpu/cli.py`, reference `mcquic/cli.py:40-61`); as
+`python -m mcquic_tpu_torch validate [-e EXPORT] [--bf16] MODEL [IMAGES]`,
+evaluate a model on a folder of PNGs, export it and time it
+(`mcquic_tpu/cli.py:92-110`); or, as
 `python -m mcquic_tpu_torch generate -c 1,207 model.npz outdir/`, sample
 images from a stage-2 generator (`mcquic_tpu/cli.py:130-147`)."""
 import argparse
@@ -17,10 +20,31 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("-qp", type=int, choices=range(0, 14), default=None, metavar="{0..13}",
                    help="quantization parameter (zoo slot); a .mcq records its own")
     p.add_argument("--local", default=None, help="use a local exported model instead of the zoo")
+    p.add_argument("--crop", action="store_true",
+                   help="center-crop the input to multiples of 128 first")
+    p.add_argument("--tile", type=int, default=0,
+                   help="code the image as a grid of TILE x TILE tiles (0: whole image; "
+                        "tiled .mcq files are recognized on restore)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("-V", "--version", action="version", version=mcquic_tpu_torch.__version__)
     p.add_argument("input")
     p.add_argument("output", nargs="?", default=None)
+    return p
+
+
+def validateParser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m mcquic_tpu_torch validate",
+        description="Evaluate MODEL (an exported model, or a trainer checkpoint with its json "
+                    "sidecar) on the PNGs under IMAGES: MS-SSIM, PSNR, bpp and ideal bpp; "
+                    "optionally export it; then time it under the reference's speed protocol.")
+    p.add_argument("-e", "--export", default=None,
+                   help="write a deploy model here (renamed with its sha256 prefix)")
+    p.add_argument("--bf16", action="store_true",
+                   help="export params as bfloat16; coder tables stay exact")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("modelPath")
+    p.add_argument("images", nargs="?", default=None)
     return p
 
 
@@ -52,10 +76,18 @@ def main(argv=None) -> int:
                              seed=args.seed, device=args.device):
             print(path)
         return 0
+    if argv[:1] == ["validate"]:
+        args = validateParser().parse_args(argv[1:])
+        from mcquic_tpu_torch.validate.cli import main as validate
+        validate(args.modelPath, args.images, args.export, bf16=args.bf16, device=args.device)
+        return 0
     p = parser()
     args = p.parse_args(argv)
     if args.local is None and args.qp is None and not args.input.lower().endswith(".mcq"):
         p.error("compressing needs -qp or --local")
+    if args.tile < 0:
+        p.error("--tile must be >= 0")
     from mcquic_tpu_torch.demo import main as run
-    print(run(args.input, args.output, qp=args.qp, local=args.local, device=args.device))
+    print(run(args.input, args.output, qp=args.qp, local=args.local, device=args.device,
+              crop=args.crop, tile=args.tile))
     return 0

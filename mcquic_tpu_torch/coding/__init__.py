@@ -30,11 +30,16 @@ class RansCoder:
         self._freq = [np.asarray(f, dtype=np.float64) for f in freqEMA]
         self._cdfMats = self._cdfSizes = self._luts = None
 
+    @property
+    def NormalizedFreq(self) -> List[np.ndarray]:
+        """Per-level [m, k] code probabilities: each row of the frequency
+        table over its sum (`mcquic_tpu/coding/__init__.py:57`)."""
+        return [f / f.sum(-1, keepdims=True) for f in self._freq]
+
     def _ensureCdfs(self, needLuts: bool = False):
         if self._cdfMats is None:
             self._cdfMats, self._cdfSizes = [], []
-            for freq, ki in zip(self._freq, self._k):
-                freq = freq / freq.sum(-1, keepdims=True)
+            for freq, ki in zip(self.NormalizedFreq, self._k):
                 # stride k+2: the escape sentinel never fires for in-range codes
                 mat = np.zeros((freq.shape[0], ki + 2), dtype=np.int32)
                 for g in range(freq.shape[0]):

@@ -39,3 +39,10 @@ def modelOutputToImage(x: np.ndarray) -> np.ndarray:
     """[-1, 1] float -> uint8, as the reference DeTransform (vision.py:135-146)
     and `mcquic_tpu/data/transforms.py:62-64`."""
     return np.clip(np.round((x * 0.5 + 0.5) * 255.0), 0, 255).astype(np.uint8)
+
+
+def imageToModelInput(img: np.ndarray) -> np.ndarray:
+    """uint8 HWC (or NHWC) image -> float32 in [-1, 1], as
+    `mcquic_tpu/data/transforms.py:56-59`."""
+    x = img.astype(np.float32) / 255.0
+    return (x - 0.5) * 2.0

@@ -1,15 +1,18 @@
 """Compress / restore by file suffix (counterpart of `mcquic_tpu/demo.py`,
-reference `mcquic/demo.py:45-77`): an image becomes a `.mcq`, a `.mcq`
-becomes a PNG. Models come from the bundled zoo (`assets/zoo/`, by `-qp`,
-sha256-checked) or from a local exported model file; nothing is downloaded.
+reference `mcquic/demo.py:45-77`): an image becomes a `.mcq`, whole or as a
+grid of tiles; a `.mcq` becomes a PNG. Models come from the bundled zoo
+(`assets/zoo/`, by `-qp`, sha256-checked) or from a local exported model
+file; nothing is downloaded.
 """
 import logging
 from pathlib import Path
 
 from mcquic_tpu_torch.container import File
 from mcquic_tpu_torch.data.png import readPng, writePng
+from mcquic_tpu_torch.data.transforms import alignedCrop
 from mcquic_tpu_torch.models.compressor import Compressor
 from mcquic_tpu_torch.models.engine import CompressorEngine
+from mcquic_tpu_torch.models.tiling import TiledFile, compressTiled, decompressTiled
 from mcquic_tpu_torch.utils import resolveDevice, versionCheck
 from mcquic_tpu_torch.utils.convert import loadZoo, modelGeometry, modelsHash
 
@@ -41,23 +44,32 @@ def loadModel(qp: int = None, local=None, device="cuda") -> CompressorEngine:
                             device=device)
 
 
-def main(inputPath, outputPath=None, qp: int = None, local=None, device="cuda") -> Path:
-    """Compress a PNG to `.mcq`, or restore a `.mcq` to PNG."""
+def main(inputPath, outputPath=None, qp: int = None, local=None, device="cuda",
+         crop: bool = False, tile: int = 0) -> Path:
+    """Compress a PNG to `.mcq`, or restore a `.mcq` to PNG
+    (`mcquic_tpu/demo.py:171-213`). `crop` center-crops the image to
+    multiples of 128 first; `tile` > 0 codes it as a grid of tile x tile
+    tiles (`models/tiling.py`). A tiled `.mcq` is recognized on restore."""
     inputPath = Path(inputPath)
     if inputPath.suffix.lower() == ".mcq":
-        file = File.deserialize(inputPath.read_bytes())
-        if local is None and qp is None:
-            qp = int(file.FileHeader.QuantizationParameter)   # qp from the header
+        data = inputPath.read_bytes()
+        tiled = TiledFile.isTiled(data)
+        file = TiledFile.deserialize(data) if tiled else File.deserialize(data)
+        if local is None and qp is None:      # qp from the file
+            qp = int(file.qp if tiled else file.FileHeader.QuantizationParameter)
         engine = loadModel(qp=qp, local=local, device=device)
-        restored = engine.decompressImage(file)
+        restored = decompressTiled(engine, file) if tiled else engine.decompressImage(file)
         out = Path(outputPath) if outputPath else inputPath.with_suffix(".png")
         if out.is_dir():
             out = out / (inputPath.stem + ".png")
         writePng(out, restored)
         logger.info("Restored %s -> %s", inputPath, out)
         return out
+    img = readPng(inputPath)
+    if crop:
+        img = alignedCrop(img, 128)
     engine = loadModel(qp=qp, local=local, device=device)
-    file = engine.compressImage(readPng(inputPath))
+    file = compressTiled(engine, img, tile=tile) if tile else engine.compressImage(img)
     out = Path(outputPath) if outputPath else inputPath.with_suffix(".mcq")
     if out.is_dir():
         out = out / (inputPath.stem + ".mcq")

@@ -13,6 +13,7 @@
 """
 from typing import List, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -74,6 +75,37 @@ class Compressor(nn.Module):
         return self._decoder(self._quantizer.decode(codes))
 
 
+def seededCompressor(channel: int, m: int, k: Sequence[int], seed: int = 0) -> Compressor:
+    """A v1 `Compressor` with numpy-seeded weights at the scales a trained
+    model has, for geometries with no zoo file: convs U(+-1/sqrt(fan_in)),
+    GDN reparams near their init, codebooks N(0, 2/(5d)), and code
+    frequencies in [0.5, 1.5] before normalizing, so that every symbol of
+    even a 16384-codeword level gets a nonzero rANS frequency at 16 bits."""
+    model = Compressor(channel, m, k)
+    rng = np.random.default_rng(seed)
+    d = channel // m
+
+    def value(key, shape):
+        if key.endswith("._codebook"):
+            return rng.normal(size=shape) * np.sqrt(2 / (5 * d))
+        if key.endswith("._temperature") or key.endswith("beta"):
+            return 1 + rng.uniform(0, 0.1, size=shape)
+        if "._freqEMA." in key:
+            freq = rng.uniform(0.5, 1.5, size=shape)
+            return freq / freq.sum(-1, keepdims=True)
+        if key.endswith("gamma"):
+            return np.sqrt(0.1) * np.eye(shape[0]) + rng.uniform(0, 0.05, size=shape)
+        if key.endswith("weight"):
+            return rng.uniform(-1, 1, size=shape) / np.sqrt(int(np.prod(shape[1:])))
+        if key.endswith("bias"):
+            return rng.uniform(-0.1, 0.1, size=shape)
+        raise KeyError(key)
+
+    model.load_state_dict({key: torch.from_numpy(value(key, tuple(v.shape)).astype(np.float32))
+                           for key, v in model.state_dict().items()})
+    return model.eval()
+
+
 def _neonEncoder(c: int) -> nn.Sequential:
     """16 stages (compressor.py:186-207), three of them stride 2, ending in
     the quantizer's 8-channel latent."""
@@ -118,3 +150,12 @@ class Neon(nn.Module):
     def decode(self, codes: Sequence[torch.Tensor]) -> torch.Tensor:
         """codes small -> large -> restored [n, 3, H, W]."""
         return self._decoder(self._quantizer.decode(codes))
+
+    def residual_forward(self, code: torch.Tensor, formerLevel, level: int) -> torch.Tensor:
+        """One decode step of the quantizer; level 0 is the smallest."""
+        return self._quantizer.residual_forward(code, formerLevel, level)
+
+    def residual_backward(self, code: torch.Tensor, level: int) -> torch.Tensor:
+        """A level's codes through the quantizer's backward stack; level 1
+        is the smallest."""
+        return self._quantizer.residual_backward(code, level)

@@ -4,13 +4,20 @@ reference `mcquic/modules/compressor.py:67-117`).
 
 Device work runs under `utils.exactFp32` (fp32, TF32 off) and
 `torch.inference_mode`. Host <-> device traffic is one array each way:
-  * compressImage uploads the reflect-padded uint8 image and normalizes it
-    on the device (`engine.py:118-124`); the codes of all levels come back
-    as one packed 16-bit array (`engine.py:97`);
-  * decompressImage uploads the packed codes, widens them on the device,
-    decodes, and converts to uint8 on the device (`engine.py:232-234`).
+  * encode uploads the reflect-padded image, uint8 (normalized on the device,
+    `engine.py:118-124`) or float in [-1, 1] (uploaded as it is,
+    `engine.py:175-181`); the codes of all levels come back as one packed
+    16-bit array (`engine.py:97`);
+  * decode uploads the packed codes, widens them on the device, decodes,
+    and, for an image, converts to uint8 on the device (`engine.py:232-234`).
+On the card both directions go through pinned host memory with
+non-blocking copies, and a download is waited for through its own event,
+so `compressMany` / `decompressMany` can run the host rANS of one batch on
+a worker thread (the rANS library is a ctypes `CDLL`, whose calls release
+the GIL) while the card works on the next.
 """
-from typing import List, Sequence, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,9 +39,22 @@ def _toU16Bits(codes: torch.Tensor) -> torch.Tensor:
     return torch.where(codes >= 32768, codes - 65536, codes).to(torch.int16)
 
 
+class _InFlight(NamedTuple):
+    """A device result on its way to the host: the host tensor it lands in,
+    and the event recorded after its copy (None on the CPU)."""
+    host: torch.Tensor
+    event: Optional[torch.cuda.Event]
+
+    def wait(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
 class CompressorEngine:
     """Owns a v1 `Compressor` on a device; exposes encode/decode,
-    compress/decompress and the image-level compressImage/decompressImage."""
+    compress/decompress, their pipelined multi-batch forms and the
+    image-level compressImage/decompressImage."""
 
     def __init__(self, model: Compressor, qp: str = "-1", device="cuda"):
         self._device = resolveDevice(device)
@@ -56,35 +76,73 @@ class CompressorEngine:
     def coder(self) -> RansCoder:
         return self._coder
 
-    def encode(self, x: np.ndarray) -> List[np.ndarray]:
-        """uint8 NHWC images -> codes per level [n, m, h, w] int32. The images
-        are reflect-padded to multiples of ALIGN, uploaded as uint8 and
-        mapped to [-1, 1] on the device."""
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    @property
+    def QuantizationParameter(self) -> str:
+        return self._qp
+
+    # ------------------------------------------------------------ transfers
+    def _upload(self, array: np.ndarray) -> torch.Tensor:
+        host = torch.from_numpy(np.ascontiguousarray(array))
+        if self._device.type == "cuda":
+            return host.pin_memory().to(self._device, non_blocking=True)
+        return host
+
+    def _download(self, tensor: torch.Tensor) -> _InFlight:
+        if self._device.type != "cuda":
+            return _InFlight(tensor, None)
+        host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+        host.copy_(tensor, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return _InFlight(host, event)
+
+    # ----------------------------------------------------------------- codec
+    def _encodeDispatch(self, x: np.ndarray) -> Tuple[_InFlight, List[Tuple[int, ...]]]:
+        """Upload, encode and start the download of the packed codes; returns
+        without waiting for the card."""
         x = np.asarray(x)
-        if x.dtype != np.uint8 or x.ndim != 4:
-            raise TypeError(f"encode takes uint8 [n, h, w, c] images, got {x.dtype} {x.shape}")
+        if x.ndim != 4:
+            raise ValueError(f"encode takes [n, h, w, c] images, got {x.shape}")
+        dtype = next(self._model.parameters()).dtype
         with exactFp32(), torch.inference_mode():
-            xDev = torch.tensor(alignedPadding(x, ALIGN), device=self._device)
-            xDev = (xDev.float() / 255.0 - 0.5) * 2.0
-            xDev = xDev.to(next(self._model.parameters()).dtype).permute(0, 3, 1, 2)
-            codes = self._model.encode(xDev)
+            if x.dtype == np.uint8:
+                xDev = self._upload(alignedPadding(x, ALIGN))
+                xDev = (xDev.float() / 255.0 - 0.5) * 2.0
+            else:
+                xDev = self._upload(alignedPadding(x.astype(np.float32, copy=False), ALIGN))
+            codes = self._model.encode(xDev.to(dtype).permute(0, 3, 1, 2))
             packed = torch.cat([_toU16Bits(c.reshape(c.shape[0], -1)) for c in codes], 1)
-            packedHost = packed.cpu().numpy().view(np.uint16)
+            return self._download(packed), [tuple(c.shape) for c in codes]
+
+    @staticmethod
+    def _splitCodes(packed: np.ndarray, shapes: Sequence[Tuple[int, ...]]) -> List[np.ndarray]:
+        packed = packed.view(np.uint16)
         out, cur = [], 0
-        for c in codes:
-            size = c[0].numel()
-            out.append(packedHost[:, cur:cur + size].reshape(c.shape).astype(np.int32))
+        for shape in shapes:
+            size = int(np.prod(shape[1:]))
+            out.append(packed[:, cur:cur + size].reshape(shape).astype(np.int32))
             cur += size
         return out
 
-    def decode(self, codes: Sequence[np.ndarray], toImage: bool = False) -> np.ndarray:
-        """codes per level [n, m, h, w] -> restored NHWC, still padded: float
-        in [-1, 1], or uint8 when toImage."""
+    def encode(self, x: np.ndarray) -> List[np.ndarray]:
+        """NHWC images, uint8 or float in [-1, 1] -> codes per level
+        [n, m, h, w] int32. The images are reflect-padded to multiples of
+        ALIGN; uint8 is mapped to [-1, 1] on the device, float is uploaded as
+        float32 and cast to the model's type."""
+        inFlight, shapes = self._encodeDispatch(x)
+        return self._splitCodes(inFlight.wait(), shapes)
+
+    def _decodeDispatch(self, codes: Sequence[np.ndarray], toImage: bool) -> _InFlight:
+        """Upload the packed codes, decode and start the download."""
         n = codes[0].shape[0]
         packed = np.concatenate([np.asarray(c).reshape(n, -1) for c in codes], 1)
         packed = packed.astype(np.uint16).view(np.int16)
         with exactFp32(), torch.inference_mode():
-            flat = torch.from_numpy(packed).to(self._device).to(torch.int64) & 0xFFFF
+            flat = self._upload(packed).to(torch.int64) & 0xFFFF
             levels, cur = [], 0
             for c in codes:
                 size = int(np.prod(c.shape[1:]))
@@ -93,16 +151,25 @@ class CompressorEngine:
             y = self._model.decode(levels)
             if toImage:
                 y = torch.clamp(torch.round((y * 0.5 + 0.5) * 255.0), 0, 255).to(torch.uint8)
-            return y.permute(0, 2, 3, 1).cpu().numpy()
+            return self._download(y.permute(0, 2, 3, 1).contiguous())
 
-    def compress(self, x: np.ndarray) -> Tuple[List[np.ndarray], List[List[bytes]], List[FileHeader]]:
-        """uint8 NHWC images -> (codes, binaries[n][level], headers[n])."""
-        n, h, w, c = x.shape
-        codes = self.encode(x)
+    def decode(self, codes: Sequence[np.ndarray], toImage: bool = False) -> np.ndarray:
+        """codes per level [n, m, h, w] -> restored NHWC, still padded: float
+        in [-1, 1], or uint8 when toImage."""
+        return self._decodeDispatch(codes, toImage).wait()
+
+    def _entropyCode(self, codes: List[np.ndarray], shape) -> Tuple[List[List[bytes]], List[FileHeader]]:
+        n, h, w, c = shape
         binaries, codeSizes = self._coder.compress(codes)
         headers = [FileHeader(mcquic_tpu_torch.__version__, self._qp, cs, ImageSize(h, w, c))
                    for cs in codeSizes]
-        return codes, binaries, headers
+        return binaries, headers
+
+    def compress(self, x: np.ndarray) -> Tuple[List[np.ndarray], List[List[bytes]], List[FileHeader]]:
+        """NHWC images (uint8, or float in [-1, 1]) -> (codes,
+        binaries[n][level], headers[n])."""
+        codes = self.encode(x)
+        return (codes, *self._entropyCode(codes, np.shape(x)))
 
     def decompress(self, binaries: List[List[bytes]], headers: List[FileHeader],
                    toImage: bool = False) -> np.ndarray:
@@ -111,6 +178,53 @@ class CompressorEngine:
         ims = headers[0].ImageSize
         return centerCropTo(self.decode(codes, toImage), ims.height, ims.width)
 
+    # ------------------------------------------------------------- pipelined
+    def compressMany(self, batches: Iterable[np.ndarray]
+                     ) -> List[Tuple[List[List[bytes]], List[FileHeader]]]:
+        """Pipelined multi-batch compression (`engine.py:262-316`): batch i's
+        codes are entropy-coded on a worker thread while the card encodes
+        batch i+1. Returns (binaries, headers) per batch, the same as
+        `compress` once per batch."""
+        jobs, pending = [], None
+        with ThreadPoolExecutor(1) as worker:
+            for x in batches:
+                x = np.asarray(x)
+                inFlight = self._encodeDispatch(x)
+                if pending is not None:
+                    jobs.append(self._submitRans(worker, *pending))
+                pending = (inFlight, x.shape)
+            if pending is not None:
+                jobs.append(self._submitRans(worker, *pending))
+            return [job.result() for job in jobs]
+
+    def _submitRans(self, worker, encoded, shape):
+        inFlight, levelShapes = encoded
+        return worker.submit(self._entropyCode, self._splitCodes(inFlight.wait(), levelShapes),
+                             shape)
+
+    def decompressMany(self, items: Iterable[Tuple[List[List[bytes]], List[FileHeader]]]
+                       ) -> List[np.ndarray]:
+        """Pipelined multi-batch decompression (`engine.py:318-340`): the host
+        rANS decode of batch i+1 overlaps the card's decode of batch i.
+        items: (binaries[n][level], headers[n]) per batch; returns the
+        restored float NHWC batches, cropped to their recorded sizes."""
+        results, pending = [], None
+        for binaries, headers in items:
+            codes = self._coder.decompress(binaries, [h.CodeSize for h in headers])
+            inFlight = self._decodeDispatch(codes, toImage=False)
+            if pending is not None:
+                results.append(self._cropped(*pending))
+            pending = (inFlight, headers)
+        if pending is not None:
+            results.append(self._cropped(*pending))
+        return results
+
+    @staticmethod
+    def _cropped(inFlight: _InFlight, headers: List[FileHeader]) -> np.ndarray:
+        ims = headers[0].ImageSize
+        return centerCropTo(inFlight.wait(), ims.height, ims.width)
+
+    # -------------------------------------------------------------- wrappers
     def compressImage(self, img: np.ndarray) -> File:
         """uint8 HWC image -> `.mcq` File."""
         _, binaries, headers = self.compress(np.asarray(img, np.uint8)[None])

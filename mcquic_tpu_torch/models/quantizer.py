@@ -213,6 +213,12 @@ class ResidualBackwardQuantizer(nn.Module):
             quantized = quantized + formerLevel
         return self._decoders[len(self.size) - 1 - level](quantized)
 
+    def residual_backward(self, code: torch.Tensor, level: int) -> torch.Tensor:
+        """A level's codes through its backward stack (quantizer.py:671-674);
+        level counts from 1, the smallest. The smallest level's backward is
+        the identity."""
+        return self._backwards[len(self.size) - level](vqDequantizeCodes(code, self.codebook))
+
     def decode(self, codes: Sequence[torch.Tensor]) -> torch.Tensor:
         """codes small -> large -> latent [n, 8, H, W] (quantizer.py:695-703)."""
         formerLevel = None

@@ -7,12 +7,16 @@ JAX package's `Conv` pads at every stride. `PixelShuffleConv` is
 
 A thin up-conv (3x3, fewer than 32 output channels after the shuffle; in
 the v1 codec only the decoder's final RGB head) runs through
-`ops/subpixel_cuda.py::conv3x3SubpixelThin`: kernel K2 on CUDA, its plain
-version on the CPU. Every other up-conv is `conv2d` + `pixel_shuffle`.
+`ops/subpixel_cuda.py::conv3x3SubpixelThin` where the JAX package's
+`_UpConv` takes its Pallas head: the kernel takes the shapes
+(`thinHeadSupported`), the input is fp32, and no gradient is needed. That
+is kernel K2 on CUDA and its plain version on the CPU. Every other up-conv
+is `conv2d` + `pixel_shuffle`.
 """
+import torch
 from torch import nn
 
-from mcquic_tpu_torch.ops.subpixel_cuda import conv3x3SubpixelThin
+from mcquic_tpu_torch.ops.subpixel_cuda import conv3x3SubpixelThin, thinHeadSupported
 
 THIN_FEATURES = 32
 
@@ -41,8 +45,12 @@ class PixelShuffleConv(nn.Sequential):
         self.thin = kernel == 3 and features < THIN_FEATURES
 
     def forward(self, x):
-        if self.thin:
-            return conv3x3SubpixelThin(x, self[0].weight, self[0].bias, self.rate)
+        conv = self[0]
+        if (self.thin and x.dtype == torch.float32
+                and thinHeadSupported(x.shape, conv.weight.shape, self.rate)
+                and not (torch.is_grad_enabled() and any(
+                    t is not None and t.requires_grad for t in (x, conv.weight, conv.bias)))):
+            return conv3x3SubpixelThin(x, conv.weight, conv.bias, self.rate)
         return super().forward(x)
 
 

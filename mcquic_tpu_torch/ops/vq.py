@@ -6,12 +6,16 @@ channels `g*d:(g+1)*d`, the same split as the JAX package's
 `[n, h, w, m, d]`); codes are `[n, m, h, w]`, the layout of the `.mcq`
 container.
 
-`vqEncode` routes the nearest-codeword search to kernel K1
-(ops/vq_cuda.py) for a CUDA tensor and to `vqEncodePlain` for a CPU one.
+`vqEncode` routes the nearest-codeword search as
+`mcquic_tpu/ops/vq_pallas.py::vqEncodeFused` does: kernel K1 (ops/vq_cuda.py)
+when the codebook fits the resident budget, kernel K1b
+(ops/vq_grouped_cuda.py) otherwise. Both wrappers run `vqEncodePlain` for a
+CPU tensor.
 """
 import torch
 
 CHUNK = 1024
+RESIDENT_BUDGET = 8 * 1024 * 1024    # bytes of fp32 codebook + norms (vq_pallas.py:209)
 
 
 def groupLatent(x: torch.Tensor, m: int) -> torch.Tensor:
@@ -59,12 +63,27 @@ def latentTokens(x: torch.Tensor) -> torch.Tensor:
     return x.permute(1, 0, 3, 4, 2).reshape(m, n * h * w, d).float().contiguous()
 
 
+def residentFits(m: int, k: int, d: int) -> bool:
+    """True when the fp32 codebook and its norms, k rounded up to 128, fit
+    the resident kernel's budget (`vq_pallas.py::residentFits`)."""
+    kp = -(-k // 128) * 128
+    return m * kp * (d + 1) * 4 <= RESIDENT_BUDGET
+
+
 def vqEncode(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """Nearest-codeword indices: x [n, m, d, h, w], codebook [m, k, d] ->
-    codes [n, m, h, w] int32 (K1 on CUDA, the plain version on the CPU)."""
-    from mcquic_tpu_torch.ops.vq_cuda import vqNearest
+    codes [n, m, h, w] int32.
+
+    K1 when `residentFits`, as `vqEncodeFused` chooses, and K1b otherwise.
+    K1b also takes every d past K1's `MAX_D`: K1 keeps a whole d-vector tile
+    of tokens and codewords in shared memory, and the card's shared memory
+    per block is what caps d there."""
+    from mcquic_tpu_torch.ops.vq_cuda import MAX_D, vqNearest
+    from mcquic_tpu_torch.ops.vq_grouped_cuda import vqNearestGrouped
     n, m, d, h, w = x.shape
-    codes = vqNearest(latentTokens(x), codebook.float().contiguous())   # [m, T]
+    k = codebook.shape[1]
+    search = vqNearest if residentFits(m, k, d) and d <= MAX_D else vqNearestGrouped
+    codes = search(latentTokens(x), codebook.float().contiguous())   # [m, T]
     return codes.reshape(m, n, h, w).permute(1, 0, 2, 3)
 
 

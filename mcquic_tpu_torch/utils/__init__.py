@@ -25,13 +25,18 @@ def exactFp32():
     """fp32 convolutions and matmuls with TF32 off, for the duration of a call.
 
     cuDNN runs fp32 convolutions in TF32 by default, which flips near-tie
-    codes against the reference. `cudnn.flags` restores the previous settings
-    on exit; its `enabled` defaults to False, so it is passed explicitly.
+    codes against the reference. cuDNN also times its candidate algorithms
+    once per shape (`benchmark`): without that, its heuristic picks an FFT
+    algorithm for some fp32 convolutions at 192 channels that launches one
+    small complex GEMM per frequency, about 33,000 launches per convolution,
+    which made a qp-12 encode 1.9 s of device time at batch 1 on the H100.
+    `cudnn.flags` restores the previous settings on exit; its `enabled`
+    defaults to False, so it is passed explicitly.
     """
     matmulTf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+        with torch.backends.cudnn.flags(enabled=True, benchmark=True,
                                         deterministic=False, allow_tf32=False):
             yield
     finally:

@@ -353,6 +353,14 @@ def bf16ToFloat32(u16: np.ndarray) -> np.ndarray:
     return (np.asarray(u16, np.uint16).astype(np.uint32) << 16).view(np.float32)
 
 
+def float32ToBf16(x: np.ndarray) -> np.ndarray:
+    """float32 -> the uint16 bits of the nearest bfloat16, ties to even (what
+    `ml_dtypes` and the JAX package's `exportModel(bf16=True)` give for
+    finite values)."""
+    bits = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    return ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16).astype(np.uint16)
+
+
 def readExport(path) -> Tuple[Dict[str, np.ndarray], dict]:
     """An exported model file -> (flat fp32 arrays, sidecar metadata)."""
     path = Path(path)
@@ -379,6 +387,30 @@ def writeExport(path, flat: Dict[str, np.ndarray], meta: dict) -> Path:
         np.savez(fp, **flat)
     path.with_suffix(".json").write_text(json.dumps(meta))
     return path
+
+
+def exportModel(path, flat: Dict[str, np.ndarray], config: dict, qp: str = "-1",
+                bf16: bool = False) -> Path:
+    """A deploy model in the JAX package's format (`train/saver.py::exportModel`):
+    the `params/...` and `coder/...` arrays and a json sidecar
+    `{config, version, qp}`, renamed `<stem>_<sha256[:8]>.mcquic.npz`. With
+    `bf16`, float32 params are stored as bfloat16 bits under `key@bf16`;
+    the coder's frequency tables stay exact."""
+    from mcquic_tpu_torch import __version__
+    out = {}
+    for key, value in flat.items():
+        if not key.startswith(("params/", "coder/")):
+            continue
+        value = np.asarray(value)
+        if bf16 and key.startswith("params/") and value.dtype == np.float32:
+            out[key + BF16_SUFFIX] = float32ToBf16(value)
+        else:
+            out[key] = value
+    path = writeExport(path, out, {"config": config, "version": __version__, "qp": qp})
+    final = path.with_name(f"{path.stem.split('.')[0]}_{hashOfFile(path)[:8]}.mcquic.npz")
+    path.replace(final)
+    path.with_suffix(".json").replace(final.with_suffix(".json"))
+    return final
 
 
 def modelsHash() -> Dict[str, str]:

@@ -106,6 +106,105 @@ def test_alignment_matches_the_jax_package(h, w):
 
 
 def test_encode_takes_uint8_images_only(engines, image):
+    """uint8 and float input both encode: float in [-1, 1] is uploaded as it
+    is, uint8 is normalized on the device by the same arithmetic, so the
+    codes are the same. Only [n, h, w, c] batches are taken."""
+    from mcquic_tpu_torch.data.transforms import imageToModelInput
     _, engine = engines
-    with pytest.raises(TypeError, match="uint8"):
-        engine.encode(image[None].astype(np.float32))
+    fromFloat = engine.encode(imageToModelInput(image[None]))
+    for a, b in zip(fromFloat, engine.encode(image[None])):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match=r"\[n, h, w, c\]"):
+        engine.encode(image.astype(np.float32))
+
+
+def floatBatch(n, h, w, seed):
+    return np.random.default_rng(seed).uniform(-1, 1, size=(n, h, w, 3)).astype(np.float32)
+
+
+def test_float_input_codes_and_bytes_match_jax(engines):
+    """Fault C1: the same float batch through both engines gives the same
+    fp64 codes and the same `.mcq` bytes."""
+    jaxEngine, engine = engines
+    x = floatBatch(2, 96, 112, seed=3)
+    with jax.enable_x64():
+        jaxCodes, jaxBinaries, jaxHeaders = jaxEngine.compress(x)
+    codes, binaries, headers = engine.compress(x)
+    for ours, theirs in zip(codes, jaxCodes):
+        np.testing.assert_array_equal(ours, theirs)
+    for i in range(2):
+        assert (File(headers[i], binaries[i]).serialize()
+                == JaxFile(jaxHeaders[i], jaxBinaries[i]).serialize())
+
+
+BATCHES = [(2, 96, 112), (2, 128, 128), (2, 64, 80)]     # one padded shape: one compile
+
+
+def test_compress_many_matches_per_batch_compress_and_jax(engines):
+    jaxEngine, engine = engines
+    batches = [floatBatch(*shape, seed=i) for i, shape in enumerate(BATCHES)]
+    many = engine.compressMany(batches)
+    with jax.enable_x64():
+        jaxMany = jaxEngine.compressMany(batches)
+    assert len(many) == len(jaxMany) == len(BATCHES)
+    for x, (binaries, headers), (jaxBinaries, jaxHeaders) in zip(batches, many, jaxMany):
+        _, once, onceHeaders = engine.compress(x)
+        assert binaries == once == jaxBinaries
+        for h, o, j in zip(headers, onceHeaders, jaxHeaders):
+            assert (File(h, [b"x"]).serialize() == File(o, [b"x"]).serialize()
+                    == JaxFile(j, [b"x"]).serialize())
+
+
+def test_decompress_many_matches_jax(engines):
+    jaxEngine, engine = engines
+    batches = [floatBatch(*shape, seed=10 + i) for i, shape in enumerate(BATCHES)]
+    items = engine.compressMany(batches)
+    restored = engine.decompressMany(items)
+    with jax.enable_x64():
+        jaxRestored = jaxEngine.decompressMany(items)
+    for ours, theirs, shape in zip(restored, jaxRestored, BATCHES):
+        assert ours.shape == theirs.shape == (*shape, 3)
+        np.testing.assert_allclose(ours, theirs, rtol=0, atol=1e-8)
+        binaries, headers = items[BATCHES.index(shape)]
+        np.testing.assert_array_equal(ours, engine.decompress(binaries, headers))
+
+
+def test_normalized_freq_matches_jax(engines):
+    jaxEngine, engine = engines
+    for ours, theirs in zip(engine.coder.NormalizedFreq, jaxEngine.coder.NormalizedFreq):
+        np.testing.assert_array_equal(ours, theirs)
+        np.testing.assert_allclose(ours.sum(-1), 1.0, rtol=0, atol=1e-12)
+
+
+def test_tiled_file_crosses_packages(engines, image):
+    """A tiled `.mcq` written by either package is byte-identical and
+    restores in the other to the same image."""
+    from mcquic_tpu.models.tiling import TiledFile as JaxTiledFile
+    from mcquic_tpu.models.tiling import compressTiled as jaxCompressTiled
+    from mcquic_tpu.models.tiling import decompressTiled as jaxDecompressTiled
+    from mcquic_tpu_torch.models.tiling import TiledFile, compressTiled, decompressTiled
+    jaxEngine, engine = engines
+    with jax.enable_x64():
+        jaxBytes = jaxCompressTiled(jaxEngine, image, tile=64).serialize()
+    portBytes = compressTiled(engine, image, tile=64).serialize()
+    assert portBytes == jaxBytes
+    assert TiledFile.isTiled(portBytes) and not TiledFile.isTiled(engine.compressImage(image).serialize())
+    tf = TiledFile.deserialize(jaxBytes)
+    assert (tf.rows, tf.cols, tf.tile, tf.height, tf.width, tf.qp) == (2, 2, 64, 96, 112, "7")
+    ours = decompressTiled(engine, tf)
+    with jax.enable_x64():
+        theirs = jaxDecompressTiled(jaxEngine, JaxTiledFile.deserialize(portBytes))
+    assert ours.shape == image.shape and ours.dtype == np.uint8
+    np.testing.assert_array_equal(ours, theirs)
+
+
+def test_rans_library_releases_the_gil():
+    """compressMany runs rANS on a worker thread while the main thread
+    launches the next batch: that overlaps only if the ctypes calls release
+    the GIL, which a `CDLL` does and a `PyDLL` does not."""
+    import ctypes
+    from mcquic_tpu_torch.coding import rans
+    lib = rans._library()
+    assert type(lib) is ctypes.CDLL
+    assert not lib.mcq_encode_batch._flags_ & ctypes._FUNCFLAG_PYTHONAPI
+    assert not lib.mcq_decode_batch._flags_ & ctypes._FUNCFLAG_PYTHONAPI

@@ -100,6 +100,29 @@ def test_generate_runs_without_the_jax_package_and_its_dependencies(tmp_path):
         assert image.shape == (32, 32, 3) and image.dtype == np.uint8
 
 
+def test_tiled_codec_runs_without_the_jax_package_and_its_dependencies(tmp_path):
+    """`--crop` and `--tile` through the guarded CLI; every module of the
+    package, `validate/` and `models/tiling.py` among them, is imported."""
+    image = readPng(ROOT / "assets" / "photo_768x512.png")[:300, :200]
+    writePng(tmp_path / "in.png", image)
+    runs = [["--device", "cpu", "--local", str(TINY), "--crop", "--tile", "64",
+             str(tmp_path / "in.png"), str(tmp_path / "out.mcq")],
+            ["--device", "cpu", "--local", str(TINY), str(tmp_path / "out.mcq"),
+             str(tmp_path / "out.png")]]
+    script = GUARD.format(blocked=BLOCKED, root=str(ROOT), runs=runs)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "round trip ok" in proc.stdout
+    import pkgutil
+    import mcquic_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(mcquic_tpu_torch.__path__, "mcquic_tpu_torch.")}
+    assert {"mcquic_tpu_torch.validate.cli", "mcquic_tpu_torch.validate.validator",
+            "mcquic_tpu_torch.models.tiling", "mcquic_tpu_torch.ops.vq_grouped_cuda",
+            "mcquic_tpu_torch.loss", "mcquic_tpu_torch.data"} <= names
+    assert readPng(tmp_path / "out.png").shape == (256, 128, 3)     # the crop, 4 x 2 tiles
+
+
 def _portFiles():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 

@@ -11,10 +11,15 @@ ends:
   1. environment: torch / CUDA / nvcc versions, the card, its power limit;
   2. build: kernels K1 (csrc/vq_encode.cu), K1b (csrc/vq_grouped.cu), K2
      (csrc/thin_head.cu) and K3 (csrc/flash_attention.cu) with nvcc and the
-     rANS runtime with g++, all started together;
+     rANS runtime with g++, all started together; ptxas's registers and
+     spills of K1b and K3;
   3. kernels against their plain versions on the card, fp32 with TF32 off,
-     at the main paths' shapes, with CUDA-event times of the kernel, the
-     plain version and one library call computing the same function;
+     at the main paths' shapes, with two times each for the kernel, the
+     plain version and one library call computing the same function: `ms`,
+     the CUDA-event median of single calls (the wrapper's host work before
+     the launch included, as in earlier runs), and `device_ms`, the device
+     time of one call in a run of 20 back-to-back calls (`deviceMs`); K3's
+     per-call host microseconds beside SDPA's;
   4. the codec path at full width: the qp-2 zoo model compresses
      assets/photo_768x512.png to a `.mcq` and restores it; bpp and PSNR are
      held to the registered 0.1090 bpp / 25.15 dB, the codes and the restore
@@ -83,9 +88,11 @@ TILE = 256
 TILE_BATCH_MAX_DIFF = 1          # uint8 levels: cuDNN picks algorithms by batch size, so the same
                                  # codes decoded one by one and as a batch of 6 round differently
 
-# H100 SXM peaks (NVIDIA data sheet; dense, 700 W): fp32 on the CUDA cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet; dense, 700 W): fp32 on the CUDA cores, HBM3,
+# TF32 on the tensor cores (K3 takes three TF32 products per fp32 product)
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+PEAK_TF32_FLOPS = 495e12
 
 
 class Phase:
@@ -106,10 +113,53 @@ class Phase:
         return False
 
 
-def bound(flops: float, nbytes: float):
-    """(least ms the card could take, what bounds it)."""
-    compute, memory = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
+    """(least ms the card could take, what bounds it): `flops` operations
+    at `peak` per second against `nbytes` at the HBM rate."""
+    compute, memory = flops / peak, nbytes / PEAK_HBM_BYTES
     return max(compute, memory) * 1e3, "operations" if compute >= memory else "bytes"
+
+
+def deviceMs(torch, fn, cyclesPerMs: float, iters: int = 20, repeats: int = 3):
+    """(device ms of one call, host us of one call).
+
+    CUDA events around `iters` back-to-back calls, over `iters`, the median
+    of `repeats` runs after warm-up. A sleep kernel queued first holds the
+    card until the host has queued the calls, so the wrapper's host work does
+    not show in the device time. The host time is the host clock around
+    `iters` calls, after a synchronize, with nothing queued before them."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    hostS = time.perf_counter() - start
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2 * hostS * 1e3 * cyclesPerMs) + 100000)
+        begin.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(begin.elapsed_time(end) / iters)
+    return statistics.median(times), hostS / iters * 1e6
+
+
+def sleepCyclesPerMs(torch) -> float:
+    """The rate of `torch.cuda._sleep`, from CUDA events around one sleep."""
+    torch.cuda._sleep(1000000)
+    begin = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    begin.record()
+    torch.cuda._sleep(10000000)
+    end.record()
+    end.synchronize()
+    return 10000000 / begin.elapsed_time(end)
 
 
 def medianMs(torch, fn, warmup: int = 5, iters: int = 20) -> float:
@@ -213,18 +263,19 @@ def main() -> int:
     from mcquic_tpu_torch.models.generator import GeneratorV3SelfAttention, blockCausalMask
     from mcquic_tpu_torch.ops import attention_cuda, subpixel_cuda, vq_cuda, vq_grouped_cuda
     from mcquic_tpu_torch.ops.attention import flashAttentionPlain
-    from mcquic_tpu_torch.ops.attention_cuda import flashAttention
+    from mcquic_tpu_torch.ops.attention_cuda import attentionPlan, flashAttention
     from mcquic_tpu_torch.ops.subpixel_cuda import conv3x3SubpixelPlain, conv3x3SubpixelThin
     from mcquic_tpu_torch.ops.vq import groupLatent, latentTokens, vqEncodePlain
     from mcquic_tpu_torch.ops.vq_cuda import vqNearest
     from mcquic_tpu_torch.ops.vq_grouped_cuda import vqNearestGrouped
     from mcquic_tpu_torch.utils import exactFp32
-    from mcquic_tpu_torch.utils.build import findNvcc
+    from mcquic_tpu_torch.utils.build import buildLog, findNvcc
     from mcquic_tpu_torch.utils.convert import readExport
     from mcquic_tpu_torch.validate.validator import Validator
 
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     with Phase("1 environment"):
         print(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -255,13 +306,20 @@ def main() -> int:
             for job in jobs:
                 name, seconds = job.result()
                 print(f"  built {name} in {seconds:.2f} s", flush=True)
+        for stem in ("vq_grouped", "flash_attention"):      # the kernels redesigned last
+            for line in buildLog(stem).splitlines():
+                if "entry function" in line or "spill" in line or "Used" in line:
+                    print(f"  ptxas {stem}: {line.strip()}", flush=True)
 
     gen = torch.Generator(device=device).manual_seed(0)
     levels = [(2, 1536, 8192, 64), (2, 384, 2048, 64), (2, 96, 512, 64)]   # (m, T, k, d)
-    k1 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
+    k1 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0,
+          "device_ms": 0.0, "plain_device_ms": 0.0, "library_device_ms": 0.0}
     k2 = {}
     k3 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0,
-          "flops": 0.0, "bytes": 0.0}
+          "flops": 0.0, "bytes": 0.0, "device_ms": 0.0, "plain_device_ms": 0.0,
+          "library_device_ms": 0.0, "host_us": 0.0, "library_host_us": 0.0,
+          "bound_fp32_ms": 0.0}
     geometry = GEN_STAGE2_NEON_A
     lengths = [s * s for s in sorted(geometry["size"])]         # 1, 1, 4, ..., 256: 426 tokens
     heads, headDim = geometry["nHeads"], geometry["hiddenSize"] // geometry["nHeads"]
@@ -270,6 +328,12 @@ def main() -> int:
         print("  kernels: K1 vq_nearest (csrc/vq_encode.cu), K1b vq_grouped (csrc/vq_grouped.cu), "
               "K2 thin_head (csrc/thin_head.cu), K3 flash_attention (csrc/flash_attention.cu)",
               flush=True)
+        cyclesPerMs = sleepCyclesPerMs(torch)
+
+        def devicePair(kernel, plain, library):
+            """Device ms of the kernel, its plain version and the library call."""
+            return [deviceMs(torch, fn, cyclesPerMs)[0] for fn in (kernel, plain, library)]
+
         for m, T, k, d in levels:
             tokens = torch.randn((m, T, d), device=device, generator=gen)
             codebook = torch.randn((m, k, d), device=device, generator=gen)
@@ -278,11 +342,17 @@ def main() -> int:
             ms = medianMs(torch, lambda: vqNearest(tokens, codebook))
             plainMs = medianMs(torch, lambda: vqEncodePlain(tokens, codebook))
             libMs = medianMs(torch, lambda: torch.cdist(tokens, codebook).argmin(-1))
+            dev = devicePair(lambda: vqNearest(tokens, codebook),
+                             lambda: vqEncodePlain(tokens, codebook),
+                             lambda: torch.cdist(tokens, codebook).argmin(-1))
             flops = 2.0 * m * T * k * (d + 1)
             nbytes = 4.0 * (m * T * d + m * k * d + m * T)
             boundMs, k1["bound_by"] = bound(flops, nbytes)
             print(f"  K1 (m,T,k,d)={m, T, k, d}: kernel {ms:.4f} ms, plain {plainMs:.4f} ms, "
-                  f"cdist+argmin {libMs:.4f} ms, bound {boundMs:.4f} ms", flush=True)
+                  f"cdist+argmin {libMs:.4f} ms, bound {boundMs:.4f} ms; device time kernel "
+                  f"{dev[0]:.4f} ms, plain {dev[1]:.4f} ms, cdist+argmin {dev[2]:.4f} ms", flush=True)
+            for key, value in zip(("device_ms", "plain_device_ms", "library_device_ms"), dev):
+                k1[key] += value
             k1["ms"] += ms
             k1["plain_ms"] += plainMs
             k1["library_ms"] += libMs
@@ -321,11 +391,17 @@ def main() -> int:
             row = {"ms": medianMs(torch, lambda: vqNearestGrouped(tokens, codebook)),
                    "plain_ms": medianMs(torch, lambda: vqEncodePlain(tokens, codebook)),
                    "library_ms": medianMs(torch, lambda: torch.cdist(tokens, codebook).argmin(-1))}
+            row["device_ms"], row["plain_device_ms"], row["library_device_ms"] = devicePair(
+                lambda: vqNearestGrouped(tokens, codebook), lambda: vqEncodePlain(tokens, codebook),
+                lambda: torch.cdist(tokens, codebook).argmin(-1))
             row["bound_ms"], row["bound_by"] = bound(2.0 * m * T * k * (d + 1),
                                                      4.0 * (m * T * d + m * k * d + m * T))
             print(f"  K1b (m,T,k,d)={m, T, k, d}: kernel {row['ms']:.4f} ms, plain "
                   f"{row['plain_ms']:.4f} ms, cdist+argmin {row['library_ms']:.4f} ms, bound "
-                  f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}); device time kernel "
+                  f"{row['device_ms']:.4f} ms, plain {row['plain_device_ms']:.4f} ms, cdist+argmin "
+                  f"{row['library_device_ms']:.4f} ms (kernel / library "
+                  f"{row['device_ms'] / row['library_device_ms']:.3f})", flush=True)
             k1b = k1b or dict(row, err=0.0)
             del tokens, codebook
 
@@ -343,11 +419,16 @@ def main() -> int:
         k2["plain_ms"] = medianMs(torch, lambda: conv3x3SubpixelPlain(x, w, b, 2))
         k2["library_ms"] = medianMs(torch, lambda: torch.nn.functional.pixel_shuffle(
             torch.nn.functional.conv2d(x, w, b, padding=1), 2))
+        k2["device_ms"], k2["plain_device_ms"], k2["library_device_ms"] = devicePair(
+            lambda: conv3x3SubpixelThin(x, w, b, 2), lambda: conv3x3SubpixelPlain(x, w, b, 2),
+            lambda: torch.nn.functional.pixel_shuffle(
+                torch.nn.functional.conv2d(x, w, b, padding=1), 2))
         k2["bound_ms"], k2["bound_by"] = bound(2.0 * 256 * 384 * 128 * 9 * 12 + 256 * 384 * 12,
                                                4.0 * (x.numel() + w.numel() + 12 + got.numel()))
         print(f"  K2 [1,128,256,384]: kernel {k2['ms']:.4f} ms, plain {k2['plain_ms']:.4f} ms, "
-              f"conv2d+pixel_shuffle {k2['library_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms",
-              flush=True)
+              f"conv2d+pixel_shuffle {k2['library_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms; "
+              f"device time kernel {k2['device_ms']:.4f} ms, plain {k2['plain_device_ms']:.4f} ms, "
+              f"conv2d+pixel_shuffle {k2['library_device_ms']:.4f} ms", flush=True)
 
         # K3 at the generation path's shapes: each level's queries against the
         # running prefix of a [B, 426, H, D] KV cache, then the uncached path's
@@ -365,19 +446,37 @@ def main() -> int:
             plainMs = medianMs(torch, lambda: flashAttentionPlain(q, k, v))
             libMs = medianMs(torch, lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
                                                  v.transpose(1, 2)))
+            devMs, hostUs = deviceMs(torch, lambda: flashAttention(q, k, v), cyclesPerMs)
+            plainDevMs, _ = deviceMs(torch, lambda: flashAttentionPlain(q, k, v), cyclesPerMs)
+            libDevMs, libHostUs = deviceMs(torch, lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                                                               v.transpose(1, 2)), cyclesPerMs)
             flops = 4.0 * batch * heads * hw * prefix * headDim
             nbytes = 4.0 * batch * heads * headDim * (2 * hw + 2 * prefix)
-            boundMs, k3["bound_by"] = bound(flops, nbytes)
+            # the kernel takes three TF32 products per fp32 product; the fp32
+            # FMA bound is kept beside it
+            boundMs, k3["bound_by"] = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+            fp32BoundMs, _ = bound(flops, nbytes)
             print(f"  K3 (B,H,Tq,Tk,D)={batch, heads, hw, prefix, headDim}: max abs diff {err:.3e}, "
                   f"kernel {ms:.4f} ms, plain {plainMs:.4f} ms, SDPA {libMs:.4f} ms, "
-                  f"bound {boundMs:.5f} ms", flush=True)
+                  f"bound {boundMs:.5f} ms (fp32 FMA {fp32BoundMs:.5f}); device time kernel {devMs:.4f} ms, plain "
+                  f"{plainDevMs:.4f} ms, SDPA {libDevMs:.4f} ms; host per call kernel "
+                  f"{hostUs:.1f} us, SDPA {libHostUs:.1f} us; plan (warps, splits, keys per split) "
+                  f"{attentionPlan(batch, heads, hw, prefix, sms)}", flush=True)
             for key, value in (("ms", ms), ("plain_ms", plainMs), ("library_ms", libMs),
-                               ("bound_ms", boundMs), ("flops", flops), ("bytes", nbytes)):
+                               ("bound_ms", boundMs), ("bound_fp32_ms", fp32BoundMs),
+                               ("flops", flops), ("bytes", nbytes),
+                               ("device_ms", devMs), ("plain_device_ms", plainDevMs),
+                               ("library_device_ms", libDevMs), ("host_us", hostUs),
+                               ("library_host_us", libHostUs)):
                 k3[key] += value
             k3["err"] = max(k3["err"], err)
         print(f"  K3 over the 9 levels: kernel {k3['ms']:.4f} ms, plain {k3['plain_ms']:.4f} ms, "
-              f"SDPA {k3['library_ms']:.4f} ms, bound {k3['bound_ms']:.5f} ms "
-              f"({k3['flops'] / 1e9:.3f} GFLOP, {k3['bytes'] / 1e6:.3f} MB)", flush=True)
+              f"SDPA {k3['library_ms']:.4f} ms, bound {k3['bound_ms']:.5f} ms at three TF32 "
+              f"products, {k3['bound_fp32_ms']:.5f} ms at fp32 FMA ({k3['flops'] / 1e9:.3f} GFLOP, {k3['bytes'] / 1e6:.3f} MB); device time kernel "
+              f"{k3['device_ms']:.4f} ms, plain {k3['plain_device_ms']:.4f} ms, SDPA "
+              f"{k3['library_device_ms']:.4f} ms (kernel / SDPA "
+              f"{k3['device_ms'] / k3['library_device_ms']:.3f}); host per call summed kernel "
+              f"{k3['host_us']:.1f} us, SDPA {k3['library_host_us']:.1f} us", flush=True)
         q, k, v = (torch.randn((batch, total, heads, headDim), device=device, generator=gen)
                    for _ in range(3))
         mask = torch.from_numpy(blockCausalMask(lengths)).to(device, torch.int8)
@@ -388,11 +487,25 @@ def main() -> int:
                   "plain_ms": medianMs(torch, lambda: flashAttentionPlain(q, k, v, mask)),
                   "library_ms": medianMs(torch, lambda: sdpa(
                       q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=maskBool))}
-        masked["bound_ms"], _ = bound(4.0 * batch * heads * total * total * headDim,
-                                      4.0 * batch * heads * headDim * 4 * total + total * total)
+        masked["device_ms"], masked["host_us"] = deviceMs(
+            torch, lambda: flashAttention(q, k, v, mask), cyclesPerMs)
+        masked["plain_device_ms"], _ = deviceMs(
+            torch, lambda: flashAttentionPlain(q, k, v, mask), cyclesPerMs)
+        masked["library_device_ms"], masked["library_host_us"] = deviceMs(torch, lambda: sdpa(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=maskBool), cyclesPerMs)
+        maskedFlops = 4.0 * batch * heads * total * total * headDim
+        maskedBytes = 4.0 * batch * heads * headDim * 4 * total + total * total
+        masked["bound_ms"], _ = bound(3 * maskedFlops, maskedBytes, PEAK_TF32_FLOPS)
+        masked["bound_fp32_ms"], _ = bound(maskedFlops, maskedBytes)
         print(f"  K3 masked (B,H,T,D)={batch, heads, total, headDim}: max abs diff {err:.3e}, "
               f"kernel {masked['ms']:.4f} ms, plain {masked['plain_ms']:.4f} ms, "
-              f"SDPA {masked['library_ms']:.4f} ms, bound {masked['bound_ms']:.5f} ms", flush=True)
+              f"SDPA {masked['library_ms']:.4f} ms, bound {masked['bound_ms']:.5f} ms at three "
+              f"TF32 products, {masked['bound_fp32_ms']:.5f} ms at fp32 FMA; device time "
+              f"kernel {masked['device_ms']:.4f} ms, plain {masked['plain_device_ms']:.4f} ms, SDPA "
+              f"{masked['library_device_ms']:.4f} ms (kernel / SDPA "
+              f"{masked['device_ms'] / masked['library_device_ms']:.3f}); host per call kernel "
+              f"{masked['host_us']:.1f} us, SDPA {masked['library_host_us']:.1f} us; plan "
+              f"{attentionPlan(batch, heads, total, total, sms)}", flush=True)
         torch.cuda.synchronize()
 
     with Phase("4 main path"):
@@ -800,20 +913,25 @@ def main() -> int:
         {"name": "vq_nearest", "route": "cuda", "source": "mcquic_tpu_torch/csrc/vq_encode.cu",
          "replaces": "mcquic_tpu/ops/vq_pallas.py:162", "launches": launches["K1"],
          "max_abs_err": k1["err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
+         "device_ms": k1["device_ms"], "library_device_ms": k1["library_device_ms"]},
         {"name": "vq_grouped", "route": "cuda", "source": "mcquic_tpu_torch/csrc/vq_grouped.cu",
          "replaces": "mcquic_tpu/ops/vq_pallas.py:75", "launches": pastLaunches["K1b"],
          "max_abs_err": k1b["err"], "ms": k1b["ms"], "plain_ms": k1b["plain_ms"],
-         "bound_ms": k1b["bound_ms"], "bound_by": k1b["bound_by"], "library_ms": k1b["library_ms"]},
+         "bound_ms": k1b["bound_ms"], "bound_by": k1b["bound_by"], "library_ms": k1b["library_ms"],
+         "device_ms": k1b["device_ms"], "library_device_ms": k1b["library_device_ms"]},
         {"name": "thin_head", "route": "cuda", "source": "mcquic_tpu_torch/csrc/thin_head.cu",
          "replaces": "mcquic_tpu/ops/subpixel_pallas.py:118", "launches": launches["K2"],
          "max_abs_err": k2["err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]},
+         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],
+         "device_ms": k2["device_ms"], "library_device_ms": k2["library_device_ms"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "mcquic_tpu_torch/csrc/flash_attention.cu",
          "replaces": "mcquic_tpu/ops/attention_pallas.py:144", "launches": k3["launches"],
          "max_abs_err": k3["err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
-         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]},
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
+         "device_ms": k3["device_ms"], "library_device_ms": k3["library_device_ms"],
+         "bound_fp32_ms": k3["bound_fp32_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,156 +4,394 @@
 // _kernelResident, maskless, and _kernel, masked), entry flashAttention.
 // For each batch b, head h and query row i it returns
 //     sum_j softmax_j(scale * q[b,i,h] . k[b,j,h] + (mask[i,j] - 1) * 1e9) v[b,j,h]
-// with the mask term only when a mask is given, in fp32 throughout, as the
-// plain version ops/attention.py::flashAttentionPlain does.
+// with the mask term only when a mask is given, as the plain version
+// ops/attention.py::flashAttentionPlain does.
 //
 // Layout: q, k, v and out are [B, T, H, D] with D contiguous, read through
 // their batch, row and head strides, so the generator's layout needs no
 // transpose and a prefix slice of a [B, Lmax, H, D] KV cache is passed as
-// it is. The mask is int8 [Tq, Tk] with a row stride.
+// it is. k and v are copied with 16-byte cp.async where D is a multiple of
+// 4 and their base pointers and strides are 16-byte aligned, and with
+// 4-byte cp.async otherwise (any D up to 128). The mask is int8 [Tq, Tk]
+// with a row stride.
 //
 // Bound: at the generator's shapes (B 4, H 8, D 64, Tk <= 426) one call
 // moves at most 14 MB and does at most 1.5 GFLOP (the uncached 426-token
-// call): 4 us of memory traffic against 22 us of fp32 arithmetic, so
-// operations bound it; at the small levels launch and latency set its time.
-// The design keeps the [Tq, Tk] scores out of device memory: a block owns
-// BQ = 16 query rows of one (batch, head) and streams BK = 32-key tiles of K
-// and V through shared memory. Each of its four warps owns four rows; lane
-// j scores key j of the tile against those rows, the warp reduces the
-// tile's row max and sum with shuffles and keeps a running (max, sum) per
-// row, and each lane keeps the fp32 accumulator of its D / 32 output
-// columns. The output is acc / max(rowSum, 1e-30).
+// call): 4 us of memory traffic against 22 us of fp32 FMA or 9 us of three
+// TF32 products; at the small levels launch and latency set its time.
 //
-// Columns at or past Tk score -inf and add nothing (the key-padding guard);
-// every tile has a valid key at lane 0, so the running max is finite from
-// the first tile on. A row whose keys are all masked stays finite.
+// Design (FlashAttention-2 form on mma.sync):
+//  * Tensor cores. Q.K^T and P.V run as mma.sync.m16n8k8 in TF32 with fp32
+//    accumulators, each operand split a = hi(a) + lo(a) with hi rounded
+//    to TF32 and lo = a - hi (the tensor core truncates it to TF32), and
+//    each product taken as lo.hi + hi.lo + hi.hi (3xTF32). Plain TF32 keeps
+//    10 mantissa bits and would miss the 1e-4 tolerance against the fp32
+//    plain version; the three products keep about 21, and the dropped
+//    lo.lo term is below fp32 rounding. wgmma is not used: its 64-row M tile would be mostly
+//    padding at every level but the last (Tq 1 ... 64 rows per (b, h)).
+//  * Each warp owns 16 query rows; its Q fragments, scores, running
+//    (max, sum) and the [16, D] accumulator stay in registers. The score
+//    fragment (C layout) becomes the A operand of P.V through 8 register
+//    shuffles per 8 keys. The output is acc / max(rowSum, 1e-30).
+//  * K and V come through a 3-stage cp.async ring of 32-key tiles in
+//    dynamic shared memory (csrc/cp_async.cuh), so the next tiles load
+//    while one is computed.
+//    Row strides D + 4 (K) and D + 8 (V) keep the fragment reads free of
+//    bank conflicts.
+//  * Enough blocks at every level: a block holds NW = 1, 2 or 4 warps
+//    (16 * NW query rows) and the keys may be split across blocks
+//    (flash-decoding); split s covers keys [s * keysPerSplit, ...) and
+//    writes its unnormalized accumulator and (max, sum) to scratch, and a
+//    second kernel merges the splits:
+//        M = max_s m_s,  L = sum_s l_s e^(m_s - M),
+//        out = sum_s acc_s e^(m_s - M) / max(L, 1e-30).
+//    The plan (NW, splits, keysPerSplit) is computed in Python,
+//    ops/attention_cuda.py::attentionPlan, where the CPU tests reach it.
 //
-// Arithmetic: fp32 FMA on the CUDA cores, expf (no fast math), no tensor
-// cores. Launchers are plain C functions over raw device pointers and a
-// stream, so the library needs no PyTorch headers (see ops/attention_cuda.py).
+// Keys at or past the split's end score -inf and add nothing (their K and
+// V rows are zero-filled); every tile has a valid key at its first row, so
+// the running max is finite from the first tile on. A row whose keys are
+// all masked stays finite. expf throughout (no fast math).
+//
+// Launchers are plain C functions over raw device pointers and a stream,
+// so the library needs no PyTorch headers.
 #include <cuda_runtime.h>
+
+#include <atomic>
 #include <cstdint>
+
+#include "cp_async.cuh"
 
 namespace {
 
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int RPW = 4;                 // query rows per warp
-constexpr int BQ = WARPS * RPW;        // 16 query rows per block
-constexpr int BK = 32;                 // keys per tile, one per lane
+using mcq::cpAsync16;
+using mcq::cpAsync4;
+using mcq::cpCommit;
+using mcq::cpWait;
+
+constexpr int BK = 32;         // keys per tile
+constexpr int STAGES = 3;      // cp.async ring depth
 constexpr int DMAX = 128;
-constexpr int SLOTS = DMAX / 32;       // output columns per lane
 
-__device__ __forceinline__ float warpMax(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warpSum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-struct Strides {
-  long long b, t, h;
+struct Params {
+  const float* q;
+  const float* k;
+  const float* v;
+  const int8_t* mask;
+  long long maskRow;
+  float* out;
+  float* partAcc;   // [splits, B*H, Tq, D] when splits > 1
+  float* partStat;  // [splits, B*H, Tq, 2] (max, sum)
+  int H, Tq, Tk, D, keysPerSplit, splits;
+  float scale;
+  bool vec;         // k and v take 16-byte copies
+  long long qb, qt, qh, kb, kt, kh, vb, vt, vh, ob, ot, oh;
 };
 
-// grid (ceil(Tq / BQ), B * H)
-__global__ void __launch_bounds__(THREADS)
-flashAttentionKernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const int8_t* __restrict__ mask,
-                     long long maskRow, float* __restrict__ out, int H, int Tq, int Tk,
-                     int D, float scale, Strides qs, Strides ks, Strides vs, Strides os) {
-  __shared__ float qTile[BQ][DMAX];
-  __shared__ float kTile[BK][DMAX + 1];   // +1: lane j reads row j, distinct banks
-  __shared__ float vTile[BK][DMAX];
-  __shared__ float pTile[WARPS][RPW][BK];
+// x = hi + lo: hi is x rounded to TF32 (ties away from zero, as
+// cvt.rna.tf32.f32 rounds) with two integer operations, since the
+// conversion unit's cvt runs at a fraction of the ALU rate and was the
+// kernel's bottleneck; lo = x - hi is exact and goes in as it is, the
+// tensor core ignoring its low 13 bits
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
 
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const float* qb = q + b * qs.b + h * qs.h;
-  const float* kb = k + b * ks.b + h * ks.h;
-  const float* vb = v + b * vs.b + h * vs.h;
+// not volatile: the compiler may interleave independent products
+__device__ __forceinline__ void mma(float* c, const uint32_t* a, const uint32_t* b) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 
-  for (int e = tid; e < BQ * D; e += THREADS) {
-    const int r = e / D, d = e % D, t = q0 + r;
-    qTile[r][d] = t < Tq ? qb[t * qs.t + d] : 0.f;
+// c[n] += a . b[n] for N independent n-tiles in 3xTF32, small terms first;
+// each pass runs over all n so that consecutive products are independent
+template <int N>
+__device__ __forceinline__ void mma3(float (*c)[4], const float* a, float (*b)[2], int n) {
+  uint32_t ah[4], al[4], bh[N][2], bl[N][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(a[i], ah[i], al[i]);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    split(b[j][0], bh[j][0], bl[j][0]);
+    split(b[j][1], bh[j][1], bl[j][1]);
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    if (j < n) mma(c[j], al, bh[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    if (j < n) mma(c[j], ah, bl[j]);
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    if (j < n) mma(c[j], ah, bh[j]);
+}
+
+__device__ __forceinline__ float quadMax(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quadSum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// o[c], o[c + 1] = x, y where within D; one 8-byte store where D is even
+// (c is even, and every row of out and of the scratch starts 8-byte aligned)
+__device__ __forceinline__ void store2(float* o, int c, int D, float x, float y) {
+  if ((D & 1) == 0) {
+    if (c < D) *reinterpret_cast<float2*>(o + c) = make_float2(x, y);
+  } else {
+    if (c < D) o[c] = x;
+    if (c + 1 < D) o[c + 1] = y;
+  }
+}
+
+template <int DP>
+constexpr int ringBytes() {
+  return STAGES * BK * ((DP + 4) + (DP + 8)) * 4;
+}
+
+// grid (ceil(Tq / (16 NW)), B * H, splits), NW * 32 threads,
+// ringBytes<DP>() of dynamic shared memory; D <= DP.
+template <int NW, int DP>
+__global__ void __launch_bounds__(NW * 32) flashAttentionKernel(const Params p) {
+  constexpr int KS = DP + 4, VS = DP + 8, THREADS = NW * 32, DT = DP / 8;
+  extern __shared__ float4 ringRaw[];
+  float* kRing = reinterpret_cast<float*>(ringRaw);
+  float* vRing = kRing + STAGES * BK * KS;
+
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H, split = blockIdx.z;
+  const int kBegin = split * p.keysPerSplit;
+  const int kEnd = min(p.Tk, kBegin + p.keysPerSplit);
+  const int nTiles = (kEnd - kBegin + BK - 1) / BK;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.x * 16 * NW + warp * 16;
+  const int D = p.D, dSteps = (D + 7) >> 3, pieces = D >> 2;
+  const float* kBase = p.k + b * p.kb + h * p.kh;
+  const float* vBase = p.v + b * p.vb + h * p.vh;
+
+  // columns [D, 8 * dSteps) are read by the mma but never copied: zero them once
+  for (int e = tid; e < STAGES * BK * (8 * dSteps - D); e += THREADS) {
+    const int r = e / (8 * dSteps - D), c = D + e % (8 * dSteps - D);
+    kRing[r * KS + c] = 0.f;
+    vRing[r * VS + c] = 0.f;
   }
 
-  float acc[RPW][SLOTS];
-  float rowMax[RPW], rowSum[RPW];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    rowMax[r] = -INFINITY;
-    rowSum[r] = 0.f;
-#pragma unroll
-    for (int s = 0; s < SLOTS; ++s) acc[r][s] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < Tk; k0 += BK) {
-    __syncthreads();                     // the previous tile is consumed
-    for (int e = tid; e < BK * D; e += THREADS) {
-      const int j = e / D, d = e % D, key = k0 + j;
-      kTile[j][d] = key < Tk ? kb[key * ks.t + d] : 0.f;
-      vTile[j][d] = key < Tk ? vb[key * vs.t + d] : 0.f;
-    }
-    __syncthreads();
-
-    const int key = k0 + lane;
-    const bool valid = key < Tk;
-    float s[RPW];
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) s[r] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float kd = kTile[lane][d];
-#pragma unroll
-      for (int r = 0; r < RPW; ++r) s[r] = fmaf(qTile[warp * RPW + r][d], kd, s[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const int row = q0 + warp * RPW + r;
-      float score = s[r] * scale;
-      if (mask != nullptr && valid && row < Tq)
-        score += ((float)mask[row * maskRow + key] - 1.f) * 1e9f;
-      score = valid ? score : -INFINITY;
-      const float newMax = fmaxf(rowMax[r], warpMax(score));
-      const float correction = expf(rowMax[r] - newMax);
-      const float p = valid ? expf(score - newMax) : 0.f;
-      rowSum[r] = rowSum[r] * correction + warpSum(p);
-      rowMax[r] = newMax;
-#pragma unroll
-      for (int sl = 0; sl < SLOTS; ++sl) acc[r][sl] *= correction;
-      pTile[warp][r][lane] = p;
-    }
-    __syncwarp();
-    for (int j = 0; j < BK; ++j) {
-#pragma unroll
-      for (int sl = 0; sl < SLOTS; ++sl) {
-        const int d = lane + 32 * sl;
-        if (d < D) {
-          const float vd = vTile[j][d];
-#pragma unroll
-          for (int r = 0; r < RPW; ++r) acc[r][sl] = fmaf(pTile[warp][r][j], vd, acc[r][sl]);
-        }
+  auto loadTile = [&](int tile, int stage) {
+    const int key0 = kBegin + tile * BK;
+    float* ks = kRing + stage * BK * KS;
+    float* vs = vRing + stage * BK * VS;
+    if (p.vec) {
+      for (int e = tid; e < BK * pieces; e += THREADS) {
+        const int j = e / pieces, c = 4 * (e - j * pieces), key = key0 + j;
+        const bool ok = key < kEnd;
+        const long long row = ok ? key : kBegin;   // a valid address; the copy zero-fills
+        cpAsync16(ks + j * KS + c, kBase + row * p.kt + c, ok);
+        cpAsync16(vs + j * VS + c, vBase + row * p.vt + c, ok);
+      }
+    } else {
+      for (int e = tid; e < BK * D; e += THREADS) {
+        const int j = e / D, c = e - j * D, key = key0 + j;
+        const bool ok = key < kEnd;
+        const long long row = ok ? key : kBegin;
+        cpAsync4(ks + j * KS + c, kBase + row * p.kt + c, ok);
+        cpAsync4(vs + j * VS + c, vBase + row * p.vt + c, ok);
       }
     }
-    __syncwarp();
+  };
+
+  // Q as A fragments: a0 (g, 8s+t), a1 (g+8, 8s+t), a2 (g, 8s+t+4), a3 (g+8, 8s+t+4)
+  float qf[DT][4];
+  {
+    const float* qBase = p.q + b * p.qb + h * p.qh;
+#pragma unroll
+    for (int s = 0; s < DT; ++s)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = row0 + g + 8 * (i & 1), c = 8 * s + t + 4 * (i >> 1);
+        qf[s][i] = (r < p.Tq && c < D) ? qBase[r * p.qt + c] : 0.f;
+      }
   }
 
+  float acc[DT][4];
 #pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int row = q0 + warp * RPW + r;
-    if (row >= Tq) continue;
-    const float inv = 1.f / fmaxf(rowSum[r], 1e-30f);
-    float* o = out + b * os.b + row * os.t + h * os.h;
+  for (int n = 0; n < DT; ++n)
 #pragma unroll
-    for (int sl = 0; sl < SLOTS; ++sl) {
-      const int d = lane + 32 * sl;
-      if (d < D) o[d] = acc[r][sl] * inv;
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  float rowMax[2] = {-INFINITY, -INFINITY}, rowSum[2] = {0.f, 0.f};   // rows g, g+8
+  const bool active = row0 < p.Tq;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nTiles) loadTile(s, s);
+    cpCommit();
+  }
+  for (int tile = 0; tile < nTiles; ++tile) {
+    cpWait<STAGES - 2>();
+    __syncthreads();   // tile `tile` has landed and every warp is done with tile - 1
+    if (tile + STAGES - 1 < nTiles) loadTile(tile + STAGES - 1, (tile + STAGES - 1) % STAGES);
+    cpCommit();
+    if (!active) continue;   // an idle warp still copies and meets the barriers
+    const float* ks = kRing + (tile % STAGES) * BK * KS;
+    const float* vs = vRing + (tile % STAGES) * BK * VS;
+
+    // S = Q K^T for 4 n-tiles of 8 keys: b0 = K[8n+g][8s+t], b1 = K[8n+g][8s+t+4]
+    float sc[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[n][i] = 0.f;
+#pragma unroll
+    for (int s = 0; s < DT; ++s) {
+      if (s >= dSteps) break;
+      float kb[4][2];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const float* kr = ks + (8 * n + g) * KS + 8 * s + t;
+        kb[n][0] = kr[0];
+        kb[n][1] = kr[4];
+      }
+      mma3<4>(sc, qf[s], kb, 4);
     }
+
+    // C layout: sc[n][i] is row g + 8 (i >> 1), key 8n + 2t + (i & 1)
+    const int key0 = kBegin + tile * BK;
+    float tileMax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = key0 + 8 * n + 2 * t + (i & 1), row = row0 + g + 8 * (i >> 1);
+        float x = sc[n][i] * p.scale;
+        if (p.mask != nullptr && key < kEnd && row < p.Tq)
+          x += ((float)p.mask[row * p.maskRow + key] - 1.f) * 1e9f;
+        x = key < kEnd ? x : -INFINITY;
+        sc[n][i] = x;
+        tileMax[i >> 1] = fmaxf(tileMax[i >> 1], x);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float newMax = fmaxf(rowMax[r], quadMax(tileMax[r]));
+      const float correction = expf(rowMax[r] - newMax);
+      rowMax[r] = newMax;
+      rowSum[r] *= correction;
+#pragma unroll
+      for (int n = 0; n < DT; ++n) {
+        acc[n][2 * r] *= correction;
+        acc[n][2 * r + 1] *= correction;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float pr = expf(sc[n][i] - rowMax[i >> 1]);   // -inf -> 0
+        sc[n][i] = pr;
+        rowSum[i >> 1] += pr;
+      }
+
+    // O += P V over 4 k-steps of 8 keys; P's A fragment from the C layout:
+    // key t lives in lane (g, t/2) element t&1, key t+4 in lane (g, t/2+2)
+    const int src0 = (lane & ~3) | (t >> 1), src1 = src0 + 2;
+    const bool odd = t & 1;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float pa[4];
+      float e0 = __shfl_sync(0xffffffffu, sc[j][0], src0), e1 = __shfl_sync(0xffffffffu, sc[j][1], src0);
+      pa[0] = odd ? e1 : e0;
+      e0 = __shfl_sync(0xffffffffu, sc[j][2], src0);
+      e1 = __shfl_sync(0xffffffffu, sc[j][3], src0);
+      pa[1] = odd ? e1 : e0;
+      e0 = __shfl_sync(0xffffffffu, sc[j][0], src1);
+      e1 = __shfl_sync(0xffffffffu, sc[j][1], src1);
+      pa[2] = odd ? e1 : e0;
+      e0 = __shfl_sync(0xffffffffu, sc[j][2], src1);
+      e1 = __shfl_sync(0xffffffffu, sc[j][3], src1);
+      pa[3] = odd ? e1 : e0;
+      // b0 = V[8j+t][8n+g], b1 = V[8j+t+4][8n+g]
+      // in groups of 4 n-tiles, which keeps the split operands in registers
+#pragma unroll
+      for (int n0 = 0; n0 < DT; n0 += 4) {
+        float vb[4][2];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const float* vr = vs + (8 * j + t) * VS + 8 * (n0 + n) + g;
+          vb[n][0] = n0 + n < dSteps ? vr[0] : 0.f;
+          vb[n][1] = n0 + n < dSteps ? vr[4 * VS] : 0.f;
+        }
+        mma3<4>(acc + n0, pa, vb, dSteps - n0);
+      }
+    }
+  }
+  cpWait<0>();
+  if (!active) return;
+
+  const float sum[2] = {quadSum(rowSum[0]), quadSum(rowSum[1])};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= p.Tq) continue;
+    if (p.splits == 1) {
+      const float inv = 1.f / fmaxf(sum[r], 1e-30f);
+      float* o = p.out + b * p.ob + row * p.ot + h * p.oh;
+#pragma unroll
+      for (int n = 0; n < DT; ++n) store2(o, 8 * n + 2 * t, D, acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+    } else {
+      const long long slot = ((long long)split * gridDim.y + bh) * p.Tq + row;
+      float* o = p.partAcc + slot * D;
+#pragma unroll
+      for (int n = 0; n < DT; ++n) store2(o, 8 * n + 2 * t, D, acc[n][2 * r], acc[n][2 * r + 1]);
+      if (t == 0) {   // scalar stores: with D odd the pairs need not be 8-byte aligned
+        p.partStat[2 * slot] = rowMax[r];
+        p.partStat[2 * slot + 1] = sum[r];
+      }
+    }
+  }
+}
+
+// one thread per output element: out = sum_s acc_s e^(m_s - M) / max(L, 1e-30)
+__global__ void mergeSplitsKernel(const Params p, int BH) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long rows = (long long)BH * p.Tq;
+  if (e >= rows * p.D) return;
+  const long long slot = e / p.D;
+  const int c = e % p.D, bh = slot / p.Tq, row = slot % p.Tq;
+  float top = -INFINITY;
+  for (int s = 0; s < p.splits; ++s) top = fmaxf(top, p.partStat[2 * (s * rows + slot)]);
+  float total = 0.f, value = 0.f;
+  for (int s = 0; s < p.splits; ++s) {
+    const long long i = s * rows + slot;
+    const float w = expf(p.partStat[2 * i] - top);
+    total += p.partStat[2 * i + 1] * w;
+    value += p.partAcc[i * p.D + c] * w;
+  }
+  const int b = bh / p.H, h = bh % p.H;
+  p.out[b * p.ob + row * p.ot + h * p.oh + c] = value / fmaxf(total, 1e-30f);
+}
+
+template <int NW, int DP>
+cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
+  static std::atomic<unsigned long long> devices{0};
+  const int bytes = ringBytes<DP>();
+  const cudaError_t err = mcq::allowSharedBytes(flashAttentionKernel<NW, DP>, bytes, devices);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Tq + 16 * NW - 1) / (16 * NW), B * p.H, p.splits);
+  flashAttentionKernel<NW, DP><<<grid, NW * 32, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launchWarps(const Params& p, int B, int warps, cudaStream_t stream) {
+  switch (warps) {
+    case 1: return launch<1, DP>(p, B, stream);
+    case 2: return launch<2, DP>(p, B, stream);
+    case 4: return launch<4, DP>(p, B, stream);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -167,22 +405,37 @@ const char* mcq_cuda_error_string(int status) {
 
 int mcq_flash_max_head_dim() { return DMAX; }
 
+int mcq_flash_key_tile() { return BK; }
+
 // q [B, Tq, H, D], k and v [B, Tk, H, D], out [B, Tq, H, D]: fp32 on the
-// device, D contiguous, the other strides in elements. mask: int8 [Tq, Tk]
-// with row stride maskRow, or null. The wrapper checks the shapes
-// (ops/attention_cuda.py).
+// device, D contiguous, the other strides (batch, row, head) in elements.
+// mask: int8 [Tq, Tk] with row stride maskRow, or null. warps, splits and
+// keysPerSplit come from ops/attention_cuda.py::attentionPlan; with
+// splits > 1, partAcc holds splits * B * H * Tq * D floats and partStat
+// splits * B * H * Tq * 2. The wrapper checks the shapes.
 int mcq_flash_attention(const float* q, const float* k, const float* v, const int8_t* mask,
-                        long long maskRow, float* out, int B, int H, int Tq, int Tk, int D,
+                        long long maskRow, float* out, float* partAcc, float* partStat, int B,
+                        int H, int Tq, int Tk, int D, int warps, int splits, int keysPerSplit,
                         float scale, long long qsb, long long qst, long long qsh,
                         long long ksb, long long kst, long long ksh, long long vsb,
                         long long vst, long long vsh, long long osb, long long ost,
                         long long osh, cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || D <= 0 || D > DMAX || (long long)B * H > 65535)
+  if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || D <= 0 || D > DMAX ||
+      (long long)B * H > 65535 || splits <= 0 || splits > 65535 || keysPerSplit % BK != 0 ||
+      (long long)(splits - 1) * keysPerSplit >= Tk || (long long)splits * keysPerSplit < Tk ||
+      (splits > 1 && (partAcc == nullptr || partStat == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((Tq + BQ - 1) / BQ, B * H);
-  flashAttentionKernel<<<grid, THREADS, 0, stream>>>(
-      q, k, v, mask, maskRow, out, H, Tq, Tk, D, scale, Strides{qsb, qst, qsh},
-      Strides{ksb, kst, ksh}, Strides{vsb, vst, vsh}, Strides{osb, ost, osh});
+  const bool vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(v) % 16 == 0 && (ksb | kst | ksh) % 4 == 0 &&
+                   (vsb | vst | vsh) % 4 == 0;
+  const Params p{q,   k,   v,   mask, maskRow, out, partAcc, partStat,
+                 H,   Tq,  Tk,  D,    keysPerSplit, splits, scale, vec,
+                 qsb, qst, qsh, ksb,  kst,  ksh, vsb, vst, vsh, osb, ost, osh};
+  cudaError_t err = D <= 64 ? launchWarps<64>(p, B, warps, stream)
+                            : launchWarps<128>(p, B, warps, stream);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long total = (long long)B * H * Tq * D;
+  mergeSplitsKernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(p, B * H);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,6 +9,7 @@ import ctypes
 
 import torch
 
+from mcquic_tpu_torch.ops.plan import splitsFor
 from mcquic_tpu_torch.ops.vq import vqEncodePlain
 
 MAX_D = 256        # the kernel's shared-memory tiles hold d * 194 floats
@@ -41,11 +42,8 @@ def splitPlan(m: int, T: int, k: int, blockTokens: int, tileCodewords: int,
     """(splits, codewords per split) so that about two blocks per SM run.
 
     Each split covers a whole number of codeword tiles and none is empty."""
-    blocks = -(-T // blockTokens) * m
-    tiles = -(-k // tileCodewords)
-    splits = max(1, min(tiles, -(-2 * sms // blocks)))
-    perSplit = -(-tiles // splits) * tileCodewords
-    return -(-k // perSplit), perSplit
+    splits, perSplit = splitsFor(-(-T // blockTokens) * m, -(-k // tileCodewords), 2 * sms)
+    return splits, perSplit * tileCodewords
 
 
 def vqNearest(tokens: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:

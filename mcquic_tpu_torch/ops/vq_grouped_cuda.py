@@ -1,18 +1,23 @@
-"""Wrapper of kernel K1b, the nearest-codeword search on a (token tile x
-codeword tile x group) grid (csrc/vq_grouped.cu).
+"""Wrapper of kernel K1b, the nearest-codeword search for codebooks past K1's
+budget (csrc/vq_grouped.cu): a block walks a k-split of codeword tiles with
+its token tile fixed.
 
 Replaces `mcquic_tpu/ops/vq_pallas.py::vqEncodeGrouped`: `ops/vq.py::vqEncode`
 sends it every codebook that K1 cannot hold. For a tensor on the CPU the
 wrapper runs the plain version (`ops/vq.py::vqEncodePlain`); for a CUDA
-tensor it launches the kernel or raises. `vqNearestGrouped.launches` counts
-kernel launches.
+tensor it launches the kernel or raises. `groupedSplitPlan` chooses the
+launch shape. `vqNearestGrouped.launches` counts kernel launches.
 """
 import ctypes
+import functools
 
 import torch
 
+from mcquic_tpu_torch.ops.plan import splitsFor
 from mcquic_tpu_torch.ops.vq import CHUNK, vqEncodePlain
 
+TILE_CODEWORDS = 64          # codewords per tile in the kernel (mcq_vq_grouped_tile_codewords)
+BLOCK_TOKENS = (128, 64)     # the kernel's two token tiles
 _lib = None
 
 
@@ -22,8 +27,12 @@ def _library():
         from mcquic_tpu_torch.utils.build import loadCudaLibrary
         lib = loadCudaLibrary("vq_grouped")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.mcq_vq_grouped.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+        lib.mcq_vq_grouped.argtypes = [ptr, ptr, ptr, ptr, ptr] + [i32] * 7 + [ptr]
         lib.mcq_vq_grouped.restype = i32
+        lib.mcq_vq_grouped_tile_codewords.restype = i32
+        if lib.mcq_vq_grouped_tile_codewords() != TILE_CODEWORDS:
+            raise RuntimeError("vq_grouped.cu and ops/vq_grouped_cuda.py disagree on the "
+                               "codeword tile")
         _lib = lib
     return _lib
 
@@ -32,6 +41,29 @@ def build():
     """Compile and load the kernel library now (it is otherwise built at
     first launch)."""
     _library()
+
+
+@functools.lru_cache(maxsize=None)
+def groupedSplitPlan(m: int, T: int, k: int, sms: int):
+    """(tokens per block, splits, codeword tiles per split) for one call.
+
+    A block owns a token tile of one group and walks one split of
+    TILE_CODEWORDS-codeword tiles; each split covers a whole number of tiles
+    and none is empty. For each token tile, largest first, the splits are
+    the fewest that give about two blocks per SM; the first tile whose grid
+    fills one wave of `sms` blocks is taken, else the one with the most
+    blocks."""
+    tiles = -(-k // TILE_CODEWORDS)
+    best = None
+    for blockTokens in BLOCK_TOKENS:
+        base = -(-T // blockTokens) * m
+        splits, perSplit = splitsFor(base, tiles, 2 * sms)
+        plan = (blockTokens, splits, perSplit)
+        if base * splits >= sms:
+            return plan
+        if best is None or base * splits > best[0]:
+            best = (base * splits, plan)
+    return best[1]
 
 
 def codewordNorms(codebook: torch.Tensor) -> torch.Tensor:
@@ -63,10 +95,13 @@ def vqNearestGrouped(tokens: torch.Tensor, codebook: torch.Tensor) -> torch.Tens
     c2 = codewordNorms(codebook)
     keys = torch.empty((m, T), dtype=torch.int64, device=tokens.device)
     codes = torch.empty((m, T), dtype=torch.int32, device=tokens.device)
+    sms = torch.cuda.get_device_properties(tokens.device).multi_processor_count
+    blockTokens, splits, perSplit = groupedSplitPlan(m, T, k, sms)
     with torch.cuda.device(tokens.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.mcq_vq_grouped(tokens.data_ptr(), codebook.data_ptr(), c2.data_ptr(),
-                                    keys.data_ptr(), codes.data_ptr(), m, T, k, d, stream)
+                                    keys.data_ptr(), codes.data_ptr(), m, T, k, d,
+                                    blockTokens, splits, perSplit, stream)
     from mcquic_tpu_torch.utils.build import checkCuda
     checkCuda(lib, status, "vq_grouped kernel")
     vqNearestGrouped.launches += 1

@@ -1,9 +1,11 @@
 """Build native sources into shared libraries at first use.
 
 Every library goes to `mcquic_tpu_torch/_build/` (listed in `.gitignore`),
-named by a hash of its source and its compiler command, so an edit of either
-rebuilds. A failed build raises with the compiler's stderr; nothing falls
-back to another implementation.
+named by a hash of its source, the shared headers beside it (`csrc/*.cuh`)
+and its compiler command, so an edit of any of them rebuilds. The
+compiler's report is kept beside it (`.log`: for the CUDA kernels, ptxas's
+registers, shared memory and spills; `buildLog`). A failed build raises
+with the compiler's stderr; nothing falls back to another implementation.
 """
 import ctypes
 import hashlib
@@ -19,11 +21,12 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-DNDEBUG"]
 
 _lock = threading.Lock()
 _loaded = {}
+_paths = {}
 
 
 def findNvcc() -> str:
@@ -45,6 +48,8 @@ def findNvcc() -> str:
 
 def _libraryPath(stem: str, source: Path, command: List[str]) -> Path:
     digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update("\0".join(command).encode())
     return BUILD_DIR / f"lib{stem}_{digest.hexdigest()[:16]}.so"
 
@@ -67,6 +72,9 @@ def buildShared(stem: str, source: Path, compiler: str, flags: List[str]) -> Pat
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"Building {source.name} failed ({' '.join(cmd)}):\n"
                            f"{proc.stderr.strip()}\n{proc.stdout.strip()}")
+    report = tmp.with_name(f"{tmp.name}.log")
+    report.write_text(proc.stderr + proc.stdout)
+    os.replace(report, lib.with_suffix(".log"))
     os.replace(tmp, lib)
     return lib
 
@@ -79,7 +87,15 @@ def loadLibrary(stem: str, source: Path, compiler: str, flags: List[str]) -> cty
             return _loaded[stem]
     path = buildShared(stem, source, compiler, flags)
     with _lock:
+        _paths.setdefault(stem, path)
         return _loaded.setdefault(stem, ctypes.CDLL(str(path)))
+
+
+def buildLog(stem: str) -> str:
+    """The compiler's report of a library this process loaded ('' if none
+    was kept)."""
+    log = _paths[stem].with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def loadCudaLibrary(stem: str) -> ctypes.CDLL:

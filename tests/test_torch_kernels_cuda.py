@@ -15,11 +15,11 @@ from mcquic_tpu_torch.models.generator import blockCausalMask
 from mcquic_tpu_torch.nn.convs import PixelShuffleConv
 from mcquic_tpu_torch.ops import attention_cuda, subpixel_cuda, vq_cuda, vq_grouped_cuda
 from mcquic_tpu_torch.ops.attention import flashAttentionPlain
-from mcquic_tpu_torch.ops.attention_cuda import flashAttention
+from mcquic_tpu_torch.ops.attention_cuda import attentionPlan, flashAttention
 from mcquic_tpu_torch.ops.subpixel_cuda import conv3x3SubpixelPlain, conv3x3SubpixelThin
 from mcquic_tpu_torch.ops.vq import groupLatent, vqEncode, vqEncodePlain
 from mcquic_tpu_torch.ops.vq_cuda import vqNearest
-from mcquic_tpu_torch.ops.vq_grouped_cuda import vqNearestGrouped
+from mcquic_tpu_torch.ops.vq_grouped_cuda import groupedSplitPlan, vqNearestGrouped
 from mcquic_tpu_torch.utils import exactFp32
 
 pytestmark = pytest.mark.cuda
@@ -97,6 +97,43 @@ def test_k1b_small_integers_tie_at_zero_and_below(cuda, m, T, k, d):
     assert (dist.min(-1).values == 0).any()
     assert torch.equal(got, want)
     assert torch.equal(got.long(), dist.argmin(-1))
+
+
+@pytest.mark.parametrize("m,T,k,d", [(2, 1536, 16384, 64), (2, 700, 16400, 72),
+                                     (1, 512, 1000, 520), (12, 300, 9000, 72), (3, 200, 4097, 33)])
+def test_k1b_ties_across_split_boundaries_go_to_the_lowest_index(cuda, m, T, k, d):
+    """Codewords just below each split boundary are repeated just above it,
+    and tokens equal to them tie exactly across the two splits: the lower
+    index must win, and every code must equal the plain version's. d not a
+    multiple of the 32-wide chunk (72, 520, 33), k not a multiple of the
+    64-codeword tile (16400, 1000, 9000, 4097), m up to 12."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _, splits, perSplit = groupedSplitPlan(m, T, k, sms)
+    assert splits > 1
+    gen = torch.Generator(device=cuda).manual_seed(m * T + k + d)
+    tokens = torch.randn((m, T, d), device=cuda, generator=gen)
+    codebook = torch.randn((m, k, d), device=cuda, generator=gen)
+    planted = []
+    for s in range(1, splits):
+        boundary = s * perSplit * 64
+        for i in range(3):
+            low, high, token = boundary - 1 - i, boundary + i, (3 * (s - 1) + i) % T
+            if high < k:
+                codebook[:, high] = codebook[:, low]
+                tokens[:, token] = codebook[:, low]
+                planted.append((token, low))
+    assert planted
+    with exactFp32():
+        got = vqNearestGrouped(tokens, codebook)
+        # one chunk: the default 1024-codeword chunks leave codeword 4096 of
+        # k 4097 alone in a chunk, whose one-column product cuBLAS rounds
+        # otherwise, and the plain version then splits an exact tie
+        want = vqEncodePlain(tokens, codebook, chunk=k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    last = {token: low for token, low in planted}          # a token planted twice keeps its last
+    for token, low in last.items():
+        assert (got[:, token] == low).all(), (token, low, got[:, token])
 
 
 def test_vq_encode_sends_past_budget_and_wide_codebooks_to_k1b(cuda):
@@ -195,9 +232,13 @@ GEN_LENGTHS = [1, 1, 4, 4, 16, 16, 64, 64, 256]     # gen_stage2_neonA, 426 toke
 
 @pytest.mark.parametrize("B,H,Tq,Tk,D", [(4, 8, 1, 1, 64), (4, 8, 4, 10, 64), (4, 8, 256, 426, 64),
                                          (2, 4, 40, 130, 8), (1, 2, 33, 7, 128), (3, 1, 17, 65, 40),
-                                         (1, 2, 5, 33, 6), (2, 1, 3, 70, 127)])
+                                         (1, 2, 5, 33, 6), (2, 1, 3, 70, 127)]
+                         + [(4, 8, hw, sum(GEN_LENGTHS[:i + 1]), 64)
+                            for i, hw in enumerate(GEN_LENGTHS)
+                            if (hw, sum(GEN_LENGTHS[:i + 1])) not in ((1, 1), (4, 10), (256, 426))])
 def test_k3_matches_plain_over_a_cache_prefix(cuda, B, H, Tq, Tk, D):
-    """k and v are a prefix slice of a longer [B, Lmax, H, D] cache."""
+    """k and v are a prefix slice of a longer [B, Lmax, H, D] cache; the
+    cases include the nine KV-cached levels of gen_stage2_neonA."""
     gen = torch.Generator(device=cuda).manual_seed(B * Tq + Tk + D)
     q = torch.randn((B, Tq, H, D), device=cuda, generator=gen)
     cache = torch.randn((2, B, Tk + 9, H, D), device=cuda, generator=gen)
@@ -226,6 +267,66 @@ def test_k3_matches_plain_under_the_block_causal_mask(cuda, lengths):
             got = flashAttention(q[:, :prefix], k[:, :prefix], v[:, :prefix], mask)
             want = flashAttentionPlain(q[:, :prefix], k[:, :prefix], v[:, :prefix], mask)
             assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("B,H,Tq,Tk,D", [(4, 8, 256, 426, 64), (4, 8, 64, 170, 32),
+                                         (4, 8, 64, 106, 128), (4, 8, 16, 42, 64),
+                                         (4, 8, 16, 26, 64), (4, 8, 1, 1, 32), (4, 8, 1, 77, 128),
+                                         (2, 2, 1, 1000, 64), (1, 1, 300, 45, 32)])
+def test_k3_split_and_unsplit_routes_match_plain(cuda, B, H, Tq, Tk, D):
+    """Both routes of the plan: one pass, and keys split across blocks with
+    the merge kernel after; Tk not a multiple of the 32-key tile, Tq 1, and
+    D 32 / 64 / 128."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _, splits, _ = attentionPlan(B, H, Tq, Tk, sms)
+    gen = torch.Generator(device=cuda).manual_seed(B * Tq + Tk + D)
+    q = torch.randn((B, Tq, H, D), device=cuda, generator=gen)
+    k, v = (torch.randn((B, Tk, H, D), device=cuda, generator=gen) for _ in range(2))
+    launches = flashAttention.launches
+    with torch.no_grad():
+        got = flashAttention(q, k, v)
+        want = flashAttentionPlain(q, k, v)
+    torch.cuda.synchronize()
+    assert flashAttention.launches == launches + 1
+    assert (got - want).abs().max().item() <= 1e-4, splits
+    if (Tq, Tk) in ((256, 426), (1, 1000)):
+        assert splits > 1
+    if (Tq, Tk) in ((16, 26), (1, 1)):
+        assert splits == 1
+
+
+def _unalignedViews(case, cuda):
+    """(q, k) for one case of the 4-byte copy route; v is k."""
+    gen = torch.Generator(device=cuda).manual_seed(len(case))
+    if case == "base":        # base pointer 4 bytes past 16-byte alignment
+        flat = torch.randn(1 + 6 * 2 * 8, device=cuda, generator=gen)
+        return torch.randn((1, 4, 2, 8), device=cuda, generator=gen), flat[1:].view(1, 6, 2, 8)
+    if case == "strides":     # row and head strides of 9 floats
+        k = torch.randn((1, 6, 2, 9), device=cuda, generator=gen)[..., :8]
+        return torch.randn((1, 4, 2, 8), device=cuda, generator=gen), k
+    D, Tq, Tk = {"D6 split": (6, 5, 33), "D127 split": (127, 3, 70),
+                 "D127": (127, 3, 20)}[case]
+    q = torch.randn((1, Tq, 1, D), device=cuda, generator=gen)
+    return q, torch.randn((1, Tk, 1, D), device=cuda, generator=gen)
+
+
+@pytest.mark.parametrize("case", ["base", "strides", "D6 split", "D127 split", "D127"])
+def test_k3_takes_unaligned_views_through_4_byte_copies(cuda, case):
+    """Where k and v cannot take 16-byte copies (a base pointer or a stride
+    off 16 bytes, D not a multiple of 4) the kernel copies 4 bytes at a
+    time; it still launches and matches the plain version. With D odd the
+    output and the split route's scratch are written float by float."""
+    q, k = _unalignedViews(case, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _, splits, _ = attentionPlan(q.shape[0], q.shape[2], q.shape[1], k.shape[1], sms)
+    assert (splits > 1) == case.endswith("split")
+    launches = flashAttention.launches
+    with torch.no_grad():
+        got = flashAttention(q, k, k)
+        want = flashAttentionPlain(q, k, k)
+    torch.cuda.synchronize()
+    assert flashAttention.launches == launches + 1
+    assert (got - want).abs().max().item() <= 1e-4
 
 
 def test_k3_fully_masked_rows_stay_finite(cuda):

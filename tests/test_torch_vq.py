@@ -22,8 +22,10 @@ from mcquic_tpu_torch.ops.subpixel_cuda import (conv3x3SubpixelPlain, conv3x3Sub
 from mcquic_tpu_torch.ops import vq_cuda, vq_grouped_cuda
 from mcquic_tpu_torch.ops.vq import (groupLatent, latentTokens, residentFits, ungroupLatent,
                                      vqDequantizeCodes, vqEncode, vqEncodePlain)
+from mcquic_tpu_torch.ops.plan import splitsFor
 from mcquic_tpu_torch.ops.vq_cuda import splitPlan, vqNearest
-from mcquic_tpu_torch.ops.vq_grouped_cuda import codewordNorms, vqNearestGrouped
+from mcquic_tpu_torch.ops.vq_grouped_cuda import (TILE_CODEWORDS, codewordNorms,
+                                                   groupedSplitPlan, vqNearestGrouped)
 
 
 def _nhwmd(n, h, w, m, d, rng, integer=False):
@@ -131,6 +133,41 @@ def test_split_plan_covers_k_without_empty_splits(m, T, k):
     assert perSplit % 64 == 0
     assert (splits - 1) * perSplit < k <= splits * perSplit
     assert splits == 1 or -(-T // 128) * m * splits <= 4 * 132
+
+
+@pytest.mark.parametrize("m,T,k", [(2, 1536, 16384), (2, 1536, 65536), (1, 512, 1024),
+                                   (2, 77, 200), (3, 5, 7), (1, 130, 1000), (12, 1536, 16384),
+                                   (1, 100000, 140000)])
+def test_grouped_split_plan_covers_k_without_empty_splits(m, T, k):
+    """K1b's plan: every codeword tile in one split, no split empty; a full
+    wave of 132 blocks at the past-budget shapes (the first is the photo's
+    real level 0), and at (1, 512, 1024, 512) at least twice the 64 blocks
+    of a (128-token x 64-codeword) grid."""
+    blockTokens, splits, perSplit = groupedSplitPlan(m, T, k, 132)
+    tiles = -(-k // TILE_CODEWORDS)
+    assert blockTokens in (128, 64)
+    assert (splits - 1) * perSplit < tiles <= splits * perSplit
+    blocks = -(-T // blockTokens) * m * splits
+    if (m, T) == (2, 1536):
+        assert blocks >= 132
+    if (m, T, k) == (1, 512, 1024):
+        assert blocks >= 2 * 64
+
+
+@pytest.mark.parametrize("baseBlocks,tiles,target", [(24, 256, 264), (24, 1024, 264),
+                                                     (4, 16, 264), (512, 14, 132), (32, 1, 132),
+                                                     (32, 14, 132), (7, 5, 1), (1, 9, 4)])
+def test_splits_for_covers_the_tiles_with_the_fewest_splits(baseBlocks, tiles, target):
+    """The split rule shared by K1, K1b and K3: every tile in one split, no
+    split empty, no more splits than the target asks for, and the smallest
+    equal split size that keeps to that count."""
+    splits, perSplit = splitsFor(baseBlocks, tiles, target)
+    want = max(1, min(tiles, -(-target // baseBlocks)))
+    assert 1 <= splits <= want
+    assert (splits - 1) * perSplit < tiles <= splits * perSplit
+    assert perSplit == 1 or -(-tiles // (perSplit - 1)) > want
+    if (baseBlocks, tiles, target) == (24, 256, 264):     # K1b at k 16384: 11 splits
+        assert (splits, perSplit) == (11, 24)
 
 
 def test_resident_fits_matches_jax():

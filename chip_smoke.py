@@ -12,16 +12,22 @@ ends:
   2. build: kernels K1 (csrc/vq_encode.cu), K1b (csrc/vq_grouped.cu), K2
      (csrc/thin_head.cu) and K3 (csrc/flash_attention.cu) with nvcc and the
      rANS runtime with g++, all started together; ptxas's registers and
-     spills of K1b and K3;
+     spills of every kernel;
   3. kernels against their plain versions on the card, fp32 with TF32 off,
      at the main paths' shapes, with two times each for the kernel, the
      plain version and one library call computing the same function: `ms`,
      the CUDA-event median of single calls (the wrapper's host work before
      the launch included, as in earlier runs), and `device_ms`, the device
-     time of one call in a run of 20 back-to-back calls (`deviceMs`); K3's
-     per-call host microseconds beside SDPA's;
+     time of one call in a run of 20 back-to-back calls (`deviceMs`); the
+     per-call host microseconds of K1, K2 and K3 beside their library
+     calls'. K1 at the qp-2 levels, Neon's nine levels and the qp-12 speed
+     batch's level 0, with the pairs its filter handed to the fp32
+     rescoring; K2 at the photo's head and the speed batch's (B 10). Bounds
+     at the rate each kernel runs (one TF32 product for K1's filter, three
+     for K2 and K3) with the fp32 FMA bound beside;
   4. the codec path at full width: the qp-2 zoo model compresses
-     assets/photo_768x512.png to a `.mcq` and restores it; bpp and PSNR are
+     assets/photo_768x512.png to a `.mcq` and restores it (K1's rescored
+     pairs per token counted on its real latents); bpp and PSNR are
      held to the registered 0.1090 bpp / 25.15 dB, the codes and the restore
      to the CPU plain path on a crop, and the kernels' launch counts show
      that the path went through them;
@@ -266,7 +272,7 @@ def main() -> int:
     from mcquic_tpu_torch.ops.attention_cuda import attentionPlan, flashAttention
     from mcquic_tpu_torch.ops.subpixel_cuda import conv3x3SubpixelPlain, conv3x3SubpixelThin
     from mcquic_tpu_torch.ops.vq import groupLatent, latentTokens, vqEncodePlain
-    from mcquic_tpu_torch.ops.vq_cuda import vqNearest
+    from mcquic_tpu_torch.ops.vq_cuda import k1Plan, vqNearest
     from mcquic_tpu_torch.ops.vq_grouped_cuda import vqNearestGrouped
     from mcquic_tpu_torch.utils import exactFp32
     from mcquic_tpu_torch.utils.build import buildLog, findNvcc
@@ -306,16 +312,13 @@ def main() -> int:
             for job in jobs:
                 name, seconds = job.result()
                 print(f"  built {name} in {seconds:.2f} s", flush=True)
-        for stem in ("vq_grouped", "flash_attention"):      # the kernels redesigned last
+        for stem in ("vq_encode", "vq_grouped", "thin_head", "flash_attention"):
             for line in buildLog(stem).splitlines():
                 if "entry function" in line or "spill" in line or "Used" in line:
                     print(f"  ptxas {stem}: {line.strip()}", flush=True)
 
     gen = torch.Generator(device=device).manual_seed(0)
     levels = [(2, 1536, 8192, 64), (2, 384, 2048, 64), (2, 96, 512, 64)]   # (m, T, k, d)
-    k1 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0,
-          "device_ms": 0.0, "plain_device_ms": 0.0, "library_device_ms": 0.0}
-    k2 = {}
     k3 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0,
           "flops": 0.0, "bytes": 0.0, "device_ms": 0.0, "plain_device_ms": 0.0,
           "library_device_ms": 0.0, "host_us": 0.0, "library_host_us": 0.0,
@@ -334,47 +337,74 @@ def main() -> int:
             """Device ms of the kernel, its plain version and the library call."""
             return [deviceMs(torch, fn, cyclesPerMs)[0] for fn in (kernel, plain, library)]
 
-        for m, T, k, d in levels:
-            tokens = torch.randn((m, T, d), device=device, generator=gen)
-            codebook = torch.randn((m, k, d), device=device, generator=gen)
-            got, want = vqNearest(tokens, codebook), vqEncodePlain(tokens, codebook)
-            _, err = checkCodes(torch, tokens, codebook, got, want, f"K1 random (m,T,k,d)={m, T, k, d}")
-            ms = medianMs(torch, lambda: vqNearest(tokens, codebook))
-            plainMs = medianMs(torch, lambda: vqEncodePlain(tokens, codebook))
-            libMs = medianMs(torch, lambda: torch.cdist(tokens, codebook).argmin(-1))
-            dev = devicePair(lambda: vqNearest(tokens, codebook),
-                             lambda: vqEncodePlain(tokens, codebook),
-                             lambda: torch.cdist(tokens, codebook).argmin(-1))
-            flops = 2.0 * m * T * k * (d + 1)
-            nbytes = 4.0 * (m * T * d + m * k * d + m * T)
-            boundMs, k1["bound_by"] = bound(flops, nbytes)
-            print(f"  K1 (m,T,k,d)={m, T, k, d}: kernel {ms:.4f} ms, plain {plainMs:.4f} ms, "
-                  f"cdist+argmin {libMs:.4f} ms, bound {boundMs:.4f} ms; device time kernel "
-                  f"{dev[0]:.4f} ms, plain {dev[1]:.4f} ms, cdist+argmin {dev[2]:.4f} ms", flush=True)
-            for key, value in zip(("device_ms", "plain_device_ms", "library_device_ms"), dev):
-                k1[key] += value
-            k1["ms"] += ms
-            k1["plain_ms"] += plainMs
-            k1["library_ms"] += libMs
-            k1["bound_ms"] += boundMs
-            k1["err"] = max(k1["err"], err)
+        def timeAll(kernel, plain, library):
+            """Single-call and device ms of the kernel, its plain version and
+            the library call, and the host us per call of the kernel and the
+            library call."""
+            row = {"ms": medianMs(torch, kernel), "plain_ms": medianMs(torch, plain),
+                   "library_ms": medianMs(torch, library)}
+            row["device_ms"], row["host_us"] = deviceMs(torch, kernel, cyclesPerMs)
+            row["plain_device_ms"], _ = deviceMs(torch, plain, cyclesPerMs)
+            row["library_device_ms"], row["library_host_us"] = deviceMs(torch, library, cyclesPerMs)
+            return row
 
+        def k1Inputs(m, T, k, d):
+            """Random tokens and codebook; the codebook a normal tensor, as the
+            model's parameter is, so that K1 keeps its norms across calls."""
+            with torch.inference_mode(False):
+                return (torch.randn((m, T, d), device=device, generator=gen),
+                        torch.randn((m, k, d), device=device, generator=gen))
+
+        def k1Row(m, T, k, d, label):
+            """K1 at one shape: codes against the plain version, the rescored
+            pairs per token, the times and both bounds (one TF32 product for
+            the filter; fp32 FMA)."""
+            tokens, codebook = k1Inputs(m, T, k, d)
+            counter = torch.zeros(1, dtype=torch.int64, device=device)
+            got, want = vqNearest(tokens, codebook, counter), vqEncodePlain(tokens, codebook)
+            _, err = checkCodes(torch, tokens, codebook, got, want, f"K1 random {label} (m,T,k,d)={m, T, k, d}")
+            row = timeAll(lambda: vqNearest(tokens, codebook), lambda: vqEncodePlain(tokens, codebook),
+                          lambda: torch.cdist(tokens, codebook).argmin(-1))
+            nbytes = 4.0 * (m * T * d + m * k * d + m * T)
+            row["bound_ms"], row["bound_by"] = bound(2.0 * m * T * k * d, nbytes, PEAK_TF32_FLOPS)
+            row["bound_fp32_ms"], _ = bound(2.0 * m * T * k * (d + 1), nbytes)
+            row["err"], row["rescored"] = err, counter.item() / (m * T)
+            print(f"  K1 {label} (m,T,k,d)={m, T, k, d}: kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, cdist+argmin {row['library_ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.5f} ms at one TF32 product ({row['bound_by']}), "
+                  f"{row['bound_fp32_ms']:.5f} at fp32 FMA; device time kernel "
+                  f"{row['device_ms']:.4f} ms, plain {row['plain_device_ms']:.4f} ms, cdist+argmin "
+                  f"{row['library_device_ms']:.4f} ms; host per call kernel {row['host_us']:.1f} us, "
+                  f"cdist+argmin {row['library_host_us']:.1f} us; rescored {row['rescored']:.2f} "
+                  f"pairs per token; plan (block tokens, splits, tiles per split) "
+                  f"{k1Plan(m, T, k, d, sms)}", flush=True)
+            return row
+
+        def summed(rows):
+            total = {key: sum(row[key] for row in rows) for key in rows[0]
+                     if key not in ("bound_by", "err", "rescored")}
+            total["bound_by"] = rows[0]["bound_by"]
+            total["err"] = max(row["err"] for row in rows)
+            return total
+
+        def k1Summary(label, row):
+            print(f"  K1 {label}: kernel {row['ms']:.4f} ms, device {row['device_ms']:.4f} ms, "
+                  f"cdist+argmin device {row['library_device_ms']:.4f} ms (kernel / library "
+                  f"{row['device_ms'] / row['library_device_ms']:.3f}), bound {row['bound_ms']:.5f} ms "
+                  f"at one TF32 product, {row['bound_fp32_ms']:.5f} at fp32 FMA; host per call summed "
+                  f"kernel {row['host_us']:.1f} us, cdist+argmin {row['library_host_us']:.1f} us",
+                  flush=True)
+
+        k1 = summed([k1Row(m, T, k, d, f"qp-{QP} level {i}") for i, (m, T, k, d) in enumerate(levels)])
+        k1Summary(f"qp-{QP}, 3 levels", k1)
         # K1 at the Neon tokenizer's shapes (m 1, k 1024, d 8, T the 9 levels' grids)
-        neonK1 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-        neonCodebook = torch.randn((1, geometry["k"], 8), device=device, generator=gen)
-        for T in lengths:
-            tokens = torch.randn((1, T, 8), device=device, generator=gen)
-            checkCodes(torch, tokens, neonCodebook, vqNearest(tokens, neonCodebook),
-                       vqEncodePlain(tokens, neonCodebook), f"K1 random Neon (m,T,k,d)=(1, {T}, 1024, 8)")
-            neonK1["ms"] += medianMs(torch, lambda: vqNearest(tokens, neonCodebook))
-            neonK1["plain_ms"] += medianMs(torch, lambda: vqEncodePlain(tokens, neonCodebook))
-            neonK1["library_ms"] += medianMs(
-                torch, lambda: torch.cdist(tokens, neonCodebook).argmin(-1))
-            neonK1["bound_ms"] += bound(2.0 * T * geometry["k"] * 9,
-                                        4.0 * (T * 8 + geometry["k"] * 8 + T))[0]
-        print(f"  K1 Neon, 9 levels (T 1..256, k 1024, d 8): kernel {neonK1['ms']:.4f} ms, plain "
-              f"{neonK1['plain_ms']:.4f} ms, cdist+argmin {neonK1['library_ms']:.4f} ms, bound "
-              f"{neonK1['bound_ms']:.5f} ms", flush=True)
+        neonK1 = summed([k1Row(1, T, geometry["k"], 8, "Neon") for T in lengths])
+        k1Summary("Neon, 9 levels (T 1..256, k 1024, d 8)", neonK1)
+        # K1 at the qp-12 speed batch's level 0 (10 images of 768x512: 96x160 latents)
+        qp12K1 = k1Row(QP12[1], 10 * (768 // 16) * (512 // 16), QP12[2][0], QP12[0] // QP12[1],
+                       "qp-12 speed batch level 0")
+        k1Summary("qp-12 speed batch level 0", qp12K1)
+        torch.cuda.empty_cache()
 
         # K1b past the resident budget and past K1's d: every code must equal the
         # plain version's; the JSON row is the past-budget model's level-0 shape
@@ -405,30 +435,43 @@ def main() -> int:
             k1b = k1b or dict(row, err=0.0)
             del tokens, codebook
 
-        x = torch.randn((1, 128, 256, 384), device=device, generator=gen)   # the photo's head input
-        w = torch.randn((12, 128, 3, 3), device=device, generator=gen) * 0.05
-        b = torch.randn((12,), device=device, generator=gen)
-        got, want = conv3x3SubpixelThin(x, w, b, 2), conv3x3SubpixelPlain(x, w, b, 2)
-        if tuple(got.shape) != (1, 3, 512, 768):
-            raise AssertionError(f"K2 output shape {tuple(got.shape)}")
-        k2["err"] = (got - want).abs().max().item()
-        print(f"  K2 random [1,128,256,384]: max abs diff {k2['err']:.3e}", flush=True)
-        if not k2["err"] <= K2_ATOL:
-            raise AssertionError(f"K2 differs from conv2d + pixel_shuffle by {k2['err']}")
-        k2["ms"] = medianMs(torch, lambda: conv3x3SubpixelThin(x, w, b, 2))
-        k2["plain_ms"] = medianMs(torch, lambda: conv3x3SubpixelPlain(x, w, b, 2))
-        k2["library_ms"] = medianMs(torch, lambda: torch.nn.functional.pixel_shuffle(
-            torch.nn.functional.conv2d(x, w, b, padding=1), 2))
-        k2["device_ms"], k2["plain_device_ms"], k2["library_device_ms"] = devicePair(
-            lambda: conv3x3SubpixelThin(x, w, b, 2), lambda: conv3x3SubpixelPlain(x, w, b, 2),
-            lambda: torch.nn.functional.pixel_shuffle(
-                torch.nn.functional.conv2d(x, w, b, padding=1), 2))
-        k2["bound_ms"], k2["bound_by"] = bound(2.0 * 256 * 384 * 128 * 9 * 12 + 256 * 384 * 12,
-                                               4.0 * (x.numel() + w.numel() + 12 + got.numel()))
-        print(f"  K2 [1,128,256,384]: kernel {k2['ms']:.4f} ms, plain {k2['plain_ms']:.4f} ms, "
-              f"conv2d+pixel_shuffle {k2['library_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms; "
-              f"device time kernel {k2['device_ms']:.4f} ms, plain {k2['plain_device_ms']:.4f} ms, "
-              f"conv2d+pixel_shuffle {k2['library_device_ms']:.4f} ms", flush=True)
+        def k2Row(B, label):
+            """K2 at the decoder head's shape for B images: error against the
+            plain version, times, and both bounds (three TF32 products; fp32
+            FMA)."""
+            x = torch.randn((B, 128, 256, 384), device=device, generator=gen)
+            w = torch.randn((12, 128, 3, 3), device=device, generator=gen) * 0.05
+            b = torch.randn((12,), device=device, generator=gen)
+            got, want = conv3x3SubpixelThin(x, w, b, 2), conv3x3SubpixelPlain(x, w, b, 2)
+            if tuple(got.shape) != (B, 3, 512, 768):
+                raise AssertionError(f"K2 output shape {tuple(got.shape)}")
+            err = (got - want).abs().max().item()
+            print(f"  K2 random {label} [{B},128,256,384]: max abs diff {err:.3e}", flush=True)
+            if not err <= K2_ATOL:
+                raise AssertionError(f"K2 differs from conv2d + pixel_shuffle by {err}")
+            row = timeAll(lambda: conv3x3SubpixelThin(x, w, b, 2),
+                          lambda: conv3x3SubpixelPlain(x, w, b, 2),
+                          lambda: torch.nn.functional.pixel_shuffle(
+                              torch.nn.functional.conv2d(x, w, b, padding=1), 2))
+            flops = B * (2.0 * 256 * 384 * 128 * 9 * 12 + 256 * 384 * 12)
+            nbytes = 4.0 * (x.numel() + w.numel() + 12 + got.numel())
+            row["bound_ms"], row["bound_by"] = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+            row["bound_fp32_ms"], _ = bound(flops, nbytes)
+            row["err"] = err
+            print(f"  K2 {label} [{B},128,256,384]: kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, conv2d+pixel_shuffle {row['library_ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.5f} ms at three TF32 products ({row['bound_by']}), "
+                  f"{row['bound_fp32_ms']:.5f} at fp32 FMA; device time kernel {row['device_ms']:.4f} ms, "
+                  f"plain {row['plain_device_ms']:.4f} ms, conv2d+pixel_shuffle "
+                  f"{row['library_device_ms']:.4f} ms (kernel / library "
+                  f"{row['device_ms'] / row['library_device_ms']:.3f}); host per call kernel "
+                  f"{row['host_us']:.1f} us, conv2d+pixel_shuffle {row['library_host_us']:.1f} us",
+                  flush=True)
+            return row
+
+        k2 = k2Row(1, "photo head")
+        k2Batch = k2Row(10, "speed batch head")
+        torch.cuda.empty_cache()
 
         # K3 at the generation path's shapes: each level's queries against the
         # running prefix of a [B, 426, H, D] KV cache, then the uncached path's
@@ -528,13 +571,19 @@ def main() -> int:
             for hook in hooks:
                 hook.remove()
             with exactFp32(), torch.inference_mode():
+                rescored = []
                 for i, q in enumerate(captured["q"]):
                     tokens = latentTokens(groupLatent(q, model.m))
                     codebook = model._quantizer.codebook(i).contiguous()
-                    _, err = checkCodes(torch, tokens, codebook, vqNearest(tokens, codebook),
+                    counter = torch.zeros(1, dtype=torch.int64, device=device)
+                    _, err = checkCodes(torch, tokens, codebook, vqNearest(tokens, codebook, counter),
                                         vqEncodePlain(tokens, codebook),
                                         f"K1 photo level {i} {tuple(tokens.shape)}")
                     k1["err"] = max(k1["err"], err)
+                    rescored.append(counter.item() / tokens.shape[0] / tokens.shape[1])
+                k1["photo_rescored"] = rescored
+                print("  K1 rescored pairs per token on the photo's qp-2 latents, by level: "
+                      + ", ".join(f"{r:.2f}" for r in rescored), flush=True)
                 head = model._decoder[6][0]
                 hx = captured["head"]
                 err = (conv3x3SubpixelThin(hx, head.weight, head.bias, 2)
@@ -914,7 +963,13 @@ def main() -> int:
          "replaces": "mcquic_tpu/ops/vq_pallas.py:162", "launches": launches["K1"],
          "max_abs_err": k1["err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
-         "device_ms": k1["device_ms"], "library_device_ms": k1["library_device_ms"]},
+         "device_ms": k1["device_ms"], "library_device_ms": k1["library_device_ms"],
+         "bound_fp32_ms": k1["bound_fp32_ms"], "host_us": k1["host_us"],
+         "library_host_us": k1["library_host_us"], "photo_rescored": k1["photo_rescored"],
+         "neon_device_ms": neonK1["device_ms"], "neon_ms": neonK1["ms"],
+         "neon_library_device_ms": neonK1["library_device_ms"],
+         "qp12_device_ms": qp12K1["device_ms"],
+         "qp12_library_device_ms": qp12K1["library_device_ms"]},
         {"name": "vq_grouped", "route": "cuda", "source": "mcquic_tpu_torch/csrc/vq_grouped.cu",
          "replaces": "mcquic_tpu/ops/vq_pallas.py:75", "launches": pastLaunches["K1b"],
          "max_abs_err": k1b["err"], "ms": k1b["ms"], "plain_ms": k1b["plain_ms"],
@@ -924,7 +979,10 @@ def main() -> int:
          "replaces": "mcquic_tpu/ops/subpixel_pallas.py:118", "launches": launches["K2"],
          "max_abs_err": k2["err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],
-         "device_ms": k2["device_ms"], "library_device_ms": k2["library_device_ms"]},
+         "device_ms": k2["device_ms"], "library_device_ms": k2["library_device_ms"],
+         "bound_fp32_ms": k2["bound_fp32_ms"], "host_us": k2["host_us"],
+         "library_host_us": k2["library_host_us"], "batch_device_ms": k2Batch["device_ms"],
+         "batch_library_device_ms": k2Batch["library_device_ms"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "mcquic_tpu_torch/csrc/flash_attention.cu",
          "replaces": "mcquic_tpu/ops/attention_pallas.py:144", "launches": k3["launches"],

@@ -27,8 +27,10 @@
 //    each product taken as lo.hi + hi.lo + hi.hi (3xTF32). Plain TF32 keeps
 //    10 mantissa bits and would miss the 1e-4 tolerance against the fp32
 //    plain version; the three products keep about 21, and the dropped
-//    lo.lo term is below fp32 rounding. wgmma is not used: its 64-row M tile would be mostly
-//    padding at every level but the last (Tq 1 ... 64 rows per (b, h)).
+//    lo.lo term is below fp32 rounding. The split and the products are
+//    csrc/tf32_mma.cuh, shared with K1 and K2. wgmma is not used: its
+//    64-row M tile would be mostly padding at every level but the last
+//    (Tq 1 ... 64 rows per (b, h)).
 //  * Each warp owns 16 query rows; its Q fragments, scores, running
 //    (max, sum) and the [16, D] accumulator stay in registers. The score
 //    fragment (C layout) becomes the A operand of P.V through 8 register
@@ -61,6 +63,7 @@
 #include <cstdint>
 
 #include "cp_async.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -68,6 +71,7 @@ using mcq::cpAsync16;
 using mcq::cpAsync4;
 using mcq::cpCommit;
 using mcq::cpWait;
+using mcq::mma3;
 
 constexpr int BK = 32;         // keys per tile
 constexpr int STAGES = 3;      // cp.async ring depth
@@ -87,48 +91,6 @@ struct Params {
   bool vec;         // k and v take 16-byte copies
   long long qb, qt, qh, kb, kt, kh, vb, vt, vh, ob, ot, oh;
 };
-
-// x = hi + lo: hi is x rounded to TF32 (ties away from zero, as
-// cvt.rna.tf32.f32 rounds) with two integer operations, since the
-// conversion unit's cvt runs at a fraction of the ALU rate and was the
-// kernel's bottleneck; lo = x - hi is exact and goes in as it is, the
-// tensor core ignoring its low 13 bits
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// not volatile: the compiler may interleave independent products
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, const uint32_t* b) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c[n] += a . b[n] for N independent n-tiles in 3xTF32, small terms first;
-// each pass runs over all n so that consecutive products are independent
-template <int N>
-__device__ __forceinline__ void mma3(float (*c)[4], const float* a, float (*b)[2], int n) {
-  uint32_t ah[4], al[4], bh[N][2], bl[N][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split(a[i], ah[i], al[i]);
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    split(b[j][0], bh[j][0], bl[j][0]);
-    split(b[j][1], bh[j][1], bl[j][1]);
-  }
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-    if (j < n) mma(c[j], al, bh[j]);
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-    if (j < n) mma(c[j], ah, bl[j]);
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-    if (j < n) mma(c[j], ah, bh[j]);
-}
 
 __device__ __forceinline__ float quadMax(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));

@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 MAX_FEATURES = 16
+TILE = (8, 32)         # input rows x columns per block (mcq_thin_head_tile)
 _lib = None
 
 
@@ -23,6 +24,9 @@ def _library():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.mcq_thin_head.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
         lib.mcq_thin_head.restype = i32
+        lib.mcq_thin_head_tile.restype = i32
+        if lib.mcq_thin_head_tile() != TILE[0] * 1000 + TILE[1]:
+            raise RuntimeError("thin_head.cu and ops/subpixel_cuda.py disagree on the tile")
         _lib = lib
     return _lib
 
@@ -31,6 +35,12 @@ def build():
     """Compile and load the kernel library now (it is otherwise built at
     first launch)."""
     _library()
+
+
+def thinHeadGrid(B: int, H: int, W: int):
+    """K2's grid: one block of 4 warps per TILE of input pixels per image,
+    (column tiles, row tiles, B)."""
+    return -(-W // TILE[1]), -(-H // TILE[0]), B
 
 
 def thinHeadSupported(xShape, wShape, rate: int) -> bool:
@@ -68,17 +78,20 @@ def conv3x3SubpixelThin(x: torch.Tensor, weight: torch.Tensor, bias, rate: int) 
                            "under torch.no_grad() or torch.inference_mode()")
     B, C, H, W = x.shape
     Fo = weight.shape[0]
-    x = x.contiguous()
-    wPacked = weight.permute(1, 2, 3, 0).contiguous()              # [C, 3, 3, F]
-    b = (bias.float() if bias is not None
-         else torch.zeros(Fo, device=x.device)).contiguous()
+    x, weight = x.contiguous(), weight.contiguous()             # OIHW, read as it is
+    if bias is not None:
+        bias = bias.float().contiguous()
     out = torch.empty((B, Fo // (rate * rate), rate * H, rate * W),
                       dtype=torch.float32, device=x.device)
     lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.mcq_thin_head(x.data_ptr(), wPacked.data_ptr(), b.data_ptr(),
-                                   out.data_ptr(), B, C, H, W, Fo, rate, stream)
+    index = x.get_device()
+    args = (x.data_ptr(), weight.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr(), B, C, H, W, Fo, rate, torch.cuda.current_stream(index).cuda_stream)
+    if index == torch.cuda.current_device():
+        status = lib.mcq_thin_head(*args)
+    else:
+        with torch.cuda.device(index):
+            status = lib.mcq_thin_head(*args)
     from mcquic_tpu_torch.utils.build import checkCuda
     checkCuda(lib, status, "thin_head kernel")
     conv3x3SubpixelThin.launches += 1

@@ -15,6 +15,7 @@ CPU tensor.
 import torch
 
 CHUNK = 1024
+PAD_VALUE = 1e4                      # a short last chunk's padding (vq.py::vqEncodeChunked)
 RESIDENT_BUDGET = 8 * 1024 * 1024    # bytes of fp32 codebook + norms (vq_pallas.py:209)
 
 
@@ -38,17 +39,28 @@ def vqEncodePlain(tokens: torch.Tensor, codebook: torch.Tensor,
     out), chunked over k so the [m, T, k] distances never exist at once.
     Ties go to the lowest index: `min` returns the first minimum inside a
     chunk, and a later chunk wins only on a strictly smaller distance.
+    A short last chunk is padded to `chunk` codewords of the constant 1e4,
+    as `mcquic_tpu/ops/vq.py::vqEncodeChunked` pads it, so every chunk is
+    one product shape: a library GEMM of another shape may round a
+    duplicate codeword's distance otherwise and split an exact tie. The
+    padded distances never win; the real codewords' norms are summed
+    before the padding (`codewordNorms` mirrors them).
     This is kernel K1's plain version, and what the CPU runs.
     """
     tokens = tokens.float()
     codebook = codebook.float()
-    m, T, _ = tokens.shape
+    m, T, d = tokens.shape
     k = codebook.shape[1]
     best = torch.full((m, T), float("inf"), dtype=torch.float32, device=tokens.device)
     arg = torch.zeros((m, T), dtype=torch.int64, device=tokens.device)
     for k0 in range(0, k, chunk):
         cb = codebook[:, k0:k0 + chunk]
         c2 = (cb * cb).sum(-1)                                    # [m, chunk]
+        pad = min(chunk, k) - cb.shape[1]
+        if pad:
+            padding = torch.full((m, pad, d), PAD_VALUE, dtype=torch.float32, device=cb.device)
+            cb = torch.cat([cb, padding], 1)
+            c2 = torch.cat([c2, (padding * padding).sum(-1)], 1)
         dist = c2[:, None, :] - 2.0 * torch.bmm(tokens, cb.transpose(1, 2))
         localMin, localArg = dist.min(-1)
         better = localMin < best

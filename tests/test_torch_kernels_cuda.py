@@ -18,7 +18,7 @@ from mcquic_tpu_torch.ops.attention import flashAttentionPlain
 from mcquic_tpu_torch.ops.attention_cuda import attentionPlan, flashAttention
 from mcquic_tpu_torch.ops.subpixel_cuda import conv3x3SubpixelPlain, conv3x3SubpixelThin
 from mcquic_tpu_torch.ops.vq import groupLatent, vqEncode, vqEncodePlain
-from mcquic_tpu_torch.ops.vq_cuda import vqNearest
+from mcquic_tpu_torch.ops.vq_cuda import k1Plan, vqNearest
 from mcquic_tpu_torch.ops.vq_grouped_cuda import groupedSplitPlan, vqNearestGrouped
 from mcquic_tpu_torch.utils import exactFp32
 
@@ -55,6 +55,135 @@ def test_k1_matches_plain_with_exact_ties(cuda, m, T, k, d):
     assert torch.equal(got, want)
     if k % 2 == 0:    # every codeword past k/2 repeats one below it
         assert int(got.max()) < k // 2
+
+
+@pytest.mark.parametrize("m,T,k,d", [(1, 1, 1024, 8), (1, 256, 1024, 8),    # Neon's levels
+                                     (12, 2000, 8192, 16),                  # qp-12's width
+                                     (2, 500, 1000, 64), (1, 300, 130, 256)])   # k past whole tiles
+def test_k1_matches_plain_at_the_neon_qp12_and_ragged_shapes(cuda, m, T, k, d):
+    """Duplicated codewords give exact ties; every code must equal the plain
+    version's."""
+    gen = torch.Generator(device=cuda).manual_seed(m * T + k + d)
+    tokens = torch.randn((m, T, d), device=cuda, generator=gen)
+    codebook = torch.randn((m, k, d), device=cuda, generator=gen)
+    codebook[:, k // 2:] = codebook[:, :k - k // 2].clone()
+    launches = vqNearest.launches
+    with exactFp32():
+        got = vqNearest(tokens, codebook)
+        want = vqEncodePlain(tokens, codebook)
+    torch.cuda.synchronize()
+    assert vqNearest.launches == launches + 1
+    assert torch.equal(got, want)
+
+
+def test_k1_takes_a_wider_d_after_a_narrower_one(cuda):
+    """d in increasing order through each of K1's kernel instances (d up to
+    16, 64, 176 and 256): shared memory is allowed per instance for the
+    largest d it takes, so a wider d after a narrower one still launches."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for d in (3, 8, 16, 17, 40, 64, 65, 168, 176, 177, 256):
+        tokens = torch.randn((1, 130, d), device=cuda, generator=gen)
+        codebook = torch.randn((1, 300, d), device=cuda, generator=gen)
+        with exactFp32():
+            got = vqNearest(tokens, codebook)
+            want = vqEncodePlain(tokens, codebook)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), d
+
+
+def test_k1_ties_with_a_duplicate_alone_in_the_last_chunk(cuda):
+    """k 4097: the plain version's default 1024-codeword chunks leave
+    codeword 4096 alone in its chunk, and it repeats codeword 5. Tokens equal
+    to it tie exactly; the lowest index must win in K1 and in the plain
+    version with the default chunk."""
+    gen = torch.Generator(device=cuda).manual_seed(4097)
+    tokens = torch.randn((2, 600, 64), device=cuda, generator=gen)
+    codebook = torch.randn((2, 4097, 64), device=cuda, generator=gen)
+    codebook[:, 4096] = codebook[:, 5]
+    tokens[:, :40] = codebook[:, 5:6]
+    with exactFp32():
+        got = vqNearest(tokens, codebook)
+        want = vqEncodePlain(tokens, codebook)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert (got[:, :40] == 5).all()
+
+
+def _plantAcrossSplits(m, T, k, splits, tilesPerSplit, tokens, codebook):
+    """Repeat the codewords just below each split boundary (and each tile
+    boundary of the first split) just above it, and set a token equal to
+    each; returns the (token, lowest index) pairs."""
+    boundaries = [s * tilesPerSplit * 64 for s in range(1, splits)]
+    boundaries += [64 * i for i in range(1, tilesPerSplit) if 64 * i < k]
+    planted = []
+    for n, boundary in enumerate(boundaries):
+        for i in range(2):
+            low, high, token = boundary - 1 - i, boundary + i, (2 * n + i) % T
+            if high < k:
+                codebook[:, high] = codebook[:, low]
+                tokens[:, token] = codebook[:, low]
+                planted.append((token, low))
+    return {token: low for token, low in planted}     # a token planted twice keeps its last
+
+
+@pytest.mark.parametrize("m,T,k,d", [(2, 1536, 8192, 64), (2, 600, 4100, 64), (1, 256, 1024, 8),
+                                     (3, 200, 2000, 40)])
+def test_k1_ties_across_split_boundaries_go_to_the_lowest_index(cuda, m, T, k, d):
+    """The split route: each split's argmin goes through one 64-bit
+    atomicMin per token; ties across splits and tiles must go to the lower
+    index."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _, splits, perSplit = k1Plan(m, T, k, d, sms)
+    assert splits > 1
+    gen = torch.Generator(device=cuda).manual_seed(m * T + k + d)
+    tokens = torch.randn((m, T, d), device=cuda, generator=gen)
+    codebook = torch.randn((m, k, d), device=cuda, generator=gen)
+    planted = _plantAcrossSplits(m, T, k, splits, perSplit, tokens, codebook)
+    assert planted
+    with exactFp32():
+        got = vqNearest(tokens, codebook)
+        want = vqEncodePlain(tokens, codebook)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for token, low in planted.items():
+        assert (got[:, token] == low).all(), (token, low, got[:, token])
+
+
+@pytest.mark.parametrize("m,T,k,d", [(1, 512, 2000, 8), (2, 600, 4100, 64), (1, 100, 300, 8)])
+def test_k1_near_ties_that_tf32_cannot_see(cuda, m, T, k, d):
+    """Integer data on which fp32 is exact: codeword pairs whose one large
+    coordinate is 2048 in one and 2049 in the other, which TF32 (11
+    significant bits) reads alike, and tokens whose coordinate there is 2048
+    or 2049. Every distance is an integer below 2^24, so the pair's
+    distances differ by 1 or tie exactly, and K1's filter must hand both to
+    the fp32 rescoring. Pairs sit within tiles, across tile and split
+    boundaries, and with 2049 at the lower index."""
+    gen = torch.Generator(device=cuda).manual_seed(k + d)
+    tokens = torch.randint(-2, 3, (m, T, d), device=cuda, generator=gen).float()
+    codebook = torch.randint(-2, 3, (m, k, d), device=cuda, generator=gen).float()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _, splits, perSplit = k1Plan(m, T, k, d, sms)
+    edges = [s * perSplit * 64 for s in range(1, splits)] + [64, 128, k - 1]
+    pairs = [(e - 1, e) for e in edges if 0 < e < k] + [(10, 11), (k // 2 + 1, k // 2)]
+    for n, (a, b) in enumerate(pairs):
+        p = n % d
+        codebook[:, b] = codebook[:, a]
+        codebook[:, a, p] = 2048.0
+        codebook[:, b, p] = 2049.0
+    big = torch.randint(0, len(pairs), (m, T), device=cuda, generator=gen) % d
+    values = 2048.0 + torch.randint(0, 2, (m, T), device=cuda, generator=gen).float()
+    tokens.scatter_(2, big[..., None], values[..., None])
+    with exactFp32():
+        got = vqNearest(tokens, codebook)
+        want = vqEncodePlain(tokens, codebook)
+        exact = ((codebook * codebook).sum(-1)[:, None].double()
+                 - 2 * torch.bmm(tokens.double(), codebook.double().transpose(1, 2)))
+    torch.cuda.synchronize()
+    assert exact.abs().max().item() < 2 ** 24
+    gaps = exact.sort(-1).values
+    assert ((gaps[..., 1] - gaps[..., 0]) <= 1).float().mean().item() > 0.5   # near-ties abound
+    assert torch.equal(got, want)
+    assert torch.equal(got.long(), exact.argmin(-1))
 
 
 K1B_SHAPES = [(2, 1536, 16384, 64), (2, 1536, 65536, 64), (1, 512, 1024, 512)]
@@ -136,6 +265,32 @@ def test_k1b_ties_across_split_boundaries_go_to_the_lowest_index(cuda, m, T, k, 
         assert (got[:, token] == low).all(), (token, low, got[:, token])
 
 
+@pytest.mark.parametrize("m,T,k,d", [(3, 200, 4097, 33), (2, 600, 4097, 64)])
+def test_k1b_ties_across_split_boundaries_with_the_default_chunk(cuda, m, T, k, d):
+    """The split-boundary ties of the test above at k 4097, against the plain
+    version with its default 1024-codeword chunks: since the plain version
+    pads a short last chunk, codeword 4096 alone in its chunk no longer
+    splits an exact tie, and every code must equal the plain version's."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _, splits, perSplit = groupedSplitPlan(m, T, k, sms)
+    assert splits > 1
+    gen = torch.Generator(device=cuda).manual_seed(m * T + k + d)
+    tokens = torch.randn((m, T, d), device=cuda, generator=gen)
+    codebook = torch.randn((m, k, d), device=cuda, generator=gen)
+    planted = _plantAcrossSplits(m, T, k, splits, perSplit, tokens, codebook)
+    codebook[:, 4096] = codebook[:, 7]                   # alone in the last chunk
+    tokens[:, -5:] = codebook[:, 7:8]
+    with exactFp32():
+        got = vqNearestGrouped(tokens, codebook)
+        want = vqEncodePlain(tokens, codebook)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert (got[:, -5:] == 7).all()
+    for token, low in planted.items():
+        if token < T - 5:
+            assert (got[:, token] == low).all(), (token, low, got[:, token])
+
+
 def test_vq_encode_sends_past_budget_and_wide_codebooks_to_k1b(cuda):
     gen = torch.Generator(device=cuda).manual_seed(3)
     cases = [((2, 64, 16384), "K1b"), ((2, 64, 8192), "K1"), ((1, 300, 64), "K1b"),
@@ -209,6 +364,30 @@ def test_k2_matches_conv_and_shuffle(cuda, B, C, H, W, F, r):
     assert conv3x3SubpixelThin.launches == launches + 1
     assert got.shape == want.shape
     assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("B,C,H,W,F,r", [(10, 128, 256, 384, 12, 2),    # the speed batch's head
+                                         (1, 4, 13, 29, 12, 2), (2, 20, 7, 33, 3, 1),
+                                         (1, 20, 9, 37, 16, 4), (3, 4, 31, 5, 16, 4),
+                                         (1, 8, 11, 17, 9, 3)])
+def test_k2_matches_conv_and_shuffle_at_the_batch_and_odd_shapes(cuda, B, C, H, W, F, r):
+    """B 10 at the photo's head shape; odd H and W (the 4-byte copy and store
+    routes), C 4 and 20 (a chunk of 8 channels partly past C), F 3 / r 1,
+    F 16 / r 4 and F 9 / r 3."""
+    gen = torch.Generator(device=cuda).manual_seed(B * C * H + W + F)
+    x = torch.randn((B, C, H, W), device=cuda, generator=gen)
+    w = torch.randn((F, C, 3, 3), device=cuda, generator=gen) * 0.05
+    b = torch.randn((F,), device=cuda, generator=gen)
+    launches = conv3x3SubpixelThin.launches
+    with exactFp32(), torch.no_grad():
+        got = conv3x3SubpixelThin(x, w, b, r)
+        want = conv3x3SubpixelPlain(x, w, b, r)
+        noBias = conv3x3SubpixelThin(x, w, None, r) - conv3x3SubpixelPlain(x, w, None, r)
+    torch.cuda.synchronize()
+    assert conv3x3SubpixelThin.launches == launches + 2
+    assert got.shape == want.shape == (B, F // (r * r), r * H, r * W)
+    assert (got - want).abs().max().item() <= 1e-4
+    assert noBias.abs().max().item() <= 1e-4
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

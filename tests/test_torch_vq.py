@@ -17,13 +17,13 @@ from mcquic_tpu.ops.vq import vqEncode as jaxVqEncode
 from mcquic_tpu.ops.vq import vqEncodeChunked as jaxVqEncodeChunked
 from mcquic_tpu.ops.vq_pallas import residentFits as jaxResidentFits
 from mcquic_tpu.ops.vq_pallas import vqEncodeFused, vqEncodeGrouped
-from mcquic_tpu_torch.ops.subpixel_cuda import (conv3x3SubpixelPlain, conv3x3SubpixelThin,
-                                                thinHeadSupported)
+from mcquic_tpu_torch.ops.subpixel_cuda import (TILE, conv3x3SubpixelPlain, conv3x3SubpixelThin,
+                                                thinHeadGrid, thinHeadSupported)
 from mcquic_tpu_torch.ops import vq_cuda, vq_grouped_cuda
 from mcquic_tpu_torch.ops.vq import (groupLatent, latentTokens, residentFits, ungroupLatent,
                                      vqDequantizeCodes, vqEncode, vqEncodePlain)
 from mcquic_tpu_torch.ops.plan import splitsFor
-from mcquic_tpu_torch.ops.vq_cuda import splitPlan, vqNearest
+from mcquic_tpu_torch.ops.vq_cuda import filterMargin, splitPlan, vqNearest
 from mcquic_tpu_torch.ops.vq_grouped_cuda import (TILE_CODEWORDS, codewordNorms,
                                                    groupedSplitPlan, vqNearestGrouped)
 
@@ -274,3 +274,198 @@ def test_thin_up_conv_takes_k2_only_where_the_jax_package_takes_pallas(
     if grad:
         y.sum().backward()
         assert x.grad is not None
+
+
+def test_plain_search_pads_a_short_last_chunk_like_jax():
+    """k 4097: the default 1024-codeword chunks leave codeword 4096 alone in
+    the last chunk, and it repeats codeword 3. The plain version pads that
+    chunk to full width with 1e4, as `vqEncodeChunked` does, so tokens equal
+    to codeword 3 take the lower index, and the codes equal the JAX
+    package's bit for bit."""
+    rng = np.random.default_rng(4097)
+    x = _nhwmd(1, 8, 10, 2, 64, rng)
+    codebook = rng.normal(size=(2, 4097, 64)).astype(np.float32)
+    codebook[:, 4096] = codebook[:, 3]
+    x[0, 0, :5] = codebook[:, 3]
+    got = _portCodes(x, codebook)
+    want = np.asarray(jaxVqEncodeChunked(jnp.asarray(x), jnp.asarray(codebook)))
+    np.testing.assert_array_equal(got, want)
+    assert (got[0, 0, :5] == 3).all()
+    tokens = latentTokens(torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 4, 1, 2))))
+    np.testing.assert_array_equal(
+        vqEncodePlain(tokens, torch.from_numpy(codebook)).numpy(),
+        vqEncodePlain(tokens, torch.from_numpy(codebook), chunk=4097).numpy())
+
+
+def _truncateTf32(x: torch.Tensor) -> torch.Tensor:
+    """What the tensor core reads of an fp32 operand: its low 13 bits dropped."""
+    return (x.float().contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _k1FilterModel(tokens: torch.Tensor, codebook: torch.Tensor, splits: int,
+                   tilesPerSplit: int):
+    """K1's arithmetic on the CPU: per split, 64-codeword tiles in order;
+    dot~ from TF32-truncated operands with fp32 sums; each lane's margin
+    over its 16 columns of a tile (the columns 8 n + 2 tq + {0, 1}) from
+    `filterMargin` and that lane's largest norms; the running least upper
+    bound U per token folded in before a tile's candidates (lower bound <=
+    U) are taken; the candidates rescored against the exhaustive fp32
+    distances, lowest index on ties. Returns (codes, rescored pairs)."""
+    m, T, d = tokens.shape
+    k = codebook.shape[1]
+    kappa, eta = filterMargin(d)
+    c2 = codewordNorms(codebook)
+    cn = c2.sqrt()
+    exact = c2[:, None, :] - 2.0 * torch.bmm(tokens, codebook.transpose(1, 2))
+    approx = c2[:, None, :] - 2.0 * torch.bmm(_truncateTf32(tokens),
+                                              _truncateTf32(codebook).transpose(1, 2))
+    xk = kappa * tokens.square().sum(-1).sqrt()                       # [m, T]
+    best = torch.full((m, T), float("inf"))
+    arg = torch.zeros((m, T), dtype=torch.int64)
+    rescored = 0
+    for s in range(splits):
+        bound = torch.full((m, T), float("inf"))
+        splitBest = torch.full((m, T), float("inf"))
+        splitArg = torch.zeros((m, T), dtype=torch.int64)
+        for j0 in range(s * tilesPerSplit * 64, min(k, (s + 1) * tilesPerSplit * 64), 64):
+            j1 = min(k, j0 + 64, (s + 1) * tilesPerSplit * 64)
+            lane = (torch.arange(j1 - j0) % 8) // 2                   # the column's lane tq
+            margin = torch.empty((m, T, j1 - j0))
+            for tq in range(4):
+                cols = (lane == tq).nonzero().flatten() + j0
+                if cols.numel():
+                    D = (xk * cn[:, cols].max(-1).values[:, None]
+                         + eta * c2[:, cols].max(-1).values[:, None])
+                    margin[..., cols - j0] = D[..., None]
+            tile = approx[..., j0:j1]
+            bound = torch.minimum(bound, (tile + margin).min(-1).values)
+            candidate = tile - margin <= bound[..., None]
+            rescored += int(candidate.sum())
+            dist = torch.where(candidate, exact[..., j0:j1], torch.tensor(float("inf")))
+            tileMin, tileArg = dist.min(-1)
+            better = tileMin < splitBest
+            splitBest = torch.where(better, tileMin, splitBest)
+            splitArg = torch.where(better, tileArg + j0, splitArg)
+        better = splitBest < best      # splits in increasing k: the earlier keeps ties
+        best = torch.where(better, splitBest, best)
+        arg = torch.where(better, splitArg, arg)
+    return arg.to(torch.int32), rescored
+
+
+def _adversarial(kind, m, T, k, d, rng):
+    if kind == "normal":
+        return (rng.normal(size=(m, T, d)).astype(np.float32),
+                rng.normal(size=(m, k, d)).astype(np.float32))
+    tokens = rng.integers(-2, 3, size=(m, T, d)).astype(np.float32)
+    codebook = rng.integers(-2, 3, size=(m, k, d)).astype(np.float32)
+    if kind == "pairs":       # one coordinate 2048 against 2049: TF32 reads both as 2048
+        pairs = [(e - 1, e) for e in range(64, k, 64)] + [(10, 11), (k // 2 + 1, k // 2)]
+        for n, (a, b) in enumerate(pairs):
+            codebook[:, b] = codebook[:, a]
+            codebook[:, a, n % d] = 2048.0
+            codebook[:, b, n % d] = 2049.0
+        big = rng.integers(0, len(pairs), size=(m, T)) % d
+        np.put_along_axis(tokens, big[..., None],
+                          (2048.0 + rng.integers(0, 2, size=(m, T, 1))).astype(np.float32), 2)
+    if kind == "duplicates":  # exact ties across every tile boundary
+        for e in range(64, k, 64):
+            codebook[:, e] = codebook[:, e - 1]
+            tokens[:, (e // 64) % T] = codebook[:, e - 1]
+    return tokens, codebook
+
+
+@pytest.mark.parametrize("kind,m,T,k,d", [
+    ("normal", 2, 256, 8192, 64),      # qp-2 level 0's widths, T cut
+    ("normal", 1, 256, 1024, 8),       # Neon's last level
+    ("normal", 12, 64, 8192, 16),      # qp-12 level 0's widths, T cut
+    ("ties", 2, 300, 2000, 16),
+    ("pairs", 1, 300, 2000, 8),
+    ("pairs", 2, 200, 4100, 64),
+    ("duplicates", 2, 200, 4100, 64),
+    ("duplicates", 1, 256, 1024, 8),
+])
+def test_k1_filter_model_returns_the_exhaustive_argmin(kind, m, T, k, d):
+    """The filter and the margin of csrc/vq_encode.cu, modelled on the CPU
+    with the kernel's split plan on 132 SMs, give exactly the codes of an
+    exhaustive fp32 argmin; on random data about ln(tiles) pairs per token
+    are rescored, and the near-ties of the integer cases (which TF32 cannot
+    tell apart) are all handed to the rescoring."""
+    rng = np.random.default_rng(k + d + T)
+    tokens, codebook = (torch.from_numpy(a) for a in _adversarial(kind, m, T, k, d, rng))
+    blockTokens, splits, tilesPerSplit = vq_cuda.k1Plan(m, T * 6, k, d, 132)
+    got, rescored = _k1FilterModel(tokens, codebook, splits, tilesPerSplit)
+    want = vqEncodePlain(tokens, codebook, chunk=k)
+    exact = (codewordNorms(codebook)[:, None, :]
+             - 2.0 * torch.bmm(tokens, codebook.transpose(1, 2)))
+    assert torch.equal(want.long(), exact.argmin(-1))
+    assert torch.equal(got, want)
+    perToken = rescored / (m * T)
+    assert perToken >= splits
+    if kind == "normal":
+        assert perToken <= 4 * splits * (1 + np.log(-(-k // 64) / splits)), perToken
+    if kind in ("ties", "pairs"):
+        # the filter matters: TF32 alone picks another codeword on some tokens
+        approx = (codewordNorms(codebook)[:, None, :] - 2.0 * torch.bmm(
+            _truncateTf32(tokens), _truncateTf32(codebook).transpose(1, 2)))
+        assert kind == "ties" or (approx.argmin(-1) != exact.argmin(-1)).any()
+
+
+@pytest.mark.parametrize("m,T,k,d", [(2, 1536, 8192, 64), (2, 384, 2048, 64), (2, 96, 512, 64),
+                                     (1, 1, 1024, 8), (1, 256, 1024, 8), (12, 15360, 8192, 16),
+                                     (1, 300, 130, 256), (3, 77, 200, 177), (2, 5, 7, 3)])
+def test_k1_plan_covers_k_and_fits_shared_memory(m, T, k, d):
+    """K1's plan: 128-token blocks unless d rounded up to 8 passes WIDE_D (the
+    token tile and the 3-stage ring of 64-codeword tiles would not fit the
+    card's 227 KB), 64 then with a 2-stage ring (as for d up to 16); every
+    codeword tile in one split and none empty; the qp-2 level 0 fills two
+    blocks per SM."""
+    blockTokens, splits, tilesPerSplit = vq_cuda.k1Plan(m, T, k, d, 132)
+    tiles = -(-k // vq_cuda.TILE_CODEWORDS)
+    assert (splits - 1) * tilesPerSplit < tiles <= splits * tilesPerSplit
+    dp = -(-d // 8) * 8
+    assert blockTokens == (128 if dp <= vq_cuda.WIDE_D else 64)
+    stages = 3 if blockTokens == 128 and dp > 16 else 2
+    shared = 4 * (blockTokens * (dp + 4) + stages * (64 * (dp + 4) + 128))
+    assert shared <= 232448
+    blocks = -(-T // blockTokens) * m * splits
+    if (m, T, k) == (2, 1536, 8192):
+        assert (splits, blocks) == (11, 264)
+    assert splits == 1 or blocks <= 4 * 132
+
+
+def _roundTf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 with two integer operations, ties away from zero
+    (csrc/tf32_mma.cuh::split)."""
+    return ((x.float().contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def test_k2_3xtf32_conv_stays_within_a_tenth_of_the_tolerance():
+    """K2's arithmetic before any card run: at the photo head's widths (C 128,
+    F 12; the image cut to 24x40), x and the weights split hi + lo with hi
+    rounded to TF32 and lo truncated by the tensor core, the products
+    lo.hi + hi.lo + hi.hi summed in fp32, against the fp64 conv: within
+    1e-5, a tenth of the card's 1e-4 gate. One TF32 product is worse."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.normal(size=(1, 128, 24, 40)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(12, 128, 3, 3)) * 0.05).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(12,)).astype(np.float32))
+    xHi, wHi = _roundTf32(x), _roundTf32(w)
+    xLo, wLo = _truncateTf32(x - xHi), _truncateTf32(w - wHi)
+    conv = torch.nn.functional.conv2d
+    emulated = conv(xLo, wHi, padding=1) + conv(xHi, wLo, padding=1) + conv(xHi, wHi, b, padding=1)
+    exact = conv(x.double(), w.double(), b.double(), padding=1)
+    err = (emulated.double() - exact).abs().max().item()
+    assert err <= 1e-5, err
+    oneProduct = conv(_truncateTf32(x), _truncateTf32(w), b, padding=1)
+    assert (oneProduct.double() - exact).abs().max().item() > 10 * err
+
+
+@pytest.mark.parametrize("B,H,W", [(1, 256, 384), (10, 256, 384), (2, 7, 33), (1, 1, 1)])
+def test_k2_grid_covers_the_image_in_one_wave_at_the_photo(B, H, W):
+    """K2's grid: every input pixel in one tile; the photo's 384 tiles fit one
+    wave of 3 blocks per SM on 132 SMs."""
+    cols, rows, batch = thinHeadGrid(B, H, W)
+    th, tw = TILE
+    assert (cols - 1) * tw < W <= cols * tw and (rows - 1) * th < H <= rows * th and batch == B
+    if (B, H, W) == (1, 256, 384):
+        assert cols * rows == 384 <= 3 * 132

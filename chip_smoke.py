@@ -51,6 +51,25 @@ ends:
      real latents, and the card's codes the CPU's on a crop);
      `compressMany` / `decompressMany` against per-batch calls; a `--tile
      256` round trip through the CLI against the same tiles coded whole.
+  8. the Neon codec: a seeded Neon export at configs/rd5/neon_v2_60k.yaml's
+     geometry goes through `demo.loadModel(local=...)` and compresses and
+     restores a 256x256 crop of the photo through a `.mcq` (9 K1 launches
+     per compress, K1's codes equal to the plain version's on its real
+     latents, the card's codes to the CPU's on CODES_MIN_AGREEMENT of the
+     tokens, as phase 4), and the `--local` CLI writes the same file;
+  9. stage-1 training at full width: configs/rd3/rd_qp2.yaml's model and
+     recipe (batch 8, crop 256, Adam at the world-rule lr, the cosine warm-up
+     schedule; seeded initial weights) on a folder of PNG crops of the photo
+     for TRAIN_STEPS steps through `Trainer.train`, CodebookReassign firing
+     once mid-run. Gates: the first step's loss and gradient norm equal the
+     CPU's on the same weights, batch and uniforms (TRAIN_CPU_RTOL); every
+     loss finite, no step skipped; the validation inside the trainer launches
+     K1 3 times and K2 once per image, K1's codes equal the plain version's
+     after the optimizer steps and after the reassign, and the model stays in
+     training mode with its gradients on; a checkpoint resumes to the same
+     step and parameters; the export loads through `demo.loadModel` and
+     round-trips the photo. Printed: steps/s, images/s, a step's device idle
+     share (`utils/profiling.py::report`) and the peak memory.
 
 Any failure ends the run with a non-zero exit and no result line. The last
 two lines are the kernel table as JSON and
@@ -90,6 +109,12 @@ K1B_SHAPES = [(2, 1536, 16384, 64),      # level 0 of the past-budget model on t
               (2, 1536, 65536, 64), (1, 512, 1024, 512)]
 QP12 = (192, 12, [8192, 2048, 512])      # channel, m, k (no zoo file: seeded weights)
 PAST_BUDGET = (128, 2, [16384, 2048, 512])
+NEON_V2_60K = dict(channel=256, k=1024, size=[16, 8, 8, 4, 4, 2, 2, 1, 1])  # configs/rd5/neon_v2_60k.yaml
+RD_QP2 = ROOT / "configs" / "rd3" / "rd_qp2.yaml"
+TRAIN_STEPS = 30
+REASSIGN_AT = 15                 # CodebookReassign's freq: fires once, mid-run
+TRAIN_CPU_RTOL = 1e-3            # first step, card vs CPU, loss and grad norm (fp32, TF32 off;
+                                 # cuDNN and the CPU sum in other orders)
 TILE = 256
 TILE_BATCH_MAX_DIFF = 1          # uint8 levels: cuDNN picks algorithms by batch size, so the same
                                  # codes decoded one by one and as a batch of 6 round differently
@@ -241,6 +266,209 @@ def teacherForcedLogits(model, condition, codes, level):
     return logits[:, prefix - model.lengths[level]:]
 
 
+def k1MatchesPlain(torch, model, gen, label):
+    """K1 against its plain version on random tokens and the model's live
+    codebooks, level by level; raises on any differing code."""
+    from mcquic_tpu_torch.ops.vq import vqEncodePlain
+    from mcquic_tpu_torch.ops.vq_cuda import vqNearest
+    from mcquic_tpu_torch.utils import exactFp32
+    with exactFp32(), torch.no_grad():
+        for level in range(len(model.k)):
+            codebook = model._quantizer.codebook(level).detach()
+            tokens = torch.randn((model.m, 4096, codebook.shape[-1]), device=codebook.device,
+                                 generator=gen)
+            if not torch.equal(vqNearest(tokens, codebook), vqEncodePlain(tokens, codebook)):
+                raise AssertionError(f"K1 differs from the plain version {label}, level {level}")
+    print(f"  K1 codes equal the plain version's on the live codebooks {label}", flush=True)
+
+
+def train9(torch, np, tmp: Path, img, smi: str) -> dict:
+    """Phase 9: rd_qp2's model and recipe trained on the card for
+    TRAIN_STEPS steps, with every gate of the phase; returns the K1 and K2
+    launches per image of the validation inside the trainer."""
+    from mcquic_tpu_torch.config import Config
+    from mcquic_tpu_torch.container import File
+    from mcquic_tpu_torch.data import getTrainLoader, getValLoader
+    from mcquic_tpu_torch.data.augment import augmentDraws, trainingTransform
+    from mcquic_tpu_torch.data.png import writePng
+    from mcquic_tpu_torch.demo import loadModel
+    from mcquic_tpu_torch.loss import PSNR
+    from mcquic_tpu_torch.models.compressor import Compressor
+    from mcquic_tpu_torch.ops.subpixel_cuda import conv3x3SubpixelThin
+    from mcquic_tpu_torch.ops.vq import groupLatent, latentTokens, vqEncodePlain
+    from mcquic_tpu_torch.ops.vq_cuda import vqNearest
+    from mcquic_tpu_torch.train.optim import getOptimizer
+    from mcquic_tpu_torch.train.state import makeTrainStep, trainableParameters
+    from mcquic_tpu_torch.train.trainer import Trainer
+    from mcquic_tpu_torch.utils import exactFp32
+    from mcquic_tpu_torch.utils.convert import exportModel
+    from mcquic_tpu_torch.utils.profiling import report
+
+    device = torch.device("cuda")
+    pngs, val = tmp / "train", tmp / "val"
+    pngs.mkdir()
+    val.mkdir()
+    h, w = img.shape[:2]
+    for i in range(16):                      # two batches of 8 per epoch
+        top, left = (i * 37) % (h - 320), (i * 61) % (w - 320)
+        crop = img[top:top + 320, left:left + 320]
+        writePng(pngs / f"{i:02d}.png", crop[:, ::-1] if i % 2 else crop)
+    shutil.copy(PHOTO, val / PHOTO.name)
+    data = Config.load(str(RD_QP2)).serialize()
+    data["train"].update(totalStep=TRAIN_STEPS, valFreq=TRAIN_STEPS, trainSet=str(pngs),
+                         valSet=str(val), saveDir=str(tmp / "saved"),
+                         hooks=[{"key": "CodebookReassign", "params": {"freq": REASSIGN_AT}}])
+    config = Config.deserialize(data)
+    trainer = Trainer(config, device="cuda")
+    model = trainer.model
+    print(f"  configs/rd3/rd_qp2.yaml: {config.Model.Params}, batch {config.Train.BatchSize}, "
+          f"crop {trainer.inputSize}, {config.Train.Optim.Key} at the world-rule lr "
+          f"{trainer._baseLr:.4e}, {config.Train.Schdr.Key} {config.Train.Schdr.Params}; "
+          f"{sum(p.numel() for p in trainableParameters(model)) / 1e6:.2f} M parameters; "
+          f"{TRAIN_STEPS} steps, CodebookReassign every {REASSIGN_AT}", flush=True)
+    if abs(trainer._baseLr - 1e-4 / 2 ** 1.5) > 1e-12:
+        raise AssertionError(f"lr {trainer._baseLr} is not rd_qp2's 1e-4 under the world rule")
+
+    # the first step on the card against the CPU: same weights, batch, uniforms
+    batch = next(iter(getTrainLoader(pngs, config.Train.BatchSize, cropSize=trainer.inputSize)()))
+    cpuGen = torch.Generator().manual_seed(0)
+    x = trainingTransform(torch.from_numpy(batch), augmentDraws(cpuGen, batch.shape[0]))
+    uniforms = []
+
+    def recorded(dev):
+        queue = iter(uniforms)
+
+        def draw(shape):
+            u = next(queue, None)
+            if u is None:
+                u = torch.rand(shape, generator=cpuGen)
+                uniforms.append(u)
+            return u.to(dev)
+        return draw
+
+    first = {}
+    for dev in (torch.device("cpu"), device):
+        copy = Compressor(model.channel, model.m, model.k)
+        copy.load_state_dict(model.state_dict())
+        copy = copy.to(dev).train()
+        optimizer = getOptimizer("Adam", trainer._schedule, {}, trainableParameters(copy))
+        start = time.perf_counter()
+        with exactFp32():
+            metrics = makeTrainStep(copy, optimizer, PSNR())(x.to(dev), recorded(dev))
+        first[dev.type] = {k: float(v) for k, v in metrics.items()}
+        print(f"  first step on the {dev.type}: loss {first[dev.type]['loss']:.8f}, grad norm "
+              f"{first[dev.type]['gradNorm']:.8f}, {time.perf_counter() - start:.1f} s", flush=True)
+        del copy, optimizer
+    for key in ("loss", "gradNorm"):
+        cpu, card = first["cpu"][key], first["cuda"][key]
+        if not abs(card - cpu) <= TRAIN_CPU_RTOL * abs(cpu):
+            raise AssertionError(f"first step {key}: card {card}, CPU {cpu}")
+    print(f"  first step card vs CPU: loss differs by {abs(first['cuda']['loss'] - first['cpu']['loss']) / abs(first['cpu']['loss']):.2e} "
+          f"relative, grad norm by {abs(first['cuda']['gradNorm'] - first['cpu']['gradNorm']) / abs(first['cpu']['gradNorm']):.2e} "
+          f"(tolerance {TRAIN_CPU_RTOL:g})", flush=True)
+    del uniforms, x
+    torch.cuda.empty_cache()
+
+    # the run, through Trainer.train, instrumented
+    stepS, losses, skipped, valInfo = [], [], [], {}
+    gen = torch.Generator(device=device).manual_seed(5)
+    trainStep, reassign, validate = trainer.trainStep, trainer.reassignCodebooks, trainer.validate
+
+    def timedStep(b):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        metrics = trainStep(b)
+        torch.cuda.synchronize()
+        stepS.append(time.perf_counter() - start)
+        losses.append(float(metrics["loss"]))
+        skipped.append(float(metrics["skipped"]))
+        return metrics
+
+    def checkedReassign():
+        prop = reassign()
+        print(f"  step {trainer.step}: CodebookReassign moved {prop:.4f} of the codewords", flush=True)
+        k1MatchesPlain(torch, model, gen, f"after the reassign at step {trainer.step}")
+        return prop
+
+    def countedValidate(valLoader):
+        latents = []
+        hooks = [level._quantizationHead.register_forward_hook(
+            lambda mod, inp, out: latents.append(out.detach().clone()))
+            for level in model._quantizer._encoders]
+        vqNearest.launches = conv3x3SubpixelThin.launches = 0
+        try:
+            results = validate(valLoader)
+        finally:
+            for hook in hooks:
+                hook.remove()
+        valInfo.update(results=results, K1=vqNearest.launches / results["images"],
+                   K2=conv3x3SubpixelThin.launches / results["images"], training=model.training,
+                   grads=all(p.requires_grad for p in trainableParameters(model)))
+        with exactFp32(), torch.no_grad():
+            for level, q in enumerate(latents[:len(model.k)]):
+                tokens = latentTokens(groupLatent(q, model.m))
+                codebook = model._quantizer.codebook(level).detach()
+                if not torch.equal(vqNearest(tokens, codebook), vqEncodePlain(tokens, codebook)):
+                    raise AssertionError(f"K1 differs from the plain version on the validation's "
+                                         f"level-{level} latents at step {trainer.step}")
+        print(f"  validation at step {trainer.step}: {results}; K1 {valInfo['K1']:g} and K2 "
+              f"{valInfo['K2']:g} launches per image; K1 codes equal the plain version's on its "
+              f"latents after {trainer.step} optimizer steps", flush=True)
+        return results
+
+    trainer.trainStep, trainer.reassignCodebooks, trainer.validate = (timedStep, checkedReassign,
+                                                                      countedValidate)
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    trainer.train(getTrainLoader(pngs, config.Train.BatchSize, cropSize=trainer.inputSize),
+                  valLoader=getValLoader(val), onStep=lambda step, metrics: None)
+    runS = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated()
+    steady = statistics.median(stepS[1:])
+    print(f"  {len(stepS)} steps in {runS:.1f} s with saves and validation; step median "
+          f"{steady * 1e3:.1f} ms (first {stepS[0] * 1e3:.1f} ms): {1 / steady:.3f} steps/s, "
+          f"{config.Train.BatchSize / steady:.2f} images/s; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB ({smi})", flush=True)
+    print(f"  losses: first {losses[0]:.6f}, last {losses[-1]:.6f}, all finite "
+          f"{all(np.isfinite(losses))}, skipped {int(sum(skipped))}", flush=True)
+    if len(stepS) != TRAIN_STEPS or not all(np.isfinite(losses)) or any(skipped):
+        raise AssertionError("a training step was skipped or not finite")
+    if (not valInfo or valInfo["K1"] != 3 or valInfo["K2"] != 1 or not valInfo["training"]
+            or not valInfo["grads"]):
+        raise AssertionError(f"the validation inside the trainer: {valInfo}")
+
+    # resume: a fresh trainer on the save directory comes back to this state
+    resumed = Trainer(config, device="cuda")
+    try:
+        if not resumed.tryResume() or resumed.step != TRAIN_STEPS:
+            raise AssertionError(f"resume came back at step {resumed.step}")
+        same = all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                     resumed.model.state_dict().values()))
+        sameMoments = all(torch.equal(a, b) for a, b in zip(trainer.optimizer.state["mu"],
+                                                            resumed.optimizer.state["mu"]))
+        print(f"  resumed at step {resumed.step}: parameters identical {same}, first moments "
+              f"identical {sameMoments}", flush=True)
+        if not (same and sameMoments):
+            raise AssertionError("the resumed state differs")
+        wall, busy, idle = report(f"  training step (batch {config.Train.BatchSize}, crop "
+                                  f"{trainer.inputSize})", lambda: resumed.trainStep(batch), 3, 8)
+    finally:
+        resumed.close()
+
+    # the export through demo.loadModel and a .mcq of the photo
+    export = exportModel(tmp / "export.npz", trainer.variables(), config.serialize(), qp="train")
+    engine = loadModel(local=export, device="cuda")
+    file = engine.compressImage(img)
+    restored = engine.decompressImage(File.deserialize(file.serialize()))
+    print(f"  export {export.name}: the photo at {file.BPP:.4f} bpp, PSNR {psnr(img, restored):.2f} "
+          f"dB after {TRAIN_STEPS} warm-up steps", flush=True)
+    if restored.shape != img.shape or restored.dtype != np.uint8:
+        raise AssertionError("the export does not round-trip the photo")
+    return {"K1": valInfo["K1"], "K2": valInfo["K2"], "steps_per_s": 1 / steady,
+            "images_per_s": config.Train.BatchSize / steady, "idle_share": idle,
+            "peak_gib": peak / 2 ** 30}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -257,7 +485,7 @@ def main() -> int:
     from mcquic_tpu_torch.coding import rans
     from mcquic_tpu_torch.container import File
     from mcquic_tpu_torch.data.png import readPng, writePng
-    from mcquic_tpu_torch.demo import loadModel, zooPath
+    from mcquic_tpu_torch.demo import loadModel, writeSeededExport, zooPath
     from mcquic_tpu_torch.models.compressor import Compressor, seededCompressor
     from mcquic_tpu_torch.models.engine import CompressorEngine
     from mcquic_tpu_torch.models.tiling import (TiledFile, compressTiled, decompressTiled,
@@ -958,6 +1186,76 @@ def main() -> int:
                 and np.array_equal(together, cliRestored) and diff.max() <= TILE_BATCH_MAX_DIFF):
             raise AssertionError("the tiled round trip disagrees")
 
+    with Phase("8 Neon codec"), tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        export = writeSeededExport(tmp / "neon_v2_60k.npz", "Neon", NEON_V2_60K, seed=0, qp="-1")
+        start = time.perf_counter()
+        neonEngine = loadModel(local=export, device="cuda")
+        print(f"  seeded Neon export at configs/rd5/neon_v2_60k.yaml's geometry {NEON_V2_60K}, "
+              f"{export.stat().st_size / 1e6:.1f} MB, loaded in {time.perf_counter() - start:.2f} s",
+              flush=True)
+        crop = img[128:384, 128:384]
+        writePng(tmp / "crop.png", crop)
+        neonEngine.decompressImage(neonEngine.compressImage(crop))           # warm-up
+        searches = []
+        originalEncode = quantizerModule.vqEncode
+
+        def captureNeon(x, codebook):
+            searches.append((latentTokens(x), codebook.float().contiguous()))
+            return originalEncode(x, codebook)
+
+        quantizerModule.vqEncode = captureNeon
+        try:
+            neonEngine.encode(crop[None])
+        finally:
+            quantizerModule.vqEncode = originalEncode
+        with exactFp32(), torch.inference_mode():
+            for level, (tokens, codebook) in enumerate(searches):
+                n, _ = checkCodes(torch, tokens, codebook, vqNearest(tokens, codebook),
+                                  vqEncodePlain(tokens, codebook),
+                                  f"K1 Neon codec level {level} {tuple(tokens.shape)}")
+                if n:
+                    raise AssertionError(f"K1 differs from the plain version at Neon level {level}")
+        vqNearest.launches = 0
+        start = time.perf_counter()
+        neonFile = neonEngine.compressImage(crop)
+        neonCompressS = time.perf_counter() - start
+        neonMcq = tmp / "crop.mcq"
+        neonMcq.write_bytes(neonFile.serialize())
+        neonCodecLaunches = vqNearest.launches
+        start = time.perf_counter()
+        neonRestored = neonEngine.decompressImage(File.deserialize(neonMcq.read_bytes()))
+        neonRestoreS = time.perf_counter() - start
+        cardCodes = neonEngine.encode(crop[None])
+        cpuEngine = loadModel(local=export, device="cpu")
+        cpuCodes = cpuEngine.encode(crop[None])
+        agreement = (sum(int((a == c).sum()) for a, c in zip(cardCodes, cpuCodes))
+                     / sum(a.size for a in cardCodes))
+        print(f"  Neon 256x256 crop: {neonFile.BPP:.4f} bpp, PSNR {psnr(crop, neonRestored):.2f} dB "
+              f"(seeded weights), K1 launches per compress {neonCodecLaunches}, compress "
+              f"{neonCompressS * 1e3:.1f} ms, restore {neonRestoreS * 1e3:.1f} ms (host clock); "
+              f"card vs CPU codes agree on {agreement:.4%} "
+              f"({'identical' if agreement == 1 else 'not identical'})", flush=True)
+        if (neonCodecLaunches != len(NEON_V2_60K["size"]) or neonRestored.shape != crop.shape
+                or agreement < CODES_MIN_AGREEMENT):
+            raise AssertionError("the Neon codec did not run as it should")
+        del cpuEngine
+        proc = subprocess.run([sys.executable, "-m", "mcquic_tpu_torch", "--local", str(export),
+                               str(tmp / "crop.png"), str(tmp / "cli.mcq")],
+                              cwd=ROOT, capture_output=True, text=True, timeout=CLI_TIMEOUT)
+        if proc.returncode != 0:
+            raise RuntimeError(f"Neon CLI exited {proc.returncode}:\n{proc.stderr}")
+        sameNeonFile = (tmp / "cli.mcq").read_bytes() == neonMcq.read_bytes()
+        print(f"  Neon CLI --local: .mcq identical to the in-process one: {sameNeonFile}", flush=True)
+        if not sameNeonFile:
+            raise AssertionError("the Neon CLI wrote another file")
+        del neonEngine
+        torch.cuda.empty_cache()
+
+    with Phase("9 stage-1 training"), tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        trainTrace = train9(torch, np, tmp, img, smi)
+
     kernels = [
         {"name": "vq_nearest", "route": "cuda", "source": "mcquic_tpu_torch/csrc/vq_encode.cu",
          "replaces": "mcquic_tpu/ops/vq_pallas.py:162", "launches": launches["K1"],
@@ -966,6 +1264,8 @@ def main() -> int:
          "device_ms": k1["device_ms"], "library_device_ms": k1["library_device_ms"],
          "bound_fp32_ms": k1["bound_fp32_ms"], "host_us": k1["host_us"],
          "library_host_us": k1["library_host_us"], "photo_rescored": k1["photo_rescored"],
+         "neon_codec_launches": neonCodecLaunches,
+         "train_validation_launches_per_image": trainTrace["K1"],
          "neon_device_ms": neonK1["device_ms"], "neon_ms": neonK1["ms"],
          "neon_library_device_ms": neonK1["library_device_ms"],
          "qp12_device_ms": qp12K1["device_ms"],
@@ -982,6 +1282,7 @@ def main() -> int:
          "device_ms": k2["device_ms"], "library_device_ms": k2["library_device_ms"],
          "bound_fp32_ms": k2["bound_fp32_ms"], "host_us": k2["host_us"],
          "library_host_us": k2["library_host_us"], "batch_device_ms": k2Batch["device_ms"],
+         "train_validation_launches_per_image": trainTrace["K2"],
          "batch_library_device_ms": k2Batch["library_device_ms"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "mcquic_tpu_torch/csrc/flash_attention.cu",

@@ -5,7 +5,9 @@
 evaluate a model on a folder of PNGs, export it and time it
 (`mcquic_tpu/cli.py:92-110`); or, as
 `python -m mcquic_tpu_torch generate -c 1,207 model.npz outdir/`, sample
-images from a stage-2 generator (`mcquic_tpu/cli.py:130-147`)."""
+images from a stage-2 generator (`mcquic_tpu/cli.py:130-147`); or, as
+`python -m mcquic_tpu_torch train -G config.yaml`, train a v1 Compressor
+(`mcquic_tpu/cli.py:86-96`)."""
 import argparse
 import logging
 
@@ -64,6 +66,22 @@ def generateParser() -> argparse.ArgumentParser:
     return p
 
 
+def trainParser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m mcquic_tpu_torch train",
+        description="Stage-1 training of the v1 Compressor from a YAML config (model, train: "
+                    "trainSet a folder of PNGs, valSet, saveDir, ...). Resumes from "
+                    "saveDir/latest where a checkpoint is; writes checkpoints there and the "
+                    "deploy model into saveDir, whose path is printed.")
+    p.add_argument("-G", "--config", dest="configOption", default=None, metavar="CONFIG",
+                   help="the YAML config (or give it as the positional argument)")
+    p.add_argument("-r", "--resume", action="store_true",
+                   help="resume from saveDir/latest (always done where a checkpoint is)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("configPath", nargs="?", default=None)
+    return p
+
+
 def main(argv=None) -> int:
     import sys
     argv = sys.argv[1:] if argv is None else list(argv)
@@ -75,6 +93,15 @@ def main(argv=None) -> int:
                              args.output, topK=args.top_k, temperature=args.temperature,
                              seed=args.seed, device=args.device):
             print(path)
+        return 0
+    if argv[:1] == ["train"]:
+        p = trainParser()
+        args = p.parse_args(argv[1:])
+        config = args.configOption or args.configPath
+        if config is None or (args.configOption and args.configPath):
+            p.error("give the config once, as -G CONFIG or as the positional argument")
+        from mcquic_tpu_torch.train.cli import main as train
+        print(train(config, device=args.device))
         return 0
     if argv[:1] == ["validate"]:
         args = validateParser().parse_args(argv[1:])

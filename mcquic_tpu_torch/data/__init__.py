@@ -1,51 +1,92 @@
-"""Evaluation data: a folder of images, batch 1, aligned crop (counterpart of
-`mcquic_tpu/data/__init__.py::getValLoader` and
-`mcquic_tpu/data/dataset.py::BasicFolder`, reference
-`mcquic/data/__init__.py:154-170`).
+"""Data loaders (counterpart of `mcquic_tpu/data/__init__.py`, reference
+`mcquic/data/__init__.py`):
+  * `getTrainLoader` (`:42-67`): a folder of PNGs, shuffled through a
+    bounded buffer, random-resized-cropped to the crop size, batched; yields
+    uint8 NHWC numpy batches through a background prefetch thread (the
+    augmentation runs on the device, `data/augment.py`).
+  * `getValLoader` (`:70-89`): a folder, batch 1, aligned crop.
 
-The port decodes PNG only (`data/png.py`): torch, numpy and the standard
-library have no JPEG, BMP or WebP decoder. Files with those suffixes are
-listed as the JAX package lists them, then skipped with a warning, so a
-folder that mixes formats is never evaluated silently on a subset.
+The port reads PNG only (`data/dataset.py`). A tar-shard pattern or a
+training folder holding images of another format is refused with an error:
+training on a silent subset would be a different run.
 """
 import logging
+import queue
+import random
+import threading
 from pathlib import Path
-from typing import Iterator, List
+from typing import Iterable, Iterator
 
-import numpy as np
-
-from mcquic_tpu_torch.data.png import readPng
+from mcquic_tpu_torch.data.dataset import (BasicFolder, batched, listImages, randomResizedCrop,
+                                           shuffled)
 from mcquic_tpu_torch.data.transforms import alignedCrop
 
-IMG_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
+__all__ = ["BasicFolder", "listImages", "prefetched", "getTrainLoader", "getValLoader"]
 logger = logging.getLogger("mcquic_tpu_torch.data")
 
 
-def listImages(root) -> List[Path]:
-    return sorted(p for p in Path(root).rglob("*") if p.suffix.lower() in IMG_EXTENSIONS)
+def prefetched(gen: Iterable, depth: int = 4) -> Iterator:
+    """Run the generator in a background thread with a bounded queue; an
+    exception in the generator is raised to the consumer."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    done = object()
+    failure = []
+
+    def worker():
+        try:
+            for item in gen:
+                q.put(item)
+        except Exception as e:              # handed to the consumer, raised there
+            failure.append(e)
+        finally:
+            q.put(done)
+
+    threading.Thread(target=worker, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is done:
+            break
+        yield item
+    if failure:
+        raise failure[0]
 
 
-class BasicFolder:
-    """The PNG images under `root`, sorted by path, as uint8 [h, w, 3]."""
+def checkTrainSet(pattern) -> Path:
+    """The training folder, after refusing what the port cannot read: tar
+    shards (a glob or a .tar path) and folders with non-PNG images."""
+    src = str(pattern)
+    if any(ch in src for ch in "*?[") or src.endswith((".tar", ".tar.gz")):
+        raise ValueError(f"trainSet {src!r} names tar shards; this package reads a folder of "
+                         "PNGs only (no JPEG decoder without PIL)")
+    others = [p for p in listImages(src) if p.suffix.lower() != ".png"]
+    if others:
+        raise ValueError(f"trainSet {src!r} holds {len(others)} non-PNG images (e.g. "
+                         f"{others[0]}); this package decodes PNG only")
+    return Path(src)
 
-    def __init__(self, root):
-        files = listImages(root)
-        if not files:
-            raise FileNotFoundError(f"No images under {root}")
-        self._files = [p for p in files if p.suffix.lower() == ".png"]
-        for p in files:
-            if p.suffix.lower() != ".png":
-                logger.warning("%s is not a PNG; this package decodes PNG only; skipped", p)
 
-    def __len__(self):
-        return len(self._files)
+def getTrainLoader(pattern, batchSize: int, cropSize: int = 512, seed: int = 0,
+                   shuffleBuffer: int = 500, prefetch: int = 4):
+    """A zero-argument callable returning a fresh epoch's iterator of uint8
+    [batchSize, cropSize, cropSize, 3] batches; epoch e shuffles and crops
+    with seed + e."""
+    root = checkTrainSet(pattern)
+    epochBox = [0]
 
-    def __getitem__(self, idx) -> np.ndarray:
-        return readPng(self._files[idx])
+    def loaderFn():
+        epoch = epochBox[0]
+        epochBox[0] += 1
+        rng = random.Random(seed + epoch)
 
-    def __iter__(self) -> Iterator[np.ndarray]:
-        for i in range(len(self)):
-            yield self[i]
+        def samples():
+            for img in shuffled(iter(BasicFolder(root)), shuffleBuffer, seed=seed + epoch):
+                if img.shape[0] < 64 or img.shape[1] < 64:
+                    continue
+                yield randomResizedCrop(rng, img, cropSize)
+
+        return prefetched(batched(samples(), batchSize), depth=prefetch)
+
+    return loaderFn
 
 
 def getValLoader(path, base: int = 256):

@@ -2,7 +2,7 @@
 reference `mcquic/demo.py:45-77`): an image becomes a `.mcq`, whole or as a
 grid of tiles; a `.mcq` becomes a PNG. Models come from the bundled zoo
 (`assets/zoo/`, by `-qp`, sha256-checked) or from a local exported model
-file; nothing is downloaded.
+file, a v1 Compressor or a Neon tokenizer; nothing is downloaded.
 """
 import logging
 from pathlib import Path
@@ -10,11 +10,13 @@ from pathlib import Path
 from mcquic_tpu_torch.container import File
 from mcquic_tpu_torch.data.png import readPng, writePng
 from mcquic_tpu_torch.data.transforms import alignedCrop
-from mcquic_tpu_torch.models.compressor import Compressor
+import mcquic_tpu_torch
+from mcquic_tpu_torch.models.compressor import buildModel, seededModel
 from mcquic_tpu_torch.models.engine import CompressorEngine
 from mcquic_tpu_torch.models.tiling import TiledFile, compressTiled, decompressTiled
 from mcquic_tpu_torch.utils import resolveDevice, versionCheck
-from mcquic_tpu_torch.utils.convert import loadZoo, modelGeometry, modelsHash
+from mcquic_tpu_torch.utils.convert import (loadZoo, modelGeometry, modelsHash, toJaxParams,
+                                            writeExport)
 
 logger = logging.getLogger("mcquic_tpu_torch")
 ZOO_DIR = Path(__file__).resolve().parent.parent / "assets" / "zoo"
@@ -33,15 +35,27 @@ def zooPath(qp: int) -> Path:
 
 
 def loadModel(qp: int = None, local=None, device="cuda") -> CompressorEngine:
-    """A zoo slot (`qp`) or a local exported model -> an engine on `device`."""
+    """A zoo slot (`qp`) or a local exported model (v1 Compressor or Neon)
+    -> an engine on `device`."""
     device = resolveDevice(device)
     path = Path(local) if local else zooPath(qp)
     stateDict, meta = loadZoo(path, verify=not local)
     versionCheck(meta["version"])
-    model = Compressor(**modelGeometry(meta))
+    model = buildModel(modelGeometry(meta))
     model.load_state_dict(stateDict, strict=True)
-    return CompressorEngine(model, qp=str(meta.get("qp", qp if qp is not None else -1)),
-                            device=device)
+    return CompressorEngine(model.eval().requires_grad_(False),
+                            qp=str(meta.get("qp", qp if qp is not None else -1)), device=device)
+
+
+def writeSeededExport(path, key: str, geometry: dict, seed: int = 0, qp: str = "-1") -> Path:
+    """An exported model of seeded weights (`models/compressor.py::seededModel`)
+    in the JAX package's format (npz + json sidecar `{config, version, qp}`),
+    for geometries with no trained file; `key` is the config's model key
+    (`Compressor` or `Neon`)."""
+    flat = toJaxParams(seededModel(geometry, seed).state_dict(), geometry)
+    config = {"model": {"key": key, "params": dict(geometry)}}
+    return writeExport(path, flat, {"config": config, "version": mcquic_tpu_torch.__version__,
+                                    "qp": qp, "seed": seed})
 
 
 def main(inputPath, outputPath=None, qp: int = None, local=None, device="cuda",

@@ -1,16 +1,18 @@
-"""The codecs, NCHW, inference half.
+"""The codecs, NCHW.
 
 * `Compressor`, the v1 codec (reference `mcquic/modules/compressor.py:120-177`),
-  counterpart of `mcquic_tpu/models/compressor.py::Compressor.encode/decode`:
-  an 8x-downsampling conv/GDN/attention encoder, the UMGM quantizer cascade
+  counterpart of `mcquic_tpu/models/compressor.py::Compressor`: an
+  8x-downsampling conv/GDN/attention encoder, the UMGM quantizer cascade
   with its six head stacks, and the mirrored pixel-shuffle decoder, whose
-  final thin RGB head runs kernel K2 on CUDA.
+  final thin RGB head runs kernel K2 on CUDA outside autograd. `forward` is
+  the training pass (`compressor.py:160-165`).
 * `Neon`, the v2 tokenizer (reference `compressor.py:181-233`), counterpart
   of `mcquic_tpu/models/compressor.py:179-285`: an 8x-downsampling encoder
   into an 8-channel latent, the `ResidualBackwardQuantizer`, and a mirrored
   decoder ending in a plain conv3x3 to RGB. The JAX package's `useRemat`
   only matters for training and is not taken.
 """
+import math
 from typing import List, Sequence
 
 import numpy as np
@@ -74,36 +76,13 @@ class Compressor(nn.Module):
         """codes -> restored [n, 3, H, W] (compressor.py:114-117)."""
         return self._decoder(self._quantizer.decode(codes))
 
-
-def seededCompressor(channel: int, m: int, k: Sequence[int], seed: int = 0) -> Compressor:
-    """A v1 `Compressor` with numpy-seeded weights at the scales a trained
-    model has, for geometries with no zoo file: convs U(+-1/sqrt(fan_in)),
-    GDN reparams near their init, codebooks N(0, 2/(5d)), and code
-    frequencies in [0.5, 1.5] before normalizing, so that every symbol of
-    even a 16384-codeword level gets a nonzero rANS frequency at 16 bits."""
-    model = Compressor(channel, m, k)
-    rng = np.random.default_rng(seed)
-    d = channel // m
-
-    def value(key, shape):
-        if key.endswith("._codebook"):
-            return rng.normal(size=shape) * np.sqrt(2 / (5 * d))
-        if key.endswith("._temperature") or key.endswith("beta"):
-            return 1 + rng.uniform(0, 0.1, size=shape)
-        if "._freqEMA." in key:
-            freq = rng.uniform(0.5, 1.5, size=shape)
-            return freq / freq.sum(-1, keepdims=True)
-        if key.endswith("gamma"):
-            return np.sqrt(0.1) * np.eye(shape[0]) + rng.uniform(0, 0.05, size=shape)
-        if key.endswith("weight"):
-            return rng.uniform(-1, 1, size=shape) / np.sqrt(int(np.prod(shape[1:])))
-        if key.endswith("bias"):
-            return rng.uniform(-0.1, 0.1, size=shape)
-        raise KeyError(key)
-
-    model.load_state_dict({key: torch.from_numpy(value(key, tuple(v.shape)).astype(np.float32))
-                           for key, v in model.state_dict().items()})
-    return model.eval()
+    def forward(self, x: torch.Tensor, draw):
+        """Training pass: x [n, 3, H, W] in [-1, 1] -> (xHat, yHat, codes per
+        level, logits per level); `draw` gives the sampling's uniforms
+        (`ops/vq.py::draws`)."""
+        y = self._encoder(x)
+        yHat, codes, logits = self._quantizer(y, draw)
+        return self._decoder(yHat), yHat, codes, logits
 
 
 def _neonEncoder(c: int) -> nn.Sequential:
@@ -159,3 +138,79 @@ class Neon(nn.Module):
         """A level's codes through the quantizer's backward stack; level 1
         is the smallest."""
         return self._quantizer.residual_backward(code, level)
+
+
+def buildModel(geometry: dict) -> nn.Module:
+    """The stage-1 model of a geometry (`utils/convert.py::modelGeometry`):
+    Neon where it has a `size` pyramid, the v1 Compressor otherwise."""
+    return Neon(**geometry) if "size" in geometry else Compressor(**geometry)
+
+
+def seededModel(geometry: dict, seed: int = 0) -> nn.Module:
+    """A stage-1 model with numpy-seeded weights at the scales a trained
+    model has, for geometries with no trained file: convs U(+-1/sqrt(fan_in)),
+    GDN reparams near their init, codebooks N(0, 2/(5d)), and code
+    frequencies in [0.5, 1.5] before normalizing, so that every symbol of
+    even a 16384-codeword level gets a nonzero rANS frequency at 16 bits."""
+    model = buildModel(geometry)
+    rng = np.random.default_rng(seed)
+
+    def value(key, shape):
+        if key.endswith("._codebook"):
+            return rng.normal(size=shape) * np.sqrt(2 / (5 * shape[-1]))
+        if key.endswith("._temperature") or key.endswith("beta"):
+            return 1 + rng.uniform(0, 0.1, size=shape)
+        if "._freqEMA." in key:
+            freq = rng.uniform(0.5, 1.5, size=shape)
+            return freq / freq.sum(-1, keepdims=True)
+        if key.endswith("gamma"):
+            return np.sqrt(0.1) * np.eye(shape[0]) + rng.uniform(0, 0.05, size=shape)
+        if key.endswith("weight"):
+            return rng.uniform(-1, 1, size=shape) / np.sqrt(int(np.prod(shape[1:])))
+        if key.endswith("bias"):
+            return rng.uniform(-0.1, 0.1, size=shape)
+        raise KeyError(key)
+
+    model.load_state_dict({key: torch.from_numpy(value(key, tuple(v.shape)).astype(np.float32))
+                           for key, v in model.state_dict().items()})
+    return model.eval()
+
+
+def seededCompressor(channel: int, m: int, k: Sequence[int], seed: int = 0) -> Compressor:
+    """`seededModel` of a v1 Compressor."""
+    return seededModel({"channel": channel, "m": m, "k": list(k)}, seed)
+
+
+@torch.no_grad()
+def initialize(model: Compressor, generator: torch.Generator) -> Compressor:
+    """Draw a v1 Compressor's training start from `generator` with the JAX
+    package's initializers' distributions: conv kernels U(+-1/sqrt(fan_in))
+    and zero biases (`nn/convs.py:17-32`), GDN beta sqrt(1 + eps^2) and gamma
+    sqrt(0.1 I + eps^2) in reparam space (`nn/gdn.py:32-38`), temperatures
+    1, codebooks N(0, 2 / (5 d)) (SmallInit, `models/quantizer.py:37-41`),
+    code frequencies 1/k."""
+    eps2 = 1e-12
+    for key, p in model.state_dict().items():
+        shape = tuple(p.shape)
+        if key.endswith("._codebook"):
+            value = torch.randn(shape, generator=generator, device=p.device, dtype=p.dtype) \
+                * math.sqrt(2 / (5 * shape[-1]))
+        elif key.endswith("._temperature"):
+            value = torch.ones_like(p)
+        elif "._freqEMA." in key:
+            value = torch.full_like(p, 1.0 / shape[-1])
+        elif key.endswith("beta"):
+            value = torch.full_like(p, math.sqrt(1 + eps2))
+        elif key.endswith("gamma"):
+            value = torch.sqrt(torch.clamp_min(0.1 * torch.eye(shape[0], dtype=p.dtype,
+                                                               device=p.device) + eps2, eps2))
+        elif key.endswith("weight"):
+            bound = 1 / math.sqrt(int(np.prod(shape[1:])))
+            value = (torch.rand(shape, generator=generator, device=p.device, dtype=p.dtype)
+                     * 2 - 1) * bound
+        elif key.endswith("bias"):
+            value = torch.zeros_like(p)
+        else:
+            raise KeyError(key)
+        p.copy_(value)
+    return model

@@ -1,6 +1,14 @@
 """CompressorEngine: the codec object tying the model, the rANS coder and the
 `.mcq` container together (counterpart of `mcquic_tpu/models/engine.py`,
-reference `mcquic/modules/compressor.py:67-117`).
+reference `mcquic/modules/compressor.py:67-117`). It takes the v1
+`Compressor` (m groups and k per level) or the `Neon` tokenizer (m 1 and
+its one k at each of its levels, codes small -> large), as the JAX engine
+does (`engine.py:78-83`).
+
+The engine leaves the module it is given as it was: its mode and its
+parameters' `requires_grad` are the caller's (a trainer validates its live
+model), since the codec's device work runs under `torch.inference_mode`,
+where neither matters.
 
 Device work runs under `utils.exactFp32` (fp32, TF32 off) and
 `torch.inference_mode`. Host <-> device traffic is one array each way:
@@ -26,7 +34,7 @@ import mcquic_tpu_torch
 from mcquic_tpu_torch.coding import RansCoder
 from mcquic_tpu_torch.container import File, FileHeader, ImageSize
 from mcquic_tpu_torch.data.transforms import alignedPadding, centerCropTo
-from mcquic_tpu_torch.models.compressor import Compressor
+from mcquic_tpu_torch.models.compressor import Compressor, Neon
 from mcquic_tpu_torch.utils import exactFp32, resolveDevice
 
 
@@ -52,16 +60,20 @@ class _InFlight(NamedTuple):
 
 
 class CompressorEngine:
-    """Owns a v1 `Compressor` on a device; exposes encode/decode,
+    """Owns a v1 `Compressor` or a `Neon` on a device; exposes encode/decode,
     compress/decompress, their pipelined multi-batch forms and the
     image-level compressImage/decompressImage."""
 
-    def __init__(self, model: Compressor, qp: str = "-1", device="cuda"):
+    def __init__(self, model, qp: str = "-1", device="cuda"):
         self._device = resolveDevice(device)
-        self._model = model.to(self._device).eval().requires_grad_(False)
+        self._model = model.to(self._device)
         self._qp = qp
-        self._m = [model.m] * len(model.k)
-        self._k = list(model.k)
+        if isinstance(model, Neon):
+            self._m, self._k = [1] * len(model.size), [model.k] * len(model.size)
+        elif isinstance(model, Compressor):
+            self._m, self._k = [model.m] * len(model.k), list(model.k)
+        else:
+            raise TypeError(f"Unknown compressor module {type(model)}")
         if max(self._k) > 1 << 16:
             raise ValueError("codes are carried in 16 bits; k must be <= 65536")
         self._coder = RansCoder(self._m, self._k)
@@ -69,7 +81,7 @@ class CompressorEngine:
                                 for f in model._quantizer.frequencies()])
 
     @property
-    def model(self) -> Compressor:
+    def model(self):
         return self._model
 
     @property

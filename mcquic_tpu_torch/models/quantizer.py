@@ -1,7 +1,8 @@
-"""The quantizers, inference half.
+"""The quantizers.
 
-`UMGMQuantizer` is the v1 cascade; `ResidualBackwardQuantizer` is the v2
-(Neon) multi-scale residual quantizer, described at its class.
+`UMGMQuantizer` is the v1 cascade, with its training forward;
+`ResidualBackwardQuantizer` is the v2 (Neon) multi-scale residual
+quantizer, inference half, described at its class.
 
 Counterpart of `mcquic_tpu/models/quantizer.py::UMGMQuantizer.encode/decode`
 (reference `mcquic/modules/quantizer.py:368-467`), named like the reference
@@ -12,16 +13,52 @@ frequency tables are `_entropyCoder._freqEMA.L`. The last level has no
 latent head and no side head.
 
 Encoding calls `ops/vq.py::vqEncode` once per level, all m groups in one
-call: kernel K1 on CUDA.
+call: kernel K1 on CUDA. The training forward (`UMGMQuantizer.forward`,
+`quantizer.py:149-178`) computes logits, samples hard Gumbel-softmax codes
+with the frequency-biased drop, decodes the soft samples through the heads,
+and, in training mode, moves `freqEMA` toward this batch's code counts (ema
+0.9). Its uniforms come from a `draw` function (`ops/vq.py::draws`), called
+per level for the drop, then for the Gumbel noise, in the order the JAX
+package draws them.
 """
-from typing import Callable, List, Mapping, Sequence
+from typing import Callable, List, Mapping, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from mcquic_tpu_torch.nn import (AttentionBlock, ResidualBlock, ResidualBlockShuffle,
                                  ResidualBlockWithStride, conv1x1)
-from mcquic_tpu_torch.ops.vq import groupLatent, vqDequantizeCodes, vqEncode
+from mcquic_tpu_torch.nn.functional import EPS, gumbelSoftmax, lowerBound
+from mcquic_tpu_torch.ops.vq import (Draw, groupLatent, randomDrop, vqDequantizeCodes,
+                                     vqDequantizeSoft, vqEncode, vqLogits)
+
+EMA = 0.9
+
+
+def sample(x: torch.Tensor, codebook: torch.Tensor, temperature: torch.Tensor,
+           freqEMA: torch.Tensor, draw: Draw, train: bool
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`_QuantizeCore.sample` (`quantizer.py:50-68`): x [n, m, d, h, w] ->
+    (hard sample [n, m, h, w, k], codes [n, m, h, w], logits
+    [n, m, h, w, k]); logits scaled by the temperature bounded below at
+    eps, dropped by frequency in training."""
+    logit = vqLogits(x, codebook)
+    logit = logit * lowerBound(temperature, EPS).view(1, -1, 1, 1, 1)
+    if train:
+        logit = randomDrop(logit, freqEMA, draw(tuple(logit.shape)))
+    sampled = gumbelSoftmax(logit, draw(tuple(logit.shape)))
+    return sampled, logit.argmax(-1), logit
+
+
+@torch.no_grad()
+def emaUpdate(freqEMA: torch.Tensor, codes: torch.Tensor, ema: float = EMA):
+    """freqEMA [m, k] <- (1 - ema) * this batch's normalized counts of codes
+    [n, m, h, w] + ema * freqEMA, in place (`_emaCounts` / `_emaUpdate`,
+    `quantizer.py:71-78`)."""
+    m = freqEMA.shape[0]
+    index = codes.transpose(0, 1).reshape(m, -1).long()
+    counts = torch.zeros_like(freqEMA).scatter_add_(1, index, torch.ones_like(index, dtype=freqEMA.dtype))
+    freqEMA.copy_((1 - ema) * (counts / counts.sum(-1, keepdim=True)) + ema * freqEMA)
 
 
 class _CodebookQuantizer(nn.Module):
@@ -110,6 +147,34 @@ class UMGMQuantizer(nn.Module):
     def frequencies(self) -> List[torch.Tensor]:
         return list(self._entropyCoder._freqEMA)
 
+    def forward(self, x: torch.Tensor, draw: Draw):
+        """Training forward: x [n, c, h, w] -> (yHat [n, c, h, w], codes per
+        level [n, m, h_l, w_l], logits per level [n, m, h_l, w_l, k_l])."""
+        quantizeds, codes, logits = [], [], []
+        for i, level in enumerate(self._encoders):
+            z = level._latentStageEncoder(x)
+            q = level._quantizationHead(z)
+            sampled, code, logit = sample(groupLatent(q, self.m), self.codebook(i),
+                                          level._quantizer._temperature,
+                                          self._entropyCoder._freqEMA[i], draw, self.training)
+            quantized = vqDequantizeSoft(sampled, self.codebook(i))
+            quantizeds.append(quantized)
+            codes.append(code)
+            logits.append(logit)
+            if level._latentHead is not None:
+                x = level._latentHead(z) - quantized
+        formerLevel = None
+        for i in reversed(range(len(self.k))):
+            level = self._decoders[i]
+            q = level._dequantizationHead(quantizeds[i])
+            if level._sideHead is not None and formerLevel is not None:
+                q = q + level._sideHead(formerLevel)
+            formerLevel = level._restoreHead(q)
+        if self.training:
+            for freq, code in zip(self._entropyCoder._freqEMA, codes):
+                emaUpdate(freq, code)
+        return formerLevel, codes, logits
+
 
 # --------------------------------------------------------------------- v2
 
@@ -190,6 +255,10 @@ class ResidualBackwardQuantizer(nn.Module):
     @property
     def codebook(self) -> torch.Tensor:
         return self._quantizers[0]._codebook
+
+    def frequencies(self) -> List[torch.Tensor]:
+        """[1, k] per level, in the order of the codes (small -> large)."""
+        return list(self._entropyCoder._freqEMA)
 
     def encode(self, x: torch.Tensor) -> List[torch.Tensor]:
         """x [n, 8, h, w] -> codes small -> large, each [n, 1, h_l, w_l]

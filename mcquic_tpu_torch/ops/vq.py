@@ -11,8 +11,18 @@ container.
 when the codebook fits the resident budget, kernel K1b
 (ops/vq_grouped_cuda.py) otherwise. Both wrappers run `vqEncodePlain` for a
 CPU tensor.
+
+The training half (`vqLogits`, `vqDequantizeSoft`, `randomDrop`,
+`reassignCodebook`) is plain PyTorch, as the JAX package's is plain XLA:
+logits are `[n, m, h, w, k]`. The random functions take their uniforms as a
+tensor; `draws(generator)` makes the function the trainer draws them with.
 """
+import math
+from typing import Callable, Tuple
+
 import torch
+
+from mcquic_tpu_torch.nn.functional import EPS
 
 CHUNK = 1024
 PAD_VALUE = 1e4                      # a short last chunk's padding (vq.py::vqEncodeChunked)
@@ -106,3 +116,62 @@ def vqDequantizeCodes(codes: torch.Tensor, codebook: torch.Tensor) -> torch.Tens
     flat = codebook.reshape(m * k, d)
     gathered = flat[codes.long() + offsets]                     # [n, m, h, w, d]
     return ungroupLatent(gathered.permute(0, 1, 4, 2, 3))
+
+
+Draw = Callable[[Tuple[int, ...]], torch.Tensor]
+
+
+def draws(generator: torch.Generator) -> Draw:
+    """shape -> fp32 uniforms in [0, 1) on the generator's device, drawn from it."""
+    return lambda shape: torch.rand(shape, generator=generator, device=generator.device)
+
+
+def vqLogits(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """-squared distance / sqrt(k): x [n, m, d, h, w], codebook [m, k, d] ->
+    [n, m, h, w, k] (`mcquic_tpu/ops/vq.py:41-63`, reference `_logit`)."""
+    k = codebook.shape[1]
+    x = x.permute(0, 1, 3, 4, 2)                                    # [n, m, h, w, d]
+    x2 = (x * x).sum(-1, keepdim=True)
+    c2 = (codebook * codebook).sum(-1)[None, :, None, None, :]
+    inter = torch.einsum("nmhwd,mkd->nmhwk", x, codebook)
+    return -(x2 + c2 - 2.0 * inter) / math.sqrt(k)
+
+
+def vqDequantizeSoft(sample: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """Soft decode: sample [n, m, h, w, k] x codebook [m, k, d] -> [n, m*d, h, w]."""
+    out = torch.einsum("nmhwk,mkd->nmdhw", sample, codebook)
+    n, m, d, h, w = out.shape
+    return out.reshape(n, m * d, h, w)
+
+
+def randomDrop(logit: torch.Tensor, freqEMA: torch.Tensor, uniforms: torch.Tensor) -> torch.Tensor:
+    """Frequency-biased logit suppression (`mcquic_tpu/ops/vq.py:185-201`):
+    codeword j of group g is masked (-1e9) where u^e < freqEMA[g, j], the
+    exponent e falling from log2(k) at no code usage to 1 at full usage.
+    logit [n, m, h, w, k]; freqEMA [m, k]; uniforms fp32, logit's shape."""
+    bits = math.log2(logit.shape[-1])
+    usage = torch.clamp((freqEMA > EPS).float().mean(), 0.0, 1.0)
+    exponent = -(bits - 1) * usage ** 2 + bits
+    mask = uniforms.float() ** exponent < freqEMA[None, :, None, None, :]
+    return logit + torch.where(mask, -1e9, 0.0).to(logit.dtype)
+
+
+def reassignCodebook(codebook: torch.Tensor, freq: torch.Tensor, uniforms: torch.Tensor,
+                     eps: float = EPS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dead-codeword reassignment (`mcquic_tpu/ops/vq.py:204-243`): per
+    group, every codeword with normalized frequency < eps takes, in index
+    order, the most used codewords in order of use; when more than half are
+    dead, only the k/2 dead ones of smallest uniform are replaced.
+    codebook [m, k, d]; freq [m, k]; uniforms [m, k].
+    Returns (new codebook, the proportion of codewords that moved)."""
+    m, k, d = codebook.shape
+    dead = freq < eps
+    score = torch.where(dead, uniforms.to(freq.dtype), torch.inf)
+    kth = score.sort(-1).values[:, k // 2 - 1:k // 2]
+    replace = torch.where(dead.sum(-1, keepdim=True) > k // 2, dead & (score <= kth), dead)
+    order = torch.argsort(-freq, dim=-1, stable=True)
+    rank = (replace.long().cumsum(-1) - 1).clamp(0, k - 1)
+    donor = torch.gather(codebook, 1, torch.gather(order, 1, rank)[..., None].expand(m, k, d))
+    new = torch.where(replace[..., None], donor, codebook)
+    changed = ((new - codebook) ** 2).sum(-1) > 1e-4
+    return new, changed.float().mean()

@@ -1,0 +1,145 @@
+"""Checkpoint save, rotation and resume (counterpart of
+`mcquic_tpu/train/saver.py`, reference `mcquic/train/utils.py:63-194`).
+
+A save directory holds `latest/saved.ckpt.npz` (with its json sidecar) and
+the earlier `latest/` directories, renamed by time stamp when a new Saver
+opens the directory, at most `maxItems` of them. One live Saver owns a
+directory: an exclusive `flock` on `.lock`, which the kernel drops with the
+process, keeps two trainers from rotating and writing each other's files.
+
+A checkpoint is a flat npz of '/'-joined keys, the format of the JAX
+package's `saveTree`, so `mcquic_tpu.train.saver.loadTree` reads the port's
+checkpoints and this package reads the JAX package's (`readExport`).
+"""
+import fcntl
+import os
+import shutil
+import threading
+import time
+import weakref
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+
+import mcquic_tpu_torch
+from mcquic_tpu_torch.utils.convert import readExport, writeExport
+
+
+class Saver:
+    """saveDir/latest/saved.ckpt.npz, the previous `latest/` rotated away."""
+
+    CKPT_NAME = "saved.ckpt.npz"
+    # resolved path -> [lock file, the Savers holding it]: flock conflicts
+    # between two descriptors even in one process, so the process keeps one
+    # per directory; a second live Saver is refused, a later one (after
+    # close) takes the lock over
+    _held: dict = {}
+    _heldMutex = threading.Lock()
+
+    def __init__(self, saveDir, maxItems: int = 25):
+        self._root = Path(saveDir)
+        self._maxItems = maxItems
+        self._previous: Optional[Path] = None
+        self._root.mkdir(parents=True, exist_ok=True)
+        self._lockKey = str(self._root.resolve())
+        self._lockHeld = False
+        with Saver._heldMutex:
+            entry = Saver._held.get(self._lockKey)
+            if entry is not None:
+                if any(s._lockHeld for s in entry[1]):
+                    raise RuntimeError(f"saveDir {self._root} is already owned by a live Saver in "
+                                       "this process (close() it first)")
+                entry[1].add(self)
+            else:
+                lockFile = open(self._root / ".lock", "w")
+                try:
+                    fcntl.flock(lockFile, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                except OSError:
+                    lockFile.close()
+                    raise RuntimeError(f"saveDir {self._root} is locked by another live trainer "
+                                       "(concurrent trainers on one saveDir corrupt checkpoints)")
+                lockFile.write(str(os.getpid()))
+                lockFile.flush()
+                Saver._held[self._lockKey] = [lockFile, weakref.WeakSet([self])]
+            self._lockHeld = True
+        latest = self._root / "latest"
+        if latest.exists() and any(latest.iterdir()):
+            stamp = time.strftime("%Y%m%d_%H%M%S")
+            target = self._root / stamp
+            while target.exists():
+                stamp += "_"
+                target = self._root / stamp
+            shutil.move(str(latest), str(target))
+            self._previous = target
+        else:
+            # `latest/` empty but history exists: the previous run died between
+            # the rotation and its first save; resume from the newest history
+            history = sorted((d for d in self._root.iterdir()
+                              if d.is_dir() and d.name != "latest"
+                              and (d / self.CKPT_NAME).exists()), reverse=True)
+            if history:
+                self._previous = history[0]
+        latest.mkdir(parents=True, exist_ok=True)
+        history = sorted(d for d in self._root.iterdir() if d.is_dir() and d.name != "latest")
+        while len(history) > self._maxItems:
+            shutil.rmtree(history.pop(0), ignore_errors=True)
+
+    def close(self):
+        """Release the directory's lock (idempotent)."""
+        if not getattr(self, "_lockHeld", False):
+            return
+        with Saver._heldMutex:
+            self._lockHeld = False
+            entry = Saver._held.get(self._lockKey)
+            if entry is None:
+                return
+            entry[1].discard(self)
+            if not any(s._lockHeld for s in entry[1]):
+                entry[0].close()
+                del Saver._held[self._lockKey]
+
+    def __del__(self):
+        self.close()
+
+    @property
+    def PreviousCkpt(self) -> Optional[Path]:
+        """Where the rotated `latest` checkpoint lives now (for resume)."""
+        if self._previous is None:
+            return None
+        p = self._previous / self.CKPT_NAME
+        return p if p.exists() else None
+
+    @property
+    def SaveDir(self) -> Path:
+        return self._root / "latest"
+
+    @property
+    def CkptPath(self) -> Path:
+        return self.SaveDir / self.CKPT_NAME
+
+    def save(self, flat: Dict[str, np.ndarray], meta: Optional[dict] = None):
+        """Write the checkpoint through a temporary file and a rename."""
+        meta = dict(meta or {})
+        meta.setdefault("version", mcquic_tpu_torch.__version__)
+        tmp = self.CkptPath.with_suffix(".npz.tmp.npz")
+        writeExport(tmp, flat, meta)
+        os.replace(tmp, self.CkptPath)
+        tmp.with_suffix(".json").replace(self.CkptPath.with_suffix(".json"))
+
+    @staticmethod
+    def probeResume(saveDir) -> Optional[Path]:
+        """`saveDir/latest/saved.ckpt.npz` where it exists."""
+        p = Path(saveDir) / "latest" / Saver.CKPT_NAME
+        return p if p.exists() else None
+
+    @staticmethod
+    def load(path):
+        """(flat arrays, sidecar metadata) of a checkpoint."""
+        return readExport(Path(path))
+
+
+def saveTree(path, flat: Dict[str, np.ndarray], meta: Optional[dict] = None) -> Path:
+    """A flat npz and its json sidecar (`saver.py:40-56`), e.g. the best
+    checkpoint."""
+    return writeExport(path, flat, dict(meta or {}))

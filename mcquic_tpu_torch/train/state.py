@@ -1,0 +1,90 @@
+"""The training step, the dead-codeword refresh and the code usage
+(counterpart of `mcquic_tpu/train/state.py`, reference
+`mcquic/train/trainer.py:67-305`).
+
+One step (`makeTrainStep`, `state.py:39-90`): the forward in training mode
+(which moves `freqEMA` toward the batch's code counts), the loss
+0.5 distortion + 0.5 mse + 2 lpips, its gradients, their global norm, the
+gradients scaled to a norm of at most 4.0, and the optimizer's update. A
+step whose loss or gradient norm is not finite is skipped whole: the
+parameters, the optimizer's state and `freqEMA` stay as they were. The
+metrics carry the JAX step's keys.
+"""
+from typing import Callable, List, Optional
+
+import torch
+
+from mcquic_tpu_torch.ops.vq import Draw, reassignCodebook
+
+
+def trainableParameters(model: torch.nn.Module) -> List[torch.Tensor]:
+    return [p for p in model.parameters() if p.requires_grad]
+
+
+def globalNorm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (`optax.global_norm`)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+def makeTrainStep(model, optimizer, distortionFn: Callable, lpipsFn: Optional[Callable] = None,
+                  clipNorm: float = 4.0, distortionWeight: float = 0.5, mseWeight: float = 0.5,
+                  lpipsWeight: float = 2.0):
+    """(batch [n, 3, H, W] in [-1, 1], draw) -> metrics; updates `model` and
+    `optimizer` in place. The optimizer's parameters are the model's
+    trainable ones, in order."""
+    params = optimizer.params
+
+    def step(batch: torch.Tensor, draw: Draw) -> dict:
+        frequencies = model._quantizer.frequencies()
+        saved = [f.detach().clone() for f in frequencies]
+        model.train()
+        for p in params:
+            p.grad = None
+        xHat, yHat, codes, logits = model(batch, draw)
+        distortion = distortionFn(xHat, batch, codes, logits)
+        mse = ((xHat - batch) ** 2).mean()
+        lpips = lpipsFn(xHat, batch) if lpipsFn is not None else torch.zeros_like(mse)
+        loss = distortionWeight * distortion + mseWeight * mse + lpipsWeight * lpips
+        loss.backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        gnorm = globalNorm(grads).detach()
+        ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
+        with torch.no_grad():
+            if ok:
+                scale = torch.clamp(clipNorm / torch.clamp_min(gnorm, 1e-12), max=1.0)
+                torch._foreach_mul_(grads, scale)
+                optimizer.step(grads)
+            else:
+                for f, s in zip(frequencies, saved):
+                    f.copy_(s)
+        for p in params:
+            p.grad = None
+        return {"loss": loss.detach(), "distortion": distortion.detach(), "mse": mse.detach(),
+                "lpips": lpips.detach(), "gradNorm": gnorm, "skipped": 0.0 if ok else 1.0}
+
+    return step
+
+
+@torch.no_grad()
+def refreshCodebooks(model, uniforms: List[torch.Tensor]) -> torch.Tensor:
+    """Dead-codeword reassignment of every level's codebook from its
+    normalized `freqEMA` (`state.py:93-128`, per-level branch); `uniforms`
+    holds one [m, k] draw per level. Each codebook is written in place
+    (`copy_`, which moves its version counter). Returns the mean proportion
+    of codewords moved."""
+    quantizer = model._quantizer
+    props = []
+    for i, (freq, u) in enumerate(zip(quantizer.frequencies(), uniforms)):
+        codebook = quantizer.codebook(i)
+        new, prop = reassignCodebook(codebook, freq / freq.sum(-1, keepdim=True), u)
+        codebook.copy_(new)
+        props.append(prop)
+    return torch.stack(props).mean()
+
+
+def codeUsage(model, eps: float = 1e-6) -> float:
+    """The mean over levels of the fraction of codewords whose normalized
+    frequency exceeds eps (`state.py:131`)."""
+    used = [((f / f.sum(-1, keepdim=True)) > eps).float().mean()
+            for f in model._quantizer.frequencies()]
+    return float(torch.stack(used).mean())

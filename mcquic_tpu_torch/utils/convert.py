@@ -63,10 +63,10 @@ class _Row:
         return np.asarray(a)[self.i].reshape(self.shape)
 
 
-# flax leaf from a torch value, for the transforms the generator's map uses
-# besides _Row
+# flax leaf from a torch value, for every transform of the maps besides _Row
 _INVERSE = {_conv: lambda w: np.transpose(w, (2, 3, 1, 0)), _dense: _dense,
-            _gamma: lambda g: np.transpose(g, (1, 0))[None], _same: _same}
+            _gamma: lambda g: np.transpose(g, (1, 0))[None], _same: _same,
+            _temperature: lambda t: np.asarray(t).reshape(-1)}
 
 
 class _Map:
@@ -329,14 +329,11 @@ def fromJaxGeneratorParams(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tenso
     return _applyMap(generatorMap(**generatorGeometry(flat)), flat)
 
 
-def toJaxGeneratorParams(stateDict: Dict[str, torch.Tensor], halving: Sequence[bool],
-                         depth: int, useAda: bool = True,
-                         qkNorm: bool = True) -> Dict[str, np.ndarray]:
-    """The inverse of `fromJaxGeneratorParams`: the port's generator state
-    dict -> flat flax variables, for writing a checkpoint in the JAX
-    package's format (`writeExport`)."""
+def _invertMap(mp: _Map, stateDict: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The port's state dict -> flat flax variables, through `mp` backwards;
+    the rows of a stacked flax leaf are stacked again."""
     flat, rows = {}, {}
-    for tk, (fk, fn) in generatorMap(halving, depth, useAda, qkNorm).entries.items():
+    for tk, (fk, fn) in mp.entries.items():
         value = stateDict[tk].detach().cpu().numpy()
         if isinstance(fn, _Row):
             rows.setdefault(fk, {})[fn.i] = value.reshape(fn.rowShape)
@@ -345,6 +342,25 @@ def toJaxGeneratorParams(stateDict: Dict[str, torch.Tensor], halving: Sequence[b
     for fk, byRow in rows.items():
         flat[fk] = np.stack([byRow[i] for i in range(len(byRow))])
     return flat
+
+
+def toJaxGeneratorParams(stateDict: Dict[str, torch.Tensor], halving: Sequence[bool],
+                         depth: int, useAda: bool = True,
+                         qkNorm: bool = True) -> Dict[str, np.ndarray]:
+    """The inverse of `fromJaxGeneratorParams`: the port's generator state
+    dict -> flat flax variables, for writing a checkpoint in the JAX
+    package's format (`writeExport`)."""
+    return _invertMap(generatorMap(halving, depth, useAda, qkNorm), stateDict)
+
+
+def toJaxParams(stateDict: Dict[str, torch.Tensor], geometry: dict) -> Dict[str, np.ndarray]:
+    """The inverse of `stateDictOf`: a stage-1 model's state dict (v1
+    Compressor or Neon, by `geometry`) -> flat flax variables under the JAX
+    package's names (`params/...`, `coder/...`), which its `loadTree` and
+    engine read."""
+    if "size" in geometry:
+        return _invertMap(neonMap(halvingOf(geometry["size"])), stateDict)
+    return _invertMap(compressorMap(len(geometry["k"])), stateDict)
 
 
 def bf16ToFloat32(u16: np.ndarray) -> np.ndarray:
@@ -438,20 +454,37 @@ def verifyZooHash(path):
 
 
 def modelGeometry(meta: dict) -> dict:
-    """`{channel, m, k}` of a v1 Compressor from the sidecar's config."""
+    """The stage-1 model's constructor arguments from the sidecar's config,
+    resolved as `mcquic_tpu/train/trainer.py::resolveStage1Model` resolves
+    them: a `size` pyramid means the Neon tokenizer, whatever the key says
+    (`{channel, k, size}`, a list-valued k read at its first entry);
+    otherwise the v1 Compressor (`{channel, m, k}`, a uniform list-valued m
+    read as its int)."""
     model = meta["config"]["model"]
     params = dict(model["params"])
-    if "size" in params or model.get("key") != "Compressor":
-        raise NotImplementedError(f"Only the v1 Compressor is ported; got {model.get('key')} "
-                                  f"with params {sorted(params)}.")
+    k = params["k"]
+    if "size" in params:
+        if params.get("denseNorm"):
+            raise NotImplementedError("Neon with denseNorm (GroupNorm blocks) is not ported "
+                                      "(ROADMAP A3)")
+        return {"channel": int(params["channel"]),
+                "k": int(k[0] if isinstance(k, (list, tuple)) else k),
+                "size": [int(s) for s in params["size"]]}
     m = params["m"]
     if isinstance(m, (list, tuple)):
         if len(set(m)) != 1:
             raise ValueError(f"per-level m {m} is not supported (must be uniform)")
         m = m[0]
-    k = params["k"]
     return {"channel": int(params["channel"]), "m": int(m),
             "k": [int(v) for v in (k if isinstance(k, (list, tuple)) else [k])]}
+
+
+def stateDictOf(flat: Dict[str, np.ndarray], geometry: dict) -> Dict[str, torch.Tensor]:
+    """A stage-1 model's flat flax variables -> the port's state dict, by the
+    map its geometry (`modelGeometry`) names: Neon's or the v1 Compressor's."""
+    if "size" in geometry:
+        return _applyMap(neonMap(halvingOf(geometry["size"])), flat)
+    return fromJaxParams(flat, len(geometry["k"]))
 
 
 def loadZoo(path, verify: bool = True) -> Tuple[Dict[str, torch.Tensor], dict]:
@@ -460,5 +493,5 @@ def loadZoo(path, verify: bool = True) -> Tuple[Dict[str, torch.Tensor], dict]:
     if verify:
         verifyZooHash(path)
     flat, meta = readExport(path)
-    return fromJaxParams(flat, len(modelGeometry(meta)["k"])), meta
-
+    flat = {k: v for k, v in flat.items() if k.startswith(("params/", "coder/"))}
+    return stateDictOf(flat, modelGeometry(meta)), meta

@@ -51,6 +51,8 @@ def _wallMs(fn, iters: int) -> float:
 
 
 def report(name: str, fn, iters: int, top: int):
+    """Prints the call's wall ms, device busy ms, idle share and top kernels;
+    returns (wall ms, busy ms, idle share)."""
     wall = _wallMs(fn, iters)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
@@ -65,6 +67,7 @@ def report(name: str, fn, iters: int, top: int):
           f"idle share {1 - busy / wall:.3f}")
     for kernel, (total, count) in sorted(byName.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"  {total:9.3f} ms  {count:5d}x  {kernel[:110]}")
+    return wall, busy, 1 - busy / wall
 
 
 def main(argv=None):

@@ -15,10 +15,10 @@ import numpy as np
 import torch
 
 from mcquic_tpu_torch.data import getValLoader
-from mcquic_tpu_torch.models.compressor import Compressor
+from mcquic_tpu_torch.models.compressor import buildModel
 from mcquic_tpu_torch.models.engine import CompressorEngine
 from mcquic_tpu_torch.utils import versionCheck
-from mcquic_tpu_torch.utils.convert import exportModel, fromJaxParams, modelGeometry, readExport
+from mcquic_tpu_torch.utils.convert import exportModel, modelGeometry, readExport, stateDictOf
 from mcquic_tpu_torch.validate.validator import Validator
 
 logger = logging.getLogger("mcquic_tpu_torch.validate")
@@ -38,9 +38,10 @@ def loadAnyCheckpoint(path) -> Tuple[Dict[str, np.ndarray], dict]:
 def loadEngine(path, device="cuda") -> Tuple[CompressorEngine, Dict[str, np.ndarray], dict]:
     flat, meta = loadAnyCheckpoint(path)
     geometry = modelGeometry(meta)
-    model = Compressor(**geometry)
-    model.load_state_dict(fromJaxParams(flat, len(geometry["k"])), strict=True)
-    return CompressorEngine(model, qp=str(meta.get("qp", "-1")), device=device), flat, meta
+    model = buildModel(geometry)
+    model.load_state_dict(stateDictOf(flat, geometry), strict=True)
+    return (CompressorEngine(model.eval().requires_grad_(False), qp=str(meta.get("qp", "-1")),
+                             device=device), flat, meta)
 
 
 def deviceName(device: torch.device) -> str:

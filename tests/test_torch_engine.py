@@ -208,3 +208,85 @@ def test_rans_library_releases_the_gil():
     assert type(lib) is ctypes.CDLL
     assert not lib.mcq_encode_batch._flags_ & ctypes._FUNCFLAG_PYTHONAPI
     assert not lib.mcq_decode_batch._flags_ & ctypes._FUNCFLAG_PYTHONAPI
+
+
+# ----------------------------------------------------------------- Neon
+NEON = dict(channel=8, k=16, size=[4, 2, 2])
+
+
+@pytest.fixture(scope="module")
+def neonEngines(tmp_path_factory):
+    """A seeded Neon export written by the port (`demo.writeSeededExport`),
+    loaded by both packages' `demo.loadModel`, the models cast to fp64."""
+    from mcquic_tpu.demo import loadModel as jaxLoadModel
+    from mcquic_tpu_torch.demo import loadModel, writeSeededExport
+    path = writeSeededExport(tmp_path_factory.mktemp("neon") / "neon.npz", "Neon", NEON, seed=3,
+                             qp="5")
+    engine = loadModel(local=path, device="cpu")
+    engine.model.double()
+    theirs = jaxLoadModel(local=str(path))
+    module = theirs._module.clone(dtype=jnp.float64)
+    with jax.enable_x64():
+        variables = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), theirs._variables)
+        jaxEngine = JaxEngine(module, variables, qp="5")
+    return jaxEngine, engine, path
+
+
+def test_neon_engine_takes_m_1_and_k_per_level(neonEngines):
+    _, engine, path = neonEngines
+    from mcquic_tpu_torch.models.compressor import Neon
+    from mcquic_tpu_torch.utils.convert import modelGeometry, readExport
+    assert isinstance(engine.model, Neon)
+    assert modelGeometry(readExport(path)[1]) == NEON
+    assert (engine._m, engine._k) == ([1, 1, 1], [16, 16, 16])
+    codes = engine.encode(floatBatch(1, 96, 112, seed=4))
+    assert [c.shape for c in codes] == [(1, 1, 4, 4), (1, 1, 4, 4), (1, 1, 8, 8)]   # 128 / 32
+    assert all(c.min() >= 0 and c.max() < NEON["k"] for c in codes)
+
+
+def test_neon_mcq_crosses_packages_with_identical_codes(neonEngines, image):
+    """fp64: the same image gives bit-identical codes and byte-identical
+    `.mcq` files in both packages, and each restores the other's file to
+    the same codes and image."""
+    jaxEngine, engine, _ = neonEngines
+    with jax.enable_x64():
+        jaxCodes = jaxEngine.encode(image[None])
+        jaxBytes = jaxEngine.compressImage(image).serialize()
+    codes = engine.encode(image[None])
+    for ours, theirs in zip(codes, jaxCodes):
+        np.testing.assert_array_equal(ours, theirs)
+    portBytes = engine.compressImage(image).serialize()
+    assert portBytes == jaxBytes
+    jaxFile, portFile = JaxFile.deserialize(portBytes), File.deserialize(jaxBytes)
+    for ours, theirs in zip(engine.coder.decompress([portFile.Content], [portFile.FileHeader.CodeSize]),
+                            jaxEngine.coder.decompress([jaxFile.Content], [jaxFile.FileHeader.CodeSize])):
+        np.testing.assert_array_equal(ours, theirs)
+    ours = engine.decompressImage(File.deserialize(jaxBytes))
+    with jax.enable_x64():
+        theirs = jaxEngine.decompressImage(JaxFile.deserialize(portBytes))
+    assert ours.shape == image.shape and ours.dtype == np.uint8
+    np.testing.assert_array_equal(ours, theirs)
+
+
+def test_neon_export_round_trips_through_the_cli(neonEngines, tmp_path, image):
+    from mcquic_tpu_torch.cli import main
+    from mcquic_tpu_torch.data.png import writePng
+    _, engine, path = neonEngines
+    writePng(tmp_path / "in.png", image)
+    assert main(["--device", "cpu", "--local", str(path), str(tmp_path / "in.png"),
+                 str(tmp_path / "out.mcq")]) == 0
+    assert main(["--device", "cpu", "--local", str(path), str(tmp_path / "out.mcq"),
+                 str(tmp_path / "out.png")]) == 0
+    assert readPng(tmp_path / "out.png").shape == image.shape
+    assert File.deserialize((tmp_path / "out.mcq").read_bytes()).FileHeader.QuantizationParameter == "5"
+
+
+def test_engine_leaves_a_training_module_as_it_was(engines, image):
+    """A trainer validates its live model: the engine neither switches it to
+    eval nor turns off its gradients."""
+    model = portModel(randomStateDict(**SMALL, seed=2), **SMALL).train()
+    before = [p.requires_grad for p in model.parameters()]
+    engine = CompressorEngine(model, device="cpu")
+    engine.decompressImage(engine.compressImage(image))
+    assert model.training and all(m.training for m in model.modules())
+    assert [p.requires_grad for p in model.parameters()] == before and any(before)

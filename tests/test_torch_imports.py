@@ -4,8 +4,10 @@ The machine with the card has none of the JAX package's other dependencies,
 so a subprocess blocks them (and the JAX package itself) with a
 `sys.meta_path` finder, then imports every module of `mcquic_tpu_torch` and
 `chip_smoke`, and runs the tiny model's PNG -> .mcq -> PNG round trip
-through `python -m mcquic_tpu_torch --device cpu`, and a tiny generator's
-sampling through `python -m mcquic_tpu_torch generate --device cpu`.
+through `python -m mcquic_tpu_torch --device cpu`, a tiny generator's
+sampling through `python -m mcquic_tpu_torch generate --device cpu`, and
+`train -h` and a 2-step tiny training run through
+`python -m mcquic_tpu_torch train --device cpu`.
 """
 import ast
 import subprocess
@@ -21,7 +23,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "mcquic_tpu_torch"
 TINY = ROOT / "assets" / "tiny_demo_672919fb.mcquic.npz"
 BLOCKED = ["jax", "jaxlib", "flax", "optax", "msgpack", "PIL", "ml_dtypes", "yaml", "click",
-           "joblib", "mcquic_tpu"]
+           "joblib", "triton", "mcquic_tpu"]
 
 GUARD = textwrap.dedent('''
     import importlib, pkgutil, runpy, sys
@@ -121,6 +123,28 @@ def test_tiled_codec_runs_without_the_jax_package_and_its_dependencies(tmp_path)
             "mcquic_tpu_torch.models.tiling", "mcquic_tpu_torch.ops.vq_grouped_cuda",
             "mcquic_tpu_torch.loss", "mcquic_tpu_torch.data"} <= names
     assert readPng(tmp_path / "out.png").shape == (256, 128, 3)     # the crop, 4 x 2 tiles
+
+
+def test_train_runs_without_the_jax_package_and_its_dependencies(tmp_path):
+    """`train -h`, then two steps of a tiny config (YAML read by the port's
+    own reader, PNG folder, validation, reassign hook, checkpoint, export);
+    the `train`, `config` and `data` modules are among those imported."""
+    from test_torch_train_cli import tinyConfig
+    config = tinyConfig(tmp_path)
+    runs = [["train", "-h"], ["train", "-G", str(config), "--device", "cpu"]]
+    script = GUARD.format(blocked=BLOCKED, root=str(ROOT), runs=runs)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "round trip ok" in proc.stdout and "stage-1 training" in proc.stdout.lower()
+    assert (tmp_path / "saved" / "latest" / "saved.ckpt.npz").exists()
+    assert list((tmp_path / "saved").glob("export_*.mcquic.npz"))
+    import pkgutil
+    import mcquic_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(mcquic_tpu_torch.__path__, "mcquic_tpu_torch.")}
+    assert {"mcquic_tpu_torch.config", "mcquic_tpu_torch.train.trainer", "mcquic_tpu_torch.train.cli",
+            "mcquic_tpu_torch.data.augment", "mcquic_tpu_torch.data.dataset",
+            "mcquic_tpu_torch.utils.yamlsubset"} <= names
 
 
 def _portFiles():

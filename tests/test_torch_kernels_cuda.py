@@ -531,3 +531,95 @@ def test_k3_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         flashAttention(t, t, t)
     with pytest.raises(RuntimeError, match="no backward"):
         flashAttention(q.clone().requires_grad_(), q, q)
+
+
+def _trainingModel(cuda, channel=64, m=2, k=(512, 128)):
+    from mcquic_tpu_torch.models.compressor import initialize
+    return initialize(Compressor(channel, m, k), torch.Generator().manual_seed(0)).to(cuda).train()
+
+
+def test_k1_codes_match_plain_after_an_optimizer_step_and_a_reassign(cuda):
+    """K1 keeps each codebook's norms keyed on the tensor's version: the
+    optimizer's in-place update and `refreshCodebooks`' copy_ must both be
+    seen, on the same codebook tensors, or K1 searches with stale norms."""
+    from mcquic_tpu_torch.train.optim import getOptimizer
+    from mcquic_tpu_torch.train.state import refreshCodebooks, trainableParameters
+    model = _trainingModel(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    tokens = [torch.randn((2, 700, 32), device=cuda, generator=gen) for _ in range(2)]
+    codebooks = [model._quantizer.codebook(i) for i in range(2)]
+
+    def check(label):
+        with exactFp32(), torch.no_grad():
+            for t, c in zip(tokens, codebooks):
+                launches = vqNearest.launches
+                got = vqNearest(t, c.detach())
+                assert vqNearest.launches == launches + 1
+                assert torch.equal(got, vqEncodePlain(t, c.detach())), label
+
+    check("fresh")
+    params = trainableParameters(model)
+    optimizer = getOptimizer("Adam", lambda count: 0.05, {"lr": 0.05}, params)
+    optimizer.step([torch.randn(p.shape, device=cuda, generator=gen) for p in params])
+    check("after an optimizer step")
+    with torch.no_grad():
+        for freq in model._quantizer.frequencies():
+            freq[:, ::3] = 0.0
+    uniforms = [torch.rand(tuple(f.shape), device=cuda, generator=gen)
+                for f in model._quantizer.frequencies()]
+    assert float(refreshCodebooks(model, uniforms)) > 0
+    assert all(model._quantizer.codebook(i) is codebooks[i] for i in range(2))
+    check("after a reassign")
+
+
+def test_engine_leaves_a_training_module_as_it_was_on_the_card(cuda):
+    """Validation inside the trainer: K1 and K2 run on the live training
+    model, which keeps its mode and its gradients."""
+    import numpy as np
+    from mcquic_tpu_torch.models.engine import CompressorEngine
+    model = _trainingModel(cuda, channel=32, k=(64, 32))
+    before = [p.requires_grad for p in model.parameters()]
+    engine = CompressorEngine(model, device=cuda)
+    image = np.random.default_rng(0).integers(0, 256, (128, 128, 3), dtype=np.uint8)
+    k1, k2 = vqNearest.launches, conv3x3SubpixelThin.launches
+    restored = engine.decompressImage(engine.compressImage(image))
+    assert restored.shape == image.shape
+    assert vqNearest.launches - k1 == 2 and conv3x3SubpixelThin.launches - k2 == 1
+    assert model.training and all(m.training for m in model.modules())
+    assert [p.requires_grad for p in model.parameters()] == before and any(before)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One training step from the same weights, batch and uniforms: the loss
+    and the gradient norm on the card equal the CPU's to 1e-4 relative (fp32,
+    TF32 off; cuDNN and the CPU sum in other orders)."""
+    from mcquic_tpu_torch.loss import PSNR
+    from mcquic_tpu_torch.train.optim import getOptimizer
+    from mcquic_tpu_torch.train.state import makeTrainStep, trainableParameters
+    cpuModel = _trainingModel(torch.device("cpu"), channel=16, k=(32, 16))
+    cardModel = Compressor(16, 2, (32, 16))
+    cardModel.load_state_dict(cpuModel.state_dict())
+    cardModel = cardModel.to(cuda).train()
+    x = torch.rand((2, 3, 64, 64), generator=torch.Generator().manual_seed(1)) * 2 - 1
+    uniforms = []
+
+    def draw(device):
+        queue = iter(uniforms)
+
+        def fn(shape):
+            u = next(queue, None)
+            if u is None:
+                u = torch.rand(shape, generator=torch.Generator().manual_seed(len(uniforms)))
+                uniforms.append(u)
+            return u.to(device)
+        return fn
+
+    metrics = {}
+    for model, device in ((cpuModel, torch.device("cpu")), (cardModel, cuda)):
+        optimizer = getOptimizer("Adam", lambda count: 1e-4, {}, trainableParameters(model))
+        with exactFp32():
+            metrics[device.type] = makeTrainStep(model, optimizer, PSNR())(x.to(device), draw(device))
+    for key in ("loss", "gradNorm"):
+        cpu, card = float(metrics["cpu"][key]), float(metrics["cuda"][key])
+        assert abs(card - cpu) <= 1e-4 * abs(cpu), (key, card, cpu)
+    assert metrics["cuda"]["skipped"] == metrics["cpu"]["skipped"] == 0.0

@@ -164,9 +164,14 @@ def test_model_geometry_from_sidecar():
     legacy = {"config": {"model": {"key": "Compressor",
                                    "params": {"channel": 8, "m": [2, 2], "k": [16, 8]}}}}
     assert convert.modelGeometry(legacy) == {"channel": 8, "m": 2, "k": [16, 8]}
-    neon = {"config": {"model": {"key": "Neon", "params": {"channel": 8, "k": 16, "size": [4, 2]}}}}
-    with pytest.raises(NotImplementedError):
-        convert.modelGeometry(neon)
+    # a `size` pyramid means Neon whatever the key says; a list-valued k is read at its first entry
+    neon = {"config": {"model": {"key": "Compressor",
+                                 "params": {"channel": 8, "k": [16], "size": [4, 2, 2]}}}}
+    assert convert.modelGeometry(neon) == {"channel": 8, "k": 16, "size": [4, 2, 2]}
+    dense = {"config": {"model": {"key": "Neon", "params": {"channel": 8, "k": 16, "size": [4, 2, 2],
+                                                             "denseNorm": True}}}}
+    with pytest.raises(NotImplementedError, match="denseNorm"):
+        convert.modelGeometry(dense)
 
 
 def test_models_hash_copy_matches_the_jax_package():

@@ -70,6 +70,31 @@ ends:
      step and parameters; the export loads through `demo.loadModel` and
      round-trips the photo. Printed: steps/s, images/s, a step's device idle
      share (`utils/profiling.py::report`) and the peak memory.
+ 10. Neon training at full width: configs/rd5/neon_v2_60k.yaml's model and
+     recipe (channel 256, k 1024, 9 levels; batch 2, input 256, Adam at the
+     world-rule lr, the cosine warm-up, MS-SSIM; LPIPS on a seeded VGG16
+     backbone written to MCQUIC_VGG16_WEIGHTS) on PNG crops of the photo for
+     NEON_TRAIN_STEPS steps through `Trainer.train`, CodebookReassign cut to
+     fire once. Gates: the first step's loss and gradient norm equal the
+     CPU's (TRAIN_CPU_RTOL) and its LPIPS (LPIPS_CPU_RTOL); its gradients
+     with remat and without agree (REMAT_RTOL; cuDNN's deterministic
+     algorithms, no LPIPS term), both peaks printed; no step
+     skipped; the validation launches K1 9 times per image, whose codes equal
+     the plain version's after the steps and the reassign; checkpoint and
+     export written; a few steps under MCQUIC_LPIPS_PROXY=1 give a finite,
+     non-zero lpips;
+ 11. generator training at full width: configs/rd5/gen_stage2_neonA.yaml
+     (hidden 512, depth 8, 8 heads, batch 8, Adam, the cosine warm-up) with
+     `loadFrom` phase 10's checkpoint, on class folders of PNG crops under
+     two real wnids. Gates: the first step's loss, per-level CE and gradient
+     norm equal the CPU's (TRAIN_CPU_RTOL); in process, K1 launches 9 times
+     per step with codes equal to the plain version's, K3 never, and the
+     tokenizer stays bit-identical; GEN_TRAIN_STEPS steps through
+     `python -m mcquic_tpu_torch train -G` keep the tokenizer identical to
+     phase 10's; sampling from the trained checkpoint launches K3 72 times,
+     each held to its plain version, and the generate CLI writes 2 PNGs.
+     Both phases print steps/s, images/s, idle share, device busy per step
+     and peak memory.
 
 Any failure ends the run with a non-zero exit and no result line. The last
 two lines are the kernel table as JSON and
@@ -115,6 +140,17 @@ TRAIN_STEPS = 30
 REASSIGN_AT = 15                 # CodebookReassign's freq: fires once, mid-run
 TRAIN_CPU_RTOL = 1e-3            # first step, card vs CPU, loss and grad norm (fp32, TF32 off;
                                  # cuDNN and the CPU sum in other orders)
+NEON_V2_60K_CONFIG = ROOT / "configs" / "rd5" / "neon_v2_60k.yaml"
+GEN_NEON_A_CONFIG = ROOT / "configs" / "rd5" / "gen_stage2_neonA.yaml"
+NEON_TRAIN_STEPS = 30
+NEON_REASSIGN_AT = 15            # CodebookReassign's freq, cut from 3000 so that one runs
+LPIPS_CPU_RTOL = 1e-4            # the first Neon step's LPIPS, card vs CPU
+REMAT_RTOL = 1e-5                # the first Neon step's gradients, remat vs plain, on the card
+PROXY_STEPS = 3
+GEN_WNIDS = ["n01440764", "n02099601"]
+GEN_TRAIN_STEPS = 30             # through the CLI, cut from 10000
+GEN_TIMED_STEPS = 8              # in process, counted step by step
+GEN_SAMPLE_CLASSES = [1, 207]
 TILE = 256
 TILE_BATCH_MAX_DIFF = 1          # uint8 levels: cuDNN picks algorithms by batch size, so the same
                                  # codes decoded one by one and as a batch of 6 round differently
@@ -290,7 +326,6 @@ def train9(torch, np, tmp: Path, img, smi: str) -> dict:
     from mcquic_tpu_torch.container import File
     from mcquic_tpu_torch.data import getTrainLoader, getValLoader
     from mcquic_tpu_torch.data.augment import augmentDraws, trainingTransform
-    from mcquic_tpu_torch.data.png import writePng
     from mcquic_tpu_torch.demo import loadModel
     from mcquic_tpu_torch.loss import PSNR
     from mcquic_tpu_torch.models.compressor import Compressor
@@ -306,13 +341,8 @@ def train9(torch, np, tmp: Path, img, smi: str) -> dict:
 
     device = torch.device("cuda")
     pngs, val = tmp / "train", tmp / "val"
-    pngs.mkdir()
+    cropFolder(pngs, img, 16)            # two batches of 8 per epoch
     val.mkdir()
-    h, w = img.shape[:2]
-    for i in range(16):                      # two batches of 8 per epoch
-        top, left = (i * 37) % (h - 320), (i * 61) % (w - 320)
-        crop = img[top:top + 320, left:left + 320]
-        writePng(pngs / f"{i:02d}.png", crop[:, ::-1] if i % 2 else crop)
     shutil.copy(PHOTO, val / PHOTO.name)
     data = Config.load(str(RD_QP2)).serialize()
     data["train"].update(totalStep=TRAIN_STEPS, valFreq=TRAIN_STEPS, trainSet=str(pngs),
@@ -333,19 +363,7 @@ def train9(torch, np, tmp: Path, img, smi: str) -> dict:
     batch = next(iter(getTrainLoader(pngs, config.Train.BatchSize, cropSize=trainer.inputSize)()))
     cpuGen = torch.Generator().manual_seed(0)
     x = trainingTransform(torch.from_numpy(batch), augmentDraws(cpuGen, batch.shape[0]))
-    uniforms = []
-
-    def recorded(dev):
-        queue = iter(uniforms)
-
-        def draw(shape):
-            u = next(queue, None)
-            if u is None:
-                u = torch.rand(shape, generator=cpuGen)
-                uniforms.append(u)
-            return u.to(dev)
-        return draw
-
+    recorded = recordedDraws(torch, cpuGen)
     first = {}
     for dev in (torch.device("cpu"), device):
         copy = Compressor(model.channel, model.m, model.k)
@@ -366,7 +384,7 @@ def train9(torch, np, tmp: Path, img, smi: str) -> dict:
     print(f"  first step card vs CPU: loss differs by {abs(first['cuda']['loss'] - first['cpu']['loss']) / abs(first['cpu']['loss']):.2e} "
           f"relative, grad norm by {abs(first['cuda']['gradNorm'] - first['cpu']['gradNorm']) / abs(first['cpu']['gradNorm']):.2e} "
           f"(tolerance {TRAIN_CPU_RTOL:g})", flush=True)
-    del uniforms, x
+    del recorded, x
     torch.cuda.empty_cache()
 
     # the run, through Trainer.train, instrumented
@@ -467,6 +485,483 @@ def train9(torch, np, tmp: Path, img, smi: str) -> dict:
     return {"K1": valInfo["K1"], "K2": valInfo["K2"], "steps_per_s": 1 / steady,
             "images_per_s": config.Train.BatchSize / steady, "idle_share": idle,
             "peak_gib": peak / 2 ** 30}
+
+
+def seededVgg16(torch, path: Path, seed: int = 0) -> Path:
+    """A torchvision-layout VGG16 `features` state dict of seeded He-scaled
+    weights, for the LPIPS backbone slot (no pretrained file is on the
+    machine); the cost of the term does not depend on the weights."""
+    from mcquic_tpu_torch.loss.lpips import VGG_STAGES
+    generator = torch.Generator().manual_seed(seed)
+    index = [0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28]
+    state, inChannels, i = {}, 3, 0
+    for channels, count in VGG_STAGES:
+        for _ in range(count):
+            state[f"features.{index[i]}.weight"] = (torch.randn(
+                (channels, inChannels, 3, 3), generator=generator) * (2 / (9 * inChannels)) ** 0.5)
+            state[f"features.{index[i]}.bias"] = (torch.rand(channels, generator=generator) - 0.5) * 0.1
+            inChannels, i = channels, i + 1
+    torch.save(state, path)
+    return path
+
+
+def cropFolder(folder: Path, img, count: int, size: int = 320, seed: int = 0):
+    """`count` PNG crops of the photo, every other one mirrored."""
+    from mcquic_tpu_torch.data.png import writePng
+    folder.mkdir(parents=True)
+    h, w = img.shape[:2]
+    for i in range(count):
+        top, left = (i * 37 + seed * 11) % (h - size), (i * 61 + seed * 23) % (w - size)
+        crop = img[top:top + size, left:left + size]
+        writePng(folder / f"{i:02d}.png", crop[:, ::-1] if i % 2 else crop)
+
+
+def writeConfig(path: Path, data: dict) -> Path:
+    """A config as YAML the port's reader takes: top-level keys, JSON values."""
+    path.write_text("".join(f"{key}: {json.dumps(value)}\n" for key, value in data.items()))
+    return path
+
+
+def recordedDraws(torch, generator):
+    """(draw(device)): uniforms drawn on the CPU at first use, replayed on
+    every later device, so two runs of a step sample alike."""
+    uniforms = []
+
+    def recorded(dev):
+        queue = iter(uniforms)
+
+        def draw(shape):
+            u = next(queue, None)
+            if u is None:
+                u = torch.rand(shape, generator=generator)
+                uniforms.append(u)
+            return u.to(dev)
+        return draw
+    return recorded
+
+
+def relativeGap(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def train10(torch, np, tmp: Path, img, smi: str) -> dict:
+    """Phase 10: Neon trained at configs/rd5/neon_v2_60k.yaml's model and
+    recipe for NEON_TRAIN_STEPS steps through `Trainer.train`, with every
+    gate of the phase; returns its numbers and the checkpoint's path."""
+    import os
+    import mcquic_tpu_torch.models.quantizer as quantizerModule
+    from mcquic_tpu_torch.config import Config
+    from mcquic_tpu_torch.data import getTrainLoader, getValLoader
+    from mcquic_tpu_torch.data.augment import augmentDraws, trainingTransform
+    from mcquic_tpu_torch.loss import MsSSIM
+    from mcquic_tpu_torch.loss.lpips import makeDefaultLpipsFn
+    from mcquic_tpu_torch.models.compressor import Neon
+    from mcquic_tpu_torch.ops.vq import latentTokens, vqEncodePlain
+    from mcquic_tpu_torch.ops.vq_cuda import vqNearest
+    from mcquic_tpu_torch.train.optim import Optimizer
+    from mcquic_tpu_torch.train.state import makeTrainStep, trainableParameters
+    from mcquic_tpu_torch.train.trainer import Trainer
+    from mcquic_tpu_torch.utils import exactFp32
+    from mcquic_tpu_torch.utils.convert import exportModel
+    from mcquic_tpu_torch.utils.profiling import report
+
+    class Keep(Optimizer):
+        """Keeps the clipped gradients it is given and applies nothing."""
+
+        def step(self, grads):
+            self.kept = [g.detach().cpu() for g in grads]
+
+    device = torch.device("cuda")
+    pngs, val = tmp / "neon_train", tmp / "neon_val"
+    cropFolder(pngs, img, 8)
+    val.mkdir()
+    shutil.copy(PHOTO, val / PHOTO.name)
+    os.environ.pop("MCQUIC_LPIPS_PROXY", None)
+    os.environ["MCQUIC_VGG16_WEIGHTS"] = str(seededVgg16(torch, tmp / "vgg16_seeded.pth"))
+    data = Config.load(str(NEON_V2_60K_CONFIG)).serialize()
+    data["train"].update(totalStep=NEON_TRAIN_STEPS, valFreq=NEON_TRAIN_STEPS, trainSet=str(pngs),
+                         valSet=str(val), saveDir=str(tmp / "neon"),
+                         hooks=[{"key": "CodebookReassign", "params": {"freq": NEON_REASSIGN_AT}}])
+    config = Config.deserialize(data)
+    trainer = Trainer(config, device="cuda")
+    model = trainer.model
+    bs = config.Train.BatchSize
+    print(f"  configs/rd5/neon_v2_60k.yaml: {config.Model.Params}, batch {bs}, input "
+          f"{trainer.inputSize}, {config.Train.Optim.Key} at the world-rule lr {trainer._baseLr:.4e}, "
+          f"{config.Train.Schdr.Key} {config.Train.Schdr.Params}, target {config.Train.Target}; "
+          f"{sum(p.numel() for p in trainableParameters(model)) / 1e6:.2f} M parameters; "
+          f"{NEON_TRAIN_STEPS} steps (cut from 60000), CodebookReassign every {NEON_REASSIGN_AT} "
+          f"(cut from 3000); LPIPS on a seeded VGG16 backbone (MCQUIC_VGG16_WEIGHTS)", flush=True)
+    if abs(trainer._baseLr - 1.3e-4 / 2 ** 2.5) > 1e-12 or trainer.inputSize != 256:
+        raise AssertionError(f"lr {trainer._baseLr} / input {trainer.inputSize} are not the recipe's")
+    if trainer._lpipsFn is None or not model.useRemat:
+        raise AssertionError("the trainer lacks its LPIPS term or Neon its remat")
+
+    # the first step: card against the CPU (LPIPS included); then remat
+    # against the plain pass on the card, without the LPIPS term and with
+    # cuDNN's deterministic algorithms, so that only the remat differs
+    batch = next(iter(getTrainLoader(pngs, bs, cropSize=trainer.inputSize)()))
+    cpuGen = torch.Generator().manual_seed(0)
+    x = trainingTransform(torch.from_numpy(batch), augmentDraws(cpuGen, batch.shape[0]))
+    recorded = recordedDraws(torch, cpuGen)
+    first, grads, peaks = {}, {}, {}
+    for label, dev, remat, lpips in (("cpu", torch.device("cpu"), True, True),
+                                     ("card", device, True, True),
+                                     ("card, warm-up of the deterministic algorithms", device,
+                                      True, False),
+                                     ("card, remat", device, True, False),
+                                     ("card, no remat", device, False, False)):
+        copy = Neon(model.channel, model.k, model.size, useRemat=remat)
+        copy.load_state_dict(model.state_dict())
+        copy = copy.to(dev).train()
+        keep = Keep(trainableParameters(copy), trainer._schedule)
+        step = makeTrainStep(copy, keep, MsSSIM(), makeDefaultLpipsFn(dev) if lpips else None)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        with exactFp32(), torch.backends.cudnn.flags(enabled=True, benchmark=True,
+                                                     deterministic=not lpips, allow_tf32=False):
+            metrics = step(x.to(dev), recorded(dev))
+        if dev.type == "cuda":
+            peaks[label] = torch.cuda.max_memory_allocated() / 2 ** 30
+        first[label] = {k: float(v) for k, v in metrics.items()}
+        grads[label] = keep.kept
+        print(f"  first step, {label}: loss {first[label]['loss']:.8f}, lpips "
+              f"{first[label]['lpips']:.8f}, grad norm {first[label]['gradNorm']:.8f}, "
+              f"{time.perf_counter() - start:.1f} s"
+              + (f", peak memory {peaks[label]:.2f} GiB" if label in peaks else ""), flush=True)
+        del copy, keep, step
+        torch.cuda.empty_cache()
+    gaps = {key: relativeGap(first["card"][key], first["cpu"][key])
+            for key in ("loss", "gradNorm", "lpips")}
+    rematGap = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   for a, b in zip(grads["card, remat"], grads["card, no remat"]))
+    print(f"  first step card vs CPU: loss {gaps['loss']:.2e}, grad norm {gaps['gradNorm']:.2e} "
+          f"relative (tolerance {TRAIN_CPU_RTOL:g}); LPIPS {gaps['lpips']:.2e} (tolerance "
+          f"{LPIPS_CPU_RTOL:g}); remat vs plain gradients {rematGap:.2e} relative, the largest "
+          f"of any tensor's (tolerance {REMAT_RTOL:g}); peak memory of the step with remat "
+          f"{peaks['card, remat']:.2f} GiB, without {peaks['card, no remat']:.2f} GiB ({smi})",
+          flush=True)
+    if (gaps["loss"] > TRAIN_CPU_RTOL or gaps["gradNorm"] > TRAIN_CPU_RTOL
+            or gaps["lpips"] > LPIPS_CPU_RTOL or rematGap > REMAT_RTOL
+            or not first["card"]["lpips"] > 0):
+        raise AssertionError(f"first step: {gaps}, remat {rematGap}")
+    del grads, x
+
+    # the run, through Trainer.train, instrumented
+    stepS, losses, skipped, lpipsValues, valInfo = [], [], [], [], {}
+    gen = torch.Generator(device=device).manual_seed(5)
+    trainStep, reassign, validate = trainer.trainStep, trainer.reassignCodebooks, trainer.validate
+
+    def timedStep(b):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        metrics = trainStep(b)
+        torch.cuda.synchronize()
+        stepS.append(time.perf_counter() - start)
+        if len(stepS) == 1:                   # the peak after cuDNN's autotuning
+            torch.cuda.reset_peak_memory_stats()
+        losses.append(float(metrics["loss"]))
+        lpipsValues.append(float(metrics["lpips"]))
+        skipped.append(float(metrics["skipped"]))
+        return metrics
+
+    def sharedCodebookMatchesPlain(label):
+        codebook = model._quantizer.codebook.detach()
+        tokens = torch.randn((1, 65536, codebook.shape[-1]), device=device, generator=gen)
+        with exactFp32(), torch.no_grad():
+            if not torch.equal(vqNearest(tokens, codebook), vqEncodePlain(tokens, codebook)):
+                raise AssertionError(f"K1 differs from the plain version {label}")
+        print(f"  K1 codes equal the plain version's on the live shared codebook {label}", flush=True)
+
+    def checkedReassign():
+        prop = reassign()
+        print(f"  step {trainer.step}: CodebookReassign moved {prop:.4f} of the codewords", flush=True)
+        sharedCodebookMatchesPlain(f"after the reassign at step {trainer.step}")
+        return prop
+
+    def countedValidate(valLoader):
+        searches = []
+        original = quantizerModule.vqEncode
+
+        def capture(x, codebook):
+            searches.append((latentTokens(x), codebook.detach().float().contiguous()))
+            return original(x, codebook)
+
+        quantizerModule.vqEncode = capture
+        vqNearest.launches = 0
+        try:
+            results = validate(valLoader)
+        finally:
+            quantizerModule.vqEncode = original
+        valInfo.update(results=results, K1=vqNearest.launches / results["images"],
+                       training=model.training)
+        with exactFp32(), torch.no_grad():
+            for level, (tokens, codebook) in enumerate(searches):
+                if not torch.equal(vqNearest(tokens, codebook), vqEncodePlain(tokens, codebook)):
+                    raise AssertionError(f"K1 differs from the plain version on the validation's "
+                                         f"level-{level} latents at step {trainer.step}")
+        print(f"  validation at step {trainer.step}: {results}; K1 {valInfo['K1']:g} launches per "
+              f"image; K1 codes equal the plain version's on its {len(searches)} searches after "
+              f"{trainer.step} optimizer steps and the reassign", flush=True)
+        return results
+
+    trainer.trainStep, trainer.reassignCodebooks, trainer.validate = (timedStep, checkedReassign,
+                                                                      countedValidate)
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    trainer.train(getTrainLoader(pngs, bs, cropSize=trainer.inputSize),
+                  valLoader=getValLoader(val), onStep=lambda step, metrics: None)
+    runS = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = statistics.median(stepS[1:])
+    checkpoint = tmp / "neon" / "latest" / "saved.ckpt.npz"
+    export = exportModel(tmp / "neon_export.npz", trainer.variables(), config.serialize(), qp="train")
+    print(f"  {len(stepS)} steps in {runS:.1f} s with saves and validation; step median "
+          f"{steady * 1e3:.1f} ms (first {stepS[0] * 1e3:.1f} ms): {1 / steady:.3f} steps/s, "
+          f"{bs / steady:.2f} images/s; peak memory after the first step {peak:.2f} GiB ({smi})",
+          flush=True)
+    print(f"  losses: first {losses[0]:.6f}, last {losses[-1]:.6f}, lpips first "
+          f"{lpipsValues[0]:.6f}, last {lpipsValues[-1]:.6f}; all finite "
+          f"{all(np.isfinite(losses))}, skipped {int(sum(skipped))}; checkpoint "
+          f"{checkpoint.exists()}, export {export.name}", flush=True)
+    if len(stepS) != NEON_TRAIN_STEPS or not all(np.isfinite(losses)) or any(skipped):
+        raise AssertionError("a Neon training step was skipped or not finite")
+    if not valInfo or valInfo["K1"] != len(NEON_V2_60K["size"]) or not valInfo["training"]:
+        raise AssertionError(f"the validation inside the Neon trainer: {valInfo}")
+    if not (checkpoint.exists() and export.exists()):
+        raise AssertionError("the Neon checkpoint or export is missing")
+    wall, busy, idle = report(f"  Neon training step (batch {bs}, input {trainer.inputSize})",
+                              lambda: trainStep(batch), 3, 8)
+
+    # a reassign that moves codewords: in a run this short no frequency falls
+    # under the threshold (ema 0.998), so a quarter of the live frequencies is
+    # zeroed and K1 is held to its plain version on the rewritten codebook
+    with torch.no_grad():
+        for freq in model._quantizer.frequencies():
+            freq[:, ::4] = 0.0
+    moved = checkedReassign()
+    if not moved > 0:
+        raise AssertionError(f"the forced reassign moved {moved} of the codewords")
+
+    # the proxy in the lpips slot
+    os.environ.pop("MCQUIC_VGG16_WEIGHTS")
+    os.environ["MCQUIC_LPIPS_PROXY"] = "1"
+    proxyData = dict(data, train=dict(data["train"], saveDir=str(tmp / "neon_proxy")))
+    proxy = Trainer(Config.deserialize(proxyData), device="cuda")
+    try:
+        values = [float(proxy.trainStep(batch)["lpips"]) for _ in range(PROXY_STEPS)]
+    finally:
+        proxy.close()
+        os.environ.pop("MCQUIC_LPIPS_PROXY")
+    print(f"  {PROXY_STEPS} steps under MCQUIC_LPIPS_PROXY=1: proxy lpips "
+          + ", ".join(f"{v:.6f}" for v in values), flush=True)
+    if not all(np.isfinite(values)) or not all(v > 0 for v in values):
+        raise AssertionError(f"the LPIPS proxy gave {values}")
+    del proxy, trainer, model
+    torch.cuda.empty_cache()
+    return {"K1": valInfo["K1"], "steps_per_s": 1 / steady, "images_per_s": bs / steady,
+            "idle_share": idle, "busy_ms": busy, "wall_ms": wall, "peak_gib": peak,
+            "checkpoint": checkpoint}
+
+
+def train11(torch, np, tmp: Path, img, smi: str, neonCheckpoint: Path, lengths) -> dict:
+    """Phase 11: the generator of configs/rd5/gen_stage2_neonA.yaml trained
+    over phase 10's tokenizer: the first step against the CPU and the
+    instrumented steps in process, GEN_TRAIN_STEPS steps through the CLI,
+    then sampling from the trained checkpoint through K3."""
+    import mcquic_tpu_torch.models.generator as generatorModule
+    import mcquic_tpu_torch.models.quantizer as quantizerModule
+    from mcquic_tpu_torch.config import Config
+    from mcquic_tpu_torch.data.augment import augmentDraws, trainingTransform
+    from mcquic_tpu_torch.data.imagenet_classes import getGenLoader
+    from mcquic_tpu_torch.data.transforms import modelOutputToImage
+    from mcquic_tpu_torch.generate import loadGenerator
+    from mcquic_tpu_torch.models.generator import GeneratorV3SelfAttention
+    from mcquic_tpu_torch.ops.attention import flashAttentionPlain
+    from mcquic_tpu_torch.ops.attention_cuda import flashAttention
+    from mcquic_tpu_torch.ops.vq import latentTokens, vqEncodePlain
+    from mcquic_tpu_torch.ops.vq_cuda import vqNearest
+    from mcquic_tpu_torch.train.genTrainer import GenTrainer, makeGenTrainStep
+    from mcquic_tpu_torch.train.optim import Optimizer
+    from mcquic_tpu_torch.utils import exactFp32
+    from mcquic_tpu_torch.utils.convert import readExport
+    from mcquic_tpu_torch.utils.profiling import report
+
+    class Keep(Optimizer):
+        def step(self, grads):
+            self.kept = [g.detach().cpu() for g in grads]
+
+    device = torch.device("cuda")
+    classes = tmp / "classes"
+    for j, wnid in enumerate(GEN_WNIDS):
+        cropFolder(classes / wnid, img, 8, size=300, seed=j + 1)
+    data = Config.load(str(GEN_NEON_A_CONFIG)).serialize()
+    data["model"]["params"]["loadFrom"] = str(neonCheckpoint)
+    data["train"].update(totalStep=GEN_TRAIN_STEPS, trainSet=str(classes), valSet=str(classes),
+                         saveDir=str(tmp / "gen"))
+    levels = len(lengths)
+    inProcess = dict(data, train=dict(data["train"], totalStep=GEN_TIMED_STEPS,
+                                      saveDir=str(tmp / "gen_in_process")))
+    trainer = GenTrainer(Config.deserialize(inProcess), device="cuda")
+    model = trainer.model
+    bs = data["train"]["batchSize"]
+    depth = model.depth
+    frozen = {k: v.detach().clone() for k, v in model.compressor.state_dict().items()}
+    trainable = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    print(f"  configs/rd5/gen_stage2_neonA.yaml: {data['model']['params']}, batch {bs}, "
+          f"{data['train']['optim']}, {data['train']['schdr']['key']}; {trainable / 1e6:.2f} M "
+          f"trainable parameters, the tokenizer frozen ({sum(v.numel() for v in frozen.values()) / 1e6:.2f} M, "
+          f"from phase 10's checkpoint); class folders {GEN_WNIDS}", flush=True)
+    if abs(trainer._baseLr - 1e-4 / 2 ** 1.5) > 1e-12:
+        raise AssertionError(f"lr {trainer._baseLr} is not the recipe's 1e-4 under the world rule")
+
+    # the first step: card against the CPU, same weights and batch
+    images, labels = next(iter(getGenLoader(classes, bs, cropSize=256)()))
+    x = trainingTransform(torch.from_numpy(images), augmentDraws(torch.Generator().manual_seed(0), bs),
+                          gen=True)
+    y = torch.from_numpy(labels.astype(np.int64))
+    first = {}
+    for dev in (torch.device("cpu"), device):
+        copy = GeneratorV3SelfAttention(**{k: v for k, v in data["model"]["params"].items()
+                                           if k != "loadFrom"})
+        copy.load_state_dict(model.state_dict())
+        copy = copy.to(dev).train()
+        copy.compressor.requires_grad_(False)
+        keep = Keep([p for p in copy.parameters() if p.requires_grad], trainer._schedule)
+        start = time.perf_counter()
+        with exactFp32():
+            metrics = makeGenTrainStep(copy, keep)(x.to(dev), y.to(dev))
+        first[dev.type] = {k: float(v) for k, v in metrics.items()}
+        print(f"  first step on the {dev.type}: loss {first[dev.type]['loss']:.8f}, grad norm "
+              f"{first[dev.type]['gradNorm']:.8f}, CE by level "
+              + ", ".join(f"{first[dev.type][f'ceLv{i:02d}']:.5f}" for i in range(levels))
+              + f", {time.perf_counter() - start:.1f} s", flush=True)
+        del copy, keep
+    gaps = {key: relativeGap(first["cuda"][key], first["cpu"][key]) for key in first["cpu"]
+            if key != "skipped"}
+    print(f"  first step card vs CPU: largest relative gap {max(gaps.values()):.2e} "
+          f"({max(gaps, key=gaps.get)}; tolerance {TRAIN_CPU_RTOL:g})", flush=True)
+    if max(gaps.values()) > TRAIN_CPU_RTOL:
+        raise AssertionError(f"first generator step, card vs CPU: {gaps}")
+    torch.cuda.empty_cache()
+
+    # the steps in process, through GenTrainer.train, counted step by step
+    stepS, perStep, searches = [], [], []
+    trainStep = trainer.trainStep
+    original = quantizerModule.vqEncode
+
+    def capture(x, codebook):
+        searches.append((latentTokens(x), codebook.detach().float().contiguous()))
+        return original(x, codebook)
+
+    def countedStep(imgs, lbls):
+        if not perStep:
+            quantizerModule.vqEncode = capture
+        vqNearest.launches = flashAttention.launches = 0
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        try:
+            metrics = trainStep(imgs, lbls)
+            torch.cuda.synchronize()
+        finally:
+            quantizerModule.vqEncode = original
+        stepS.append(time.perf_counter() - start)
+        if len(stepS) == 1:                   # the peak after cuDNN's autotuning
+            torch.cuda.reset_peak_memory_stats()
+        perStep.append((vqNearest.launches, flashAttention.launches, float(metrics["loss"]),
+                        float(metrics["skipped"])))
+        return metrics
+
+    trainer.trainStep = countedStep
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train(getGenLoader(classes, bs, cropSize=256))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = statistics.median(stepS[1:])
+    k1Steps = sorted({s[0] for s in perStep})
+    k3Steps = sorted({s[1] for s in perStep})
+    with exactFp32(), torch.no_grad():
+        for level, (tokens, codebook) in enumerate(searches):
+            if not torch.equal(vqNearest(tokens, codebook), vqEncodePlain(tokens, codebook)):
+                raise AssertionError(f"K1 differs from the plain version on the frozen encode's "
+                                     f"level-{level} latents")
+    same = all(torch.equal(v, frozen[k]) for k, v in model.compressor.state_dict().items())
+    print(f"  {len(stepS)} steps in process: K1 launches per step {k1Steps}, K3 launches per "
+          f"step {k3Steps}; K1 codes equal the plain version's on the first step's "
+          f"{len(searches)} searches; losses {perStep[0][2]:.5f} -> {perStep[-1][2]:.5f}, skipped "
+          f"{int(sum(s[3] for s in perStep))}; the tokenizer bit-identical {same}; step median "
+          f"{steady * 1e3:.1f} ms (first {stepS[0] * 1e3:.1f} ms): {1 / steady:.3f} steps/s, "
+          f"{bs / steady:.2f} images/s; peak memory after the first step {peak:.2f} GiB ({smi})",
+          flush=True)
+    if (k1Steps != [levels] or k3Steps != [0] or len(searches) != levels or not same
+            or any(s[3] for s in perStep) or not all(np.isfinite([s[2] for s in perStep]))):
+        raise AssertionError(f"the in-process generator steps: {perStep}")
+    wall, busy, idle = report(f"  generator training step (batch {bs})",
+                              lambda: trainStep(images, labels), 3, 8)
+    del trainer, model, trainStep
+    torch.cuda.empty_cache()
+
+    # GEN_TRAIN_STEPS steps through the CLI
+    config = writeConfig(tmp / "gen_stage2_neonA.yaml", data)
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mcquic_tpu_torch", "train", "-G", str(config)],
+                          cwd=ROOT, capture_output=True, text=True, timeout=CLI_TIMEOUT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"train -G exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    checkpoint = Path(proc.stdout.strip().splitlines()[-1])
+    flat, _ = readExport(checkpoint)
+    neon, _ = readExport(neonCheckpoint)
+    tokenizerSame = all(np.array_equal(flat[k.replace("/", "/compressor/", 1)], v)
+                        for k, v in neon.items() if k.startswith(("params/", "coder/")))
+    print(f"  python -m mcquic_tpu_torch train -G: {int(flat['step'])} steps in "
+          f"{time.perf_counter() - start:.1f} s (process included), checkpoint {checkpoint.name}; "
+          f"its tokenizer bit-identical to phase 10's checkpoint: {tokenizerSame}", flush=True)
+    if int(flat["step"]) != GEN_TRAIN_STEPS or not tokenizerSame:
+        raise AssertionError("the CLI's generator training did not run as it should")
+
+    # sampling from the trained checkpoint: K3 on every call, held to its plain version
+    sampler = loadGenerator(checkpoint, device="cuda")
+    condition = torch.tensor(GEN_SAMPLE_CLASSES, device=device)
+    calls = []
+    originalAttention = generatorModule.flashAttention
+
+    def captureAttention(q, k, v, mask=None, scale=None):
+        calls.append((q.clone(), k.clone(), v.clone(), mask, scale))
+        return originalAttention(q, k, v, mask, scale)
+
+    generatorModule.flashAttention = captureAttention
+    try:
+        with exactFp32(), torch.inference_mode():
+            sampler.generate(condition)
+    finally:
+        generatorModule.flashAttention = originalAttention
+    with torch.inference_mode():
+        worst = max(k3Check(torch, flashAttention, flashAttentionPlain, *call) for call in calls)
+    with exactFp32(), torch.inference_mode():
+        flashAttention.launches = 0
+        _, restored = sampler.generate(condition)
+        k3Launches = flashAttention.launches
+        pictures = modelOutputToImage(restored.permute(0, 2, 3, 1).cpu().numpy())
+    out = tmp / "generated"
+    proc = subprocess.run([sys.executable, "-m", "mcquic_tpu_torch", "generate", "-c",
+                           ",".join(map(str, GEN_SAMPLE_CLASSES)), str(checkpoint), str(out)],
+                          cwd=ROOT, capture_output=True, text=True, timeout=CLI_TIMEOUT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"generate exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    written = sorted(out.glob("*.png"))
+    print(f"  generate from the trained checkpoint, classes {GEN_SAMPLE_CLASSES}: K3 launches "
+          f"{k3Launches}, K3 within {worst:.2e} of its plain version on all {len(calls)} calls' "
+          f"q/k/v, images {pictures.shape}; the generate CLI wrote {[p.name for p in written]}",
+          flush=True)
+    if (k3Launches != depth * levels or len(calls) != depth * levels or len(written) != 2
+            or pictures.shape != (len(GEN_SAMPLE_CLASSES), 256, 256, 3)):
+        raise AssertionError("sampling from the trained generator did not run as it should")
+    del sampler
+    torch.cuda.empty_cache()
+    return {"K1": k1Steps[0], "K3_in_step": k3Steps[0], "K3_after": k3Launches, "err": worst,
+            "steps_per_s": 1 / steady, "images_per_s": bs / steady, "idle_share": idle,
+            "busy_ms": busy, "wall_ms": wall, "peak_gib": peak}
 
 
 def main() -> int:
@@ -1256,6 +1751,13 @@ def main() -> int:
         tmp = Path(tmp)
         trainTrace = train9(torch, np, tmp, img, smi)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        with Phase("10 Neon training"):
+            neonTrace = train10(torch, np, tmp, img, smi)
+        with Phase("11 generator training"):
+            genTrace = train11(torch, np, tmp, img, smi, neonTrace["checkpoint"], lengths)
+
     kernels = [
         {"name": "vq_nearest", "route": "cuda", "source": "mcquic_tpu_torch/csrc/vq_encode.cu",
          "replaces": "mcquic_tpu/ops/vq_pallas.py:162", "launches": launches["K1"],
@@ -1266,6 +1768,8 @@ def main() -> int:
          "library_host_us": k1["library_host_us"], "photo_rescored": k1["photo_rescored"],
          "neon_codec_launches": neonCodecLaunches,
          "train_validation_launches_per_image": trainTrace["K1"],
+         "neon_train_validation_launches_per_image": neonTrace["K1"],
+         "gen_train_launches_per_step": genTrace["K1"],
          "neon_device_ms": neonK1["device_ms"], "neon_ms": neonK1["ms"],
          "neon_library_device_ms": neonK1["library_device_ms"],
          "qp12_device_ms": qp12K1["device_ms"],
@@ -1290,7 +1794,8 @@ def main() -> int:
          "max_abs_err": k3["err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
          "device_ms": k3["device_ms"], "library_device_ms": k3["library_device_ms"],
-         "bound_fp32_ms": k3["bound_fp32_ms"]},
+         "bound_fp32_ms": k3["bound_fp32_ms"], "after_gen_train_launches": genTrace["K3_after"],
+         "gen_train_launches_per_step": genTrace["K3_in_step"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,8 +6,9 @@ evaluate a model on a folder of PNGs, export it and time it
 (`mcquic_tpu/cli.py:92-110`); or, as
 `python -m mcquic_tpu_torch generate -c 1,207 model.npz outdir/`, sample
 images from a stage-2 generator (`mcquic_tpu/cli.py:130-147`); or, as
-`python -m mcquic_tpu_torch train -G config.yaml`, train a v1 Compressor
-(`mcquic_tpu/cli.py:86-96`)."""
+`python -m mcquic_tpu_torch train [-G] config.yaml`, train a stage-1 model
+(the v1 Compressor or Neon) or, with `-G/--gen`, the stage-2 generator
+(`mcquic_tpu/cli.py:84-96`)."""
 import argparse
 import logging
 
@@ -69,16 +70,19 @@ def generateParser() -> argparse.ArgumentParser:
 def trainParser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m mcquic_tpu_torch train",
-        description="Stage-1 training of the v1 Compressor from a YAML config (model, train: "
-                    "trainSet a folder of PNGs, valSet, saveDir, ...). Resumes from "
-                    "saveDir/latest where a checkpoint is; writes checkpoints there and the "
-                    "deploy model into saveDir, whose path is printed.")
-    p.add_argument("-G", "--config", dest="configOption", default=None, metavar="CONFIG",
-                   help="the YAML config (or give it as the positional argument)")
+        description="Stage-1 training (the v1 Compressor, or Neon where the model has a "
+                    "`size` pyramid) on a folder of PNGs, or with -G stage-2 training of the "
+                    "generator on class folders of PNGs, from a YAML config (model, train: "
+                    "trainSet, valSet, saveDir, ...). Resumes from saveDir/latest where a "
+                    "checkpoint is and writes checkpoints there; prints the deploy model's path "
+                    "(stage 1, written into saveDir) or the checkpoint's (stage 2).")
+    p.add_argument("-D", "--debug", action="store_true", help="verbose logging")
+    p.add_argument("-q", "--quiet", action="store_true", help="warnings and errors only")
     p.add_argument("-r", "--resume", action="store_true",
                    help="resume from saveDir/latest (always done where a checkpoint is)")
+    p.add_argument("-G", "--gen", action="store_true", help="train the stage-2 generation model")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    p.add_argument("configPath", nargs="?", default=None)
+    p.add_argument("configPath", metavar="CONFIG")
     return p
 
 
@@ -95,13 +99,11 @@ def main(argv=None) -> int:
             print(path)
         return 0
     if argv[:1] == ["train"]:
-        p = trainParser()
-        args = p.parse_args(argv[1:])
-        config = args.configOption or args.configPath
-        if config is None or (args.configOption and args.configPath):
-            p.error("give the config once, as -G CONFIG or as the positional argument")
+        args = trainParser().parse_args(argv[1:])
+        level = logging.DEBUG if args.debug else (logging.WARNING if args.quiet else logging.INFO)
+        logging.getLogger().setLevel(level)
         from mcquic_tpu_torch.train.cli import main as train
-        print(train(config, device=args.device))
+        print(train(args.configPath, gen=args.gen, device=args.device))
         return 0
     if argv[:1] == ["validate"]:
         args = validateParser().parse_args(argv[1:])

@@ -3,7 +3,8 @@
 `mcquic/data/transforms.py:14-43`): a uint8 NHWC batch becomes float NCHW in
 [-1, 1] after a random gamma (one of sRGB->linear, linear->sRGB, x^gamma
 and the identity, one pick per batch), a Planckian white-balance jitter
-(one illuminant per image) and independent horizontal and vertical flips.
+(one illuminant per image) and independent horizontal and vertical flips;
+the generator's transform (`gen=True`) leaves the flips out.
 
 Every random value is an argument (`AugmentDraws`): the trainer draws them
 from a `torch.Generator` (`augmentDraws`), the tests from the JAX package's
@@ -100,11 +101,13 @@ def randomFlips(x: torch.Tensor, flipH: torch.Tensor, flipV: torch.Tensor) -> to
     return torch.where((flipV < 0.5)[:, None, None, None], x.flip(2), x)
 
 
-def trainingTransform(batch: torch.Tensor, draws: AugmentDraws) -> torch.Tensor:
+def trainingTransform(batch: torch.Tensor, draws: AugmentDraws, gen: bool = False) -> torch.Tensor:
     """uint8 [n, h, w, 3] -> augmented float32 [n, 3, h, w] in [-1, 1]
-    (`augment.py:92-100`)."""
+    (`augment.py:92-100`). `gen` is the generator's transform: the gamma and
+    the jitter, no flips (the flip draws are not read)."""
     x = batch.permute(0, 3, 1, 2).float() / 255.0
     x = randomGamma(x, draws.gammaChoice, draws.gamma)
     x = planckianJitter(x, draws.jitterApply, draws.illuminant)
-    x = randomFlips(x, draws.flipH, draws.flipV)
+    if not gen:
+        x = randomFlips(x, draws.flipH, draws.flipV)
     return (x - 0.5) / 0.5

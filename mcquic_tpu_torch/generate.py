@@ -31,11 +31,11 @@ from mcquic_tpu_torch.utils.convert import (fromJaxGeneratorParams, halvingOf, r
 logger = logging.getLogger("mcquic_tpu_torch.generate")
 
 # config params the port's generators take; `loadFrom` (the trainer's
-# tokenizer source), `remat` (training only) and `capDim` (text conditioning
-# only) change nothing here and are dropped.
+# tokenizer source) and `capDim` (text conditioning only) change nothing here
+# and are dropped.
 TAKEN = ("channel", "k", "size", "qk_norm", "norm_eps", "hiddenSize", "depth", "nHeads",
-         "numClasses", "useAda")
-DROPPED = ("loadFrom", "remat", "capDim")
+         "numClasses", "useAda", "remat")
+DROPPED = ("loadFrom", "capDim")
 
 # The generator the repo last trained, configs/rd5/gen_stage2_neonA.yaml, over
 # the tokenizer of configs/rd5/neon_v2_60k.yaml: 426 tokens over 9 levels,

@@ -1,7 +1,7 @@
 """The metric half of the losses, NCHW (counterpart of
 `mcquic_tpu/loss/__init__.py`, reference `mcquic/loss/__init__.py:27-62`):
 the distortions MS-SSIM and PSNR with their dB formatting, and the
-codebook-repulsion rate term. The training losses are not ported yet.
+codebook-repulsion rate term. The perceptual term is `loss/lpips.py`.
 """
 from typing import Callable, Sequence
 

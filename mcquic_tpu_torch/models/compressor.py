@@ -9,8 +9,13 @@
 * `Neon`, the v2 tokenizer (reference `compressor.py:181-233`), counterpart
   of `mcquic_tpu/models/compressor.py:179-285`: an 8x-downsampling encoder
   into an 8-channel latent, the `ResidualBackwardQuantizer`, and a mirrored
-  decoder ending in a plain conv3x3 to RGB. The JAX package's `useRemat`
-  only matters for training and is not taken.
+  decoder ending in a plain conv3x3 to RGB. `forward` is the training pass
+  (`compressor.py:199-203`); with `useRemat` (the JAX package's flag, on by
+  default) the encoder and the decoder run under
+  `torch.utils.checkpoint` in training, which keeps only their inputs and
+  runs them again for the backward (`nn.remat`, `compressor.py:188-195`).
+  Nothing random is drawn inside them: the sampling's uniforms come from
+  `draw`, in the quantizer, outside the checkpointed regions.
 """
 import math
 from typing import List, Sequence
@@ -18,6 +23,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mcquic_tpu_torch.models.quantizer import ResidualBackwardQuantizer, UMGMQuantizer
 from mcquic_tpu_torch.nn import (AttentionBlock, ResidualBlock, ResidualBlockShuffle,
@@ -113,11 +119,12 @@ class Neon(nn.Module):
     """v2 tokenizer: channel, one shared codebook of k codewords, per-level
     latent grids `size` (large -> small)."""
 
-    def __init__(self, channel: int, k: int, size: Sequence[int]):
+    def __init__(self, channel: int, k: int, size: Sequence[int], useRemat: bool = True):
         super().__init__()
         self.channel = channel
         self.k = k
         self.size = list(size)
+        self.useRemat = useRemat
         self._encoder = _neonEncoder(channel)
         self._decoder = _neonDecoder(channel)
         self._quantizer = ResidualBackwardQuantizer(k, self.size)
@@ -129,6 +136,17 @@ class Neon(nn.Module):
     def decode(self, codes: Sequence[torch.Tensor]) -> torch.Tensor:
         """codes small -> large -> restored [n, 3, H, W]."""
         return self._decoder(self._quantizer.decode(codes))
+
+    def _remat(self, stack: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        if self.useRemat and self.training and torch.is_grad_enabled():
+            return checkpoint(stack, x, use_reentrant=False)
+        return stack(x)
+
+    def forward(self, x: torch.Tensor, draw):
+        """Training pass: x [n, 3, H, W] in [-1, 1] -> (xHat, yHat, codes
+        small -> large, logits); `draw` gives the sampling's uniforms."""
+        yHat, codes, logits = self._quantizer(self._remat(self._encoder, x), draw)
+        return self._remat(self._decoder, yHat), yHat, codes, logits
 
     def residual_forward(self, code: torch.Tensor, formerLevel, level: int) -> torch.Tensor:
         """One decode step of the quantizer; level 0 is the smallest."""
@@ -181,18 +199,39 @@ def seededCompressor(channel: int, m: int, k: Sequence[int], seed: int = 0) -> C
     return seededModel({"channel": channel, "m": m, "k": list(k)}, seed)
 
 
+def truncatedNormal(shape, generator: torch.Generator, like: torch.Tensor) -> torch.Tensor:
+    """N(0, 1) truncated to [-2, 2] (`jax.random.truncated_normal(-2, 2)`),
+    by redrawing what falls outside."""
+    value = torch.randn(shape, generator=generator, device=like.device, dtype=like.dtype)
+    outside = value.abs() > 2
+    while bool(outside.any()):
+        value = torch.where(outside, torch.randn(shape, generator=generator, device=like.device,
+                                                 dtype=like.dtype), value)
+        outside = value.abs() > 2
+    return value
+
+
 @torch.no_grad()
-def initialize(model: Compressor, generator: torch.Generator) -> Compressor:
-    """Draw a v1 Compressor's training start from `generator` with the JAX
-    package's initializers' distributions: conv kernels U(+-1/sqrt(fan_in))
-    and zero biases (`nn/convs.py:17-32`), GDN beta sqrt(1 + eps^2) and gamma
-    sqrt(0.1 I + eps^2) in reparam space (`nn/gdn.py:32-38`), temperatures
-    1, codebooks N(0, 2 / (5 d)) (SmallInit, `models/quantizer.py:37-41`),
-    code frequencies 1/k."""
+def initialize(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw a stage-1 model's training start (v1 Compressor or Neon) from
+    `generator` with the JAX package's initializers' distributions: conv
+    kernels U(+-1/sqrt(fan_in)) and zero biases (`nn/convs.py:17-32`), GDN
+    beta sqrt(1 + eps^2) and gamma sqrt(0.1 I + eps^2) in reparam space
+    (`nn/gdn.py:32-38`), temperatures 1, code frequencies 1/k; v1 codebooks
+    N(0, 2 / (5 d)) (SmallInit, `models/quantizer.py:37-41`), Neon's shared
+    codebook the same deviation truncated at 2 (`quantizer.py:44-47`), and
+    Neon's RGB head variance-scaled by 1e-4, truncated normal
+    (`compressor.py:270-283`)."""
     eps2 = 1e-12
+    neonHead = f"_decoder.{len(model._decoder) - 1}.weight" if isinstance(model, Neon) else None
     for key, p in model.state_dict().items():
         shape = tuple(p.shape)
-        if key.endswith("._codebook"):
+        if key == neonHead:
+            std = math.sqrt(1e-4 / int(np.prod(shape[1:]))) / 0.87962566103423978
+            value = truncatedNormal(shape, generator, p) * std
+        elif key.endswith("._codebook") and isinstance(model, Neon):
+            value = truncatedNormal(shape, generator, p) * math.sqrt(2 / (5 * shape[-1]))
+        elif key.endswith("._codebook"):
             value = torch.randn(shape, generator=generator, device=p.device, dtype=p.dtype) \
                 * math.sqrt(2 / (5 * shape[-1]))
         elif key.endswith("._temperature"):

@@ -9,15 +9,20 @@ Neon decodes the codes to an image.
 
 Ported: `RMSNorm`, `SwiGLU`, `AnyResAttention`, `AnyResBlock`,
 `AnyResTransformer`, `blockCausalMask` and `GeneratorV3SelfAttention` with
-`generate` (KV-cached or not), `residual_forward` and the sequence assembly;
-`useAda=False` is the NoAda ablation. Teacher-forced training (`__call__`),
-text conditioning and GroupNorm (`denseNorm`) are not ported.
+`generate` (KV-cached or not), `residual_forward`, the sequence assembly and
+the teacher-forced training pass (`forward`, `generator.py:395-452`);
+`useAda=False` is the NoAda ablation. Text conditioning and GroupNorm
+(`denseNorm`) are not ported.
 
-Self-attention goes through `ops/attention_cuda.py::flashAttention`: kernel
-K3 on CUDA, its plain version on the CPU. The KV-cached branch calls it
-without a mask over the cached prefix, the other branch with the
-block-causal mask. The gated cross-attention to the single condition token
-stays plain torch.
+Self-attention in sampling goes through `ops/attention_cuda.py::flashAttention`:
+kernel K3 on CUDA, its plain version on the CPU. The KV-cached branch calls
+it without a mask over the cached prefix, the other branch with the
+block-causal mask. K3 has no backward (nor has the JAX package's Pallas
+kernel: it trains on einsums, `generator.py:119-128`), so the training pass
+hands `ops/attention.py::flashAttentionPlain` down explicitly (`attend`).
+With `remat`, each block of the training pass runs under
+`torch.utils.checkpoint` (`nn.remat(AnyResBlock)`, `generator.py:242`). The
+gated cross-attention to the single condition token stays plain torch.
 
 Numerics follow the JAX package where it fixes a precision: RMSNorm,
 attention scores and probabilities, and the final logits are fp32, and the
@@ -31,9 +36,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mcquic_tpu_torch.models.compressor import Neon
 from mcquic_tpu_torch.nn.convs import conv3x3, pixelShuffle3x3
+from mcquic_tpu_torch.ops.attention import flashAttentionPlain
 from mcquic_tpu_torch.ops.attention_cuda import flashAttention
 from mcquic_tpu_torch.ops.vq import vqDequantizeCodes
 
@@ -86,12 +93,14 @@ class AnyResAttention(nn.Module):
             self.qNorm, self.kNorm, self.kyNorm = layerNorm(dim), layerNorm(dim), layerNorm(dim)
         self.gate = nn.Parameter(torch.zeros(nHeads))
 
-    def forward(self, x, mask, yFeat, posEmbed, cache=None, offset: int = 0):
+    def forward(self, x, mask, yFeat, posEmbed, cache=None, offset: int = 0, attend=None):
         """x [bs, seq, dim]; mask [seq, seq] or None; yFeat [bs, yLen, dim];
         posEmbed [seq, dim]. With `cache`, a (k, v) pair of [bs, Lmax, H, hd]
         buffers, this level's keys and values are written into it in place at
         [offset, offset + seq) and the queries attend to the whole cached
-        prefix without a mask."""
+        prefix without a mask. `attend` is the self-attention: K3's wrapper
+        (None), or its plain version for a pass that needs gradients."""
+        attend = attend or flashAttention
         bs, seq, dim = x.shape
         H = self.nHeads
         hd = dim // H
@@ -107,9 +116,9 @@ class AnyResAttention(nn.Module):
             ck, cv = cache
             ck[:, offset:offset + seq] = xk
             cv[:, offset:offset + seq] = xv
-            out = flashAttention(xq, ck[:, :offset + seq], cv[:, :offset + seq], None, scale)
+            out = attend(xq, ck[:, :offset + seq], cv[:, :offset + seq], None, scale)
         else:
-            out = flashAttention(xq, xk, xv, mask, scale)
+            out = attend(xq, xk, xv, mask, scale)
 
         yLen = yFeat.shape[1]
         yk = self.wkY(yFeat)
@@ -143,13 +152,14 @@ class AnyResBlock(nn.Module):
         self.attention = AnyResAttention(dim, nHeads, qkNorm)
         self.ffn = SwiGLU(dim, 4 * dim)
 
-    def forward(self, x, mask, yEmb, yFeat, posEmbed, cache=None, offset: int = 0):
+    def forward(self, x, mask, yEmb, yFeat, posEmbed, cache=None, offset: int = 0, attend=None):
         if self.useAda:
             sMsa, scMsa, gMsa, sMlp, scMlp, gMlp = self.adaLN(F.silu(yEmb)).chunk(6, -1)
             attnIn = _modulate(self.attentionNorm(x), sMsa, scMsa)
         else:
             attnIn = self.attentionNorm(x)
-        attnOut = self.attention(attnIn, mask, self.attentionYNorm(yFeat), posEmbed, cache, offset)
+        attnOut = self.attention(attnIn, mask, self.attentionYNorm(yFeat), posEmbed, cache, offset,
+                                 attend)
         if self.useAda:
             x = x + self.attentionNorm1(gMsa[:, None] * attnOut)
             ffnOut = self.ffn(_modulate(self.ffnNorm(x), sMlp, scMlp))
@@ -179,17 +189,24 @@ class AnyResTransformer(nn.Module):
             self.finalAdaLN = nn.Linear(hs, 2 * hs)
         self.finalLinear = nn.Linear(hs, vocabSize)
 
-    def forward(self, tokens, mask, capPooled, capCond, caches=None, offset: int = 0):
+    def forward(self, tokens, mask, capPooled, capCond, caches=None, offset: int = 0,
+                attend=None, remat: bool = False):
         """tokens [bs, L, hidden] -> fp32 logits [bs, L, k]. With `caches`
         (one (k, v) pair per block) the tokens are one level's, starting at
-        position `offset` of the full sequence."""
+        position `offset` of the full sequence. `remat` checkpoints each
+        block (a pass without caches)."""
         x = self.tokenEmbed(self.tokenNorm(tokens))
-        posEmbed = self.posEmbed[offset:offset + x.shape[1]]
+        # the JAX package stops the table's gradient (generator.py:226)
+        posEmbed = self.posEmbed.detach()[offset:offset + x.shape[1]]
         capEmb = self.capEmbed(self.capNorm(capPooled))
         yFeat = self.capCondEmbed(self.capCondNorm(capCond))[:, None]
         for i, block in enumerate(self.blocks):
-            x = block(x, mask, capEmb, yFeat, posEmbed,
-                      None if caches is None else caches[i], offset)
+            if remat and caches is None:
+                x = checkpoint(block, x, mask, capEmb, yFeat, posEmbed, None, offset, attend,
+                               use_reentrant=False)
+            else:
+                x = block(x, mask, capEmb, yFeat, posEmbed,
+                          None if caches is None else caches[i], offset, attend)
         x = self.finalNorm(x)
         if self.useAda:
             shift, scale = self.finalAdaLN(F.silu(capEmb)).chunk(2, -1)
@@ -221,15 +238,17 @@ class GeneratorV3SelfAttention(nn.Module):
 
     def __init__(self, channel: int, k: int, size: Sequence[int], qk_norm: bool = True,
                  norm_eps: float = 1e-5, hiddenSize: int = 1536, depth: int = 24,
-                 nHeads: int = 16, numClasses: int = IMAGENET_CLASSES, useAda: bool = True):
+                 nHeads: int = 16, numClasses: int = IMAGENET_CLASSES, useAda: bool = True,
+                 remat: bool = False):
         super().__init__()
         self.k = k
+        self.remat = remat
         self.size = list(size)
         self.hiddenSize = hs = hiddenSize
         self.depth = depth
         self.nHeads = nHeads
         self.numClasses = numClasses
-        self.compressor = Neon(channel, k, self.size)
+        self.compressor = Neon(channel, k, self.size, useRemat=False)
         self.classEmbed = nn.Parameter(torch.zeros(numClasses + 1, hs))
         self.scaffoldCodebook = nn.Parameter(torch.zeros(1, k, hs))
         # Construction order (large -> small), as in Neon. Level 0 (the
@@ -301,6 +320,59 @@ class GeneratorV3SelfAttention(nn.Module):
         """Class ids [bs] -> pooled condition [bs, hidden]; -1 is the null class."""
         idx = torch.where(condition < 0, torch.full_like(condition, self.numClasses), condition)
         return self.classEmbed[idx.long()]
+
+    def forward(self, image: torch.Tensor, condition: torch.Tensor, preview: bool = False):
+        """Teacher-forced training pass (`generator.py:395-452`): image
+        [n, 3, H, W] in [-1, 1], condition [n] class ids -> (per-level logits
+        small -> large [n, h, w, k] fp32, the scalar loss, the frozen
+        tokenizer's codes [n, 1, h, w], the greedy preview [n, 3, H, W] or
+        None, the per-level mean CE).
+
+        The frozen Neon encodes in its own precision (fp32 in training)
+        under `torch.no_grad()`, K1 once per level on CUDA. The loss is the
+        label-smoothed (0.1) CE of every token, summed per level weighted by
+        its area, over batch x (tokens + 1). The preview decodes the greedy
+        codes through the frozen decoder; the JAX step drops it as dead code,
+        so it runs only with `preview`."""
+        with torch.no_grad():
+            codes = self.compressor.encode(image.to(self.compressor._quantizer.codebook.dtype))
+        expect = sorted(self.size)
+        for lv, code in enumerate(codes):
+            if code.shape[2] != expect[lv] or code.shape[3] != expect[lv]:
+                raise ValueError(
+                    f"config size {tuple(self.size)} does not match the tokenizer: level {lv} code "
+                    f"grid is {code.shape[2]}x{code.shape[3]}, expected {expect[lv]}x{expect[lv]} "
+                    f"for input {image.shape[2]}x{image.shape[3]} (input -> latent is /8 and "
+                    f"size[0] must equal latent/2, e.g. 256 -> 16)")
+        scaffolds, former = [], None
+        for level, code in enumerate(codes[:-1]):
+            former = self.residual_forward(code, former, level)
+            scaffolds.append(former)
+        bs = image.shape[0]
+        capPooled = self._condEmbed(condition)
+        seq = self._assembleSequence([s.to(self.dtype) for s in scaffolds], capPooled, bs)
+        # K3 has no backward: the training pass attends through the plain version
+        logits = self.transformer(seq, self._mask, capPooled, capPooled, attend=flashAttentionPlain,
+                                  remat=self.remat and self.training and torch.is_grad_enabled())
+        predictions, perLevel, total, cur = [], [], 0.0, 0
+        smooth = 0.1
+        for code in codes:
+            n, _, h, w = code.shape
+            pre = logits[:, cur:cur + h * w]
+            predictions.append(pre.reshape(n, h, w, self.k))
+            logp = torch.log_softmax(pre, -1)
+            gt = code.reshape(n, h * w, 1).long()
+            nll = -(1 - smooth) * torch.gather(logp, -1, gt)[..., 0] - smooth * logp.mean(-1)
+            total = total + h * w * nll.sum()
+            perLevel.append(nll.mean())
+            cur += h * w
+        loss = total / bs / (cur + 1)
+        restored = None
+        if preview:
+            with torch.no_grad():
+                restored = self.compressor.decode(
+                    [p.argmax(-1)[:, None].to(torch.int32) for p in predictions])
+        return predictions, loss, codes, restored, perLevel
 
     def generate(self, condition: torch.Tensor, generator: Optional[torch.Generator] = None,
                  temperature: float = 1.0, topK: int = 0,

@@ -1,8 +1,8 @@
 """The quantizers.
 
-`UMGMQuantizer` is the v1 cascade, with its training forward;
-`ResidualBackwardQuantizer` is the v2 (Neon) multi-scale residual
-quantizer, inference half, described at its class.
+`UMGMQuantizer` is the v1 cascade and `ResidualBackwardQuantizer` the v2
+(Neon) multi-scale residual quantizer, described at its class; both with
+their training forward.
 
 Counterpart of `mcquic_tpu/models/quantizer.py::UMGMQuantizer.encode/decode`
 (reference `mcquic/modules/quantizer.py:368-467`), named like the reference
@@ -209,8 +209,8 @@ class _LevelQuantizer(nn.Module):
 
 
 class ResidualBackwardQuantizer(nn.Module):
-    """The v2 shared-codebook multi-scale residual quantizer, inference half
-    (`mcquic_tpu/models/quantizer.py:181-314`, reference
+    """The v2 shared-codebook multi-scale residual quantizer
+    (`mcquic_tpu/models/quantizer.py:181-330`, reference
     `mcquic/modules/quantizer.py:577-765`).
 
     `size` lists each level's latent grid from large to small; every entry
@@ -221,9 +221,18 @@ class ResidualBackwardQuantizer(nn.Module):
     and `_quantizers.L`; codes and `_entropyCoder._freqEMA.L` run small ->
     large. Codes are `[n, 1, h, w]`; the nearest-codeword search is
     `ops/vq.py::vqEncode` (kernel K1 on CUDA), d = `channel` = 8.
+
+    The training forward (`quantizer.py:291-330`) peels the residual top-down
+    as `encode` does, but each level samples hard Gumbel-softmax codes from
+    the temperature-scaled, frequency-dropped logits and carries the soft
+    sample's decode down; the decoders then sum bottom-up. Level l of the
+    codes (small -> large) uses `_quantizers.{L-1-l}._temperature` (the JAX
+    package's stacked row l) and `_freqEMA.{l}`, which training mode moves
+    toward the batch's code counts (ema 0.998).
     """
 
     channel = 8
+    EMA = 0.998                      # `quantizer.py:193`; the v1 cascade's is 0.9
 
     def __init__(self, k: int, size: Sequence[int]):
         super().__init__()
@@ -294,3 +303,30 @@ class ResidualBackwardQuantizer(nn.Module):
         for level, code in enumerate(codes):
             formerLevel = self.residual_forward(code, formerLevel, level)
         return formerLevel
+
+    def forward(self, x: torch.Tensor, draw: Draw):
+        """Training forward: latent [n, 8, h, w] -> (yHat [n, 8, h, w], codes
+        small -> large [n, 1, h_l, w_l], logits [n, 1, h_l, w_l, k])."""
+        latents = []
+        for enc in self._encoders:
+            x = enc(x)
+            latents.append(x)
+        quantizeds, codes, logits = [], [], []
+        current = torch.zeros_like(latents[-1])
+        L = len(self.size)
+        for level, i in enumerate(reversed(range(L))):
+            sampled, code, logit = sample(groupLatent(latents[i] - current, 1), self.codebook,
+                                          self._quantizers[i]._temperature,
+                                          self._entropyCoder._freqEMA[level], draw, self.training)
+            quantized = vqDequantizeSoft(sampled, self.codebook)
+            quantizeds.append(quantized)
+            codes.append(code)
+            logits.append(logit)
+            current = self._backwards[i](quantized)
+        formerLevel = torch.zeros_like(quantizeds[0])
+        for level, quantized in enumerate(quantizeds):
+            formerLevel = self._decoders[L - 1 - level](formerLevel + quantized)
+        if self.training:
+            for freq, code in zip(self._entropyCoder._freqEMA, codes):
+                emaUpdate(freq, code, self.EMA)
+        return formerLevel, codes, logits

@@ -1,10 +1,17 @@
-"""`python -m mcquic_tpu_torch train`: stage-1 training of the v1 Compressor
-from a YAML config (counterpart of `mcquic_tpu/train/cli.py`, reference
-`mcquic/train/cli.py:24-49`): build the trainer, resume from
-`saveDir/latest` where a checkpoint is, train on the PNG folder `trainSet`,
-validate on `valSet` where it exists, and write the deploy model beside the
-checkpoints. A config's `externalLib` (user files that extend the JAX
-package's registries) is refused: this package has no registries to extend.
+"""`python -m mcquic_tpu_torch train [-G] CONFIG`: training from a YAML config
+(counterpart of `mcquic_tpu/train/cli.py`, reference `mcquic/train/cli.py:24-49`):
+build the trainer, resume from `saveDir/latest` where a checkpoint is, and
+train.
+  * Stage 1 (the v1 Compressor, or Neon where the model has a `size`
+    pyramid) trains on the PNG folder `trainSet`, validates on `valSet`
+    where it exists, and writes the deploy model beside the checkpoints.
+  * Stage 2 (`gen`, `-G`) trains `GeneratorV3SelfAttention` or its NoAda
+    variant over the frozen tokenizer of `loadFrom`, on class folders of
+    PNGs (`data/imagenet_classes.py::getGenLoader`, 256x256 crops); it
+    returns the checkpoint, which `generate` samples from. `GeneratorVAR` is
+    not ported (ROADMAP A7).
+A config's `externalLib` (user files that extend the JAX package's
+registries) is refused: this package has no registries to extend.
 """
 import logging
 from pathlib import Path
@@ -16,17 +23,20 @@ from mcquic_tpu_torch.utils.convert import exportModel
 
 logger = logging.getLogger("mcquic_tpu_torch.train")
 STAGE2 = ("GeneratorV3SelfAttention", "GeneratorV3SelfAttentionNoAda", "GeneratorVAR")
+GEN_CROP = 256                   # `mcquic_tpu/train/cli.py:88-90`
 
 
-def main(configPath, device="cuda") -> Path:
-    """Train, then export; returns the deploy model's path."""
+def main(configPath, gen: bool = False, device="cuda") -> Path:
+    """Train; returns the deploy model's path (stage 1) or the checkpoint's
+    (stage 2)."""
     config = Config.load(str(configPath))
-    if config.Model.Key in STAGE2:
-        raise NotImplementedError(f"{config.Model.Key} (stage-2) training is ROADMAP A4 of this "
-                                  "package; it trains in the JAX package")
     train = config.Train
     if train.ExternalLib:
         raise NotImplementedError(f"externalLib {train.ExternalLib} is not supported by this package")
+    if gen:
+        return trainGenerator(config, device)
+    if config.Model.Key in STAGE2:
+        raise ValueError(f"{config.Model.Key} is a stage-2 model: train it with -G/--gen")
     trainer = Trainer(config, device=device)
     try:
         if trainer.tryResume():
@@ -44,3 +54,19 @@ def main(configPath, device="cuda") -> Path:
                          config.serialize(), qp="train")
     logger.info("exported the deploy model to %s", export)
     return export
+
+
+def trainGenerator(config: Config, device="cuda") -> Path:
+    from mcquic_tpu_torch.data.imagenet_classes import getGenLoader
+    from mcquic_tpu_torch.train.genTrainer import GenTrainer, checkGenerator
+    train = config.Train
+    checkGenerator(config.Model.Key, config.Model.Params)
+    loaderFn = getGenLoader(train.TrainSet, train.BatchSize, cropSize=GEN_CROP)
+    trainer = GenTrainer(config, device=device)
+    try:
+        if trainer.tryResume():
+            logger.info("auto-resumed training from %s", train.SaveDir)
+        trainer.train(loaderFn)
+    finally:
+        trainer.close()
+    return Path(train.SaveDir) / "latest" / "saved.ckpt.npz"

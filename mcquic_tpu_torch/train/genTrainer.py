@@ -1,0 +1,336 @@
+"""Stage-2 training of the class-conditional generator on one card
+(counterpart of `mcquic_tpu/train/genTrainer.py`, reference
+`mcquic/train/genTrainer.py`):
+  * the step (`makeGenTrainStep`): the teacher-forced pass of
+    `GeneratorV3SelfAttention.forward` through the frozen Neon tokenizer,
+    the gradient's global norm clipped at 2.0, a non-finite step skipped
+    whole, the metrics `loss`, `gradNorm`, `skipped` and `ceLvNN`;
+  * the frozen tokenizer: the `compressor.*` parameters have
+    `requires_grad=False` and stay out of the optimizer (`optax.masked` in
+    the JAX package, `_trainableMask`), so they stay bit-identical;
+  * `loadFrom` in the model's params: a stage-1 checkpoint or export (the
+    port's or the JAX package's, bf16 leaves upcast) becomes the tokenizer;
+  * saves every valFreq // 10 steps (at most MCQUIC_SAVE_FREQ), the hooks,
+    auto-resume from the rotated `latest/`, and LAMB's growth warning.
+
+The training pass runs in fp32 with TF32 off, with uint8 batches augmented
+on the card by the generator's transform (`data/augment.py`, `gen=True`:
+the gamma and the jitter, no flips), its draws from a generator seeded with
+SEED + 1. The transformer attends through the plain attention, K3 having no
+backward; the frozen encode runs K1 once per level.
+
+The checkpoint is the JAX `GenTrainer`'s layout (`genTrainer.py:237-246`):
+`step`, `params/...` and `coder/...` of the whole model under the flax names
+(`utils/convert.py::toJaxGeneratorParams`), `optState/NNNNN` with
+`optax.masked`'s leaves (moments of the trainable parameters only, in flax
+order; `saver.py::OptaxLayout`) and `rng`; the port keeps its generator's
+state under `torch/rng`. Checkpoints resume across packages, and
+`python -m mcquic_tpu_torch generate` samples from them.
+"""
+import inspect
+import logging
+import math
+import os
+import time
+from pathlib import Path
+from typing import Callable, Iterable, Optional
+
+import numpy as np
+import torch
+
+from mcquic_tpu_torch.config import Config
+from mcquic_tpu_torch.data.augment import augmentDraws, trainingTransform
+from mcquic_tpu_torch.models.compressor import initialize, truncatedNormal
+from mcquic_tpu_torch.models.generator import GENERATORS
+from mcquic_tpu_torch.train.hooks import HookType, getAllHooks
+from mcquic_tpu_torch.train.lrSchedulers import getSchedule
+from mcquic_tpu_torch.train.optim import getOptimizer
+from mcquic_tpu_torch.train.saver import OptaxLayout, Saver, restoreGenerator
+from mcquic_tpu_torch.train.state import globalNorm
+from mcquic_tpu_torch.utils import exactFp32, resolveDevice
+from mcquic_tpu_torch.utils.convert import (_applyMap, generatorMap, halvingOf, neonMap,
+                                            readExport, toJaxGeneratorParams)
+
+logger = logging.getLogger("mcquic_tpu_torch.train.gen")
+
+SEED = 3407
+
+
+def makeGenTrainStep(model, optimizer, clipNorm: float = 2.0):
+    """(images [n, 3, H, W] in [-1, 1], labels [n]) -> metrics; updates the
+    model's trainable parameters and the optimizer in place."""
+    params = optimizer.params
+
+    def step(images: torch.Tensor, labels: torch.Tensor) -> dict:
+        model.train()
+        for p in params:
+            p.grad = None
+        _, loss, _, _, perLevel = model(images, labels)
+        loss.backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        gnorm = globalNorm(grads).detach()
+        ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
+        if ok:
+            with torch.no_grad():
+                torch._foreach_mul_(grads, torch.clamp(clipNorm / torch.clamp_min(gnorm, 1e-12),
+                                                       max=1.0))
+                optimizer.step(grads)
+        for p in params:
+            p.grad = None
+        return {"loss": loss.detach(), "gradNorm": gnorm, "skipped": 0.0 if ok else 1.0,
+                **{f"ceLv{i:02d}": ce.detach() for i, ce in enumerate(perLevel)}}
+
+    return step
+
+
+def checkGenerator(key: str, params: dict):
+    """Refuses what the port cannot train: `GeneratorVAR` (ROADMAP A7) and
+    any other key, text conditioning, GroupNorm."""
+    if key not in GENERATORS:
+        raise NotImplementedError(f"generator `{key}` does not train in this package (ported: "
+                                  f"{sorted(GENERATORS)}; GeneratorVAR is ROADMAP A7)")
+    for name in ("textConditioned", "denseNorm"):
+        if params.get(name):
+            raise NotImplementedError(f"{key} with {name}=True is not ported")
+
+
+def constructGenerator(key: str, params: dict):
+    """The generator of a config, dropping params its class does not take
+    (`genTrainer.py:79-94`)."""
+    checkGenerator(key, params)
+    # both classes take GeneratorV3SelfAttention's arguments
+    known = set(inspect.signature(GENERATORS["GeneratorV3SelfAttention"].__init__).parameters)
+    known.discard("self")
+    dropped = sorted(set(params) - known - {"loadFrom"})
+    if dropped:
+        logger.info("ignoring config params not taken by %s: %s", key, dropped)
+    return GENERATORS[key](**{k: v for k, v in params.items() if k in known})
+
+
+def loadCompressorParams(ckptPath) -> dict:
+    """A stage-1 checkpoint or export (npz + json sidecar, the port's or the
+    JAX package's; bf16 leaves upcast to fp32) -> its flat `params/...` and
+    `coder/...` arrays. A reference (PyTorch) trainer checkpoint is refused:
+    its import is ROADMAP's tooling item."""
+    path = Path(ckptPath)
+    try:
+        flat, _ = readExport(path)
+    except Exception as err:
+        raise ValueError(f"loadFrom {path} is not a readable npz export or checkpoint ({err!r}); "
+                         "a reference torch checkpoint must be converted first (ROADMAP A9, "
+                         "reference-checkpoint import)") from err
+    return {k: v for k, v in flat.items() if k.startswith(("params/", "coder/"))}
+
+
+@torch.no_grad()
+def initializeGenerator(model, generator: torch.Generator):
+    """The generator's training start with the JAX package's initializers'
+    distributions (`models/generator.py`): the class, scaffold, position and
+    level tables truncated normal with std sqrt(2 / (5 hidden)) (the
+    transformer's position table 2 / (5 hidden)); dense kernels lecun-normal
+    except the zero-initialized adaLN and condition embeddings and the
+    final linear (0.02 of the tables' std); biases, gates zero; norms one;
+    the scaffold convs U(+-1/sqrt(fan_in)). The tokenizer is drawn as a
+    stage-1 Neon (`initialize`); `loadFrom` replaces it."""
+    hs = model.hiddenSize
+    std = math.sqrt(2 / (5 * hs))
+    zeroDense = ("adaLN.weight", "capEmbed.weight", "finalAdaLN.weight")
+    for key, p in model.named_parameters():
+        if key.startswith("compressor."):
+            continue
+        shape = tuple(p.shape)
+        name = key.split(".")[-1]
+        if key in ("classEmbed", "scaffoldCodebook", "firstLevelPosEmbed", "levelEmbed"):
+            value = truncatedNormal(shape, generator, p) * std
+        elif key == "transformer.posEmbed":
+            value = truncatedNormal(shape, generator, p) * (2 / (5 * hs))
+        elif key == "transformer.finalLinear.weight":
+            value = truncatedNormal(shape, generator, p) * (0.02 * std)
+        elif key.endswith(zeroDense) or name in ("bias", "gate"):
+            value = torch.zeros_like(p)
+        elif key.startswith("_decoders."):
+            bound = 1 / math.sqrt(int(np.prod(shape[1:])))
+            value = (torch.rand(shape, generator=generator, device=p.device) * 2 - 1) * bound
+        elif name == "weight" and len(shape) == 2:
+            value = truncatedNormal(shape, generator, p) * (math.sqrt(1 / shape[1])
+                                                             / 0.87962566103423978)
+        elif name in ("weight", "scale"):
+            value = torch.ones_like(p)
+        else:
+            raise KeyError(key)
+        p.copy_(value.to(p.dtype))
+    initialize(model.compressor, generator)
+    return model
+
+
+class GenTrainer:
+    def __init__(self, config: Config, model=None, device="cuda", seed: int = SEED):
+        self._config = config
+        train = config.Train
+        self._device = resolveDevice(device)
+        params = dict(config.Model.Params)
+        loadFrom = params.pop("loadFrom", None)
+        if model is None:
+            model = initializeGenerator(constructGenerator(config.Model.Key, params),
+                                        torch.Generator().manual_seed(seed))
+            if loadFrom:
+                self.loadCompressor(model, loadFrom)
+        self._model = model.to(self._device).train()
+        self._model.compressor.requires_grad_(False)
+        self._names = [n for n, p in self._model.named_parameters() if p.requires_grad]
+        self._geometry = {"halving": halvingOf(model.size), "depth": model.depth,
+                          "useAda": model.transformer.useAda,
+                          "qkNorm": model.transformer.blocks[0].attention.qkNorm}
+        self._layout = OptaxLayout(generatorMap(**self._geometry), self._names)
+
+        optimCfg = train.scaledOptim(1)
+        self._baseLr = optimCfg.Params.get("lr", 1e-4)
+        self._schedule = getSchedule(train.Schdr.Key, self._baseLr, train.Schdr.Params)
+        # LAMB's trust ratio grows small-init layers at most ~e^(lr * steps)
+        # over a run (`genTrainer.py:148-166`)
+        if optimCfg.Key in ("Lamb", "FusedLAMB") and self._baseLr * train.TotalStep < 2.0:
+            logger.warning(
+                "optimizer %s with lr*totalStep = %.3g < 2: LAMB's trust ratio grows small-init "
+                "layers only ~e^(lr*steps) (x%.2f over this run); the logits head may stay at "
+                "uniform CE for the whole budget. Use Adam at this scale, raise lr, or extend "
+                "totalStep.", optimCfg.Key, self._baseLr * train.TotalStep,
+                float(np.exp(self._baseLr * train.TotalStep)))
+        self._optimizer = getOptimizer(optimCfg.Key, self._schedule, optimCfg.Params,
+                                       [p for p in self._model.parameters() if p.requires_grad])
+        self._stepFn = makeGenTrainStep(self._model, self._optimizer)
+        self._step = 0
+        self._generator = torch.Generator(device=self._device).manual_seed(seed + 1)
+        self._saver = Saver(train.SaveDir) if train.SaveDir else None
+        self._resumePath = self._saver.PreviousCkpt if self._saver else None
+        self._hooks = getAllHooks(train.Hooks)
+
+    @staticmethod
+    def loadCompressor(model, path):
+        """The frozen tokenizer's weights from a stage-1 checkpoint or export."""
+        flat = loadCompressorParams(path)
+        model.compressor.load_state_dict(_applyMap(neonMap(halvingOf(model.size)), flat),
+                                         strict=True)
+        logger.info("loaded the frozen compressor from %s", path)
+
+    @property
+    def model(self):
+        return self._model
+
+    @property
+    def optimizer(self):
+        return self._optimizer
+
+    @property
+    def step(self) -> int:
+        return self._step
+
+    @property
+    def totalStep(self) -> int:
+        return int(self._config.Train.TotalStep)
+
+    def _runHooks(self, phase: str, step: int):
+        for hook in self._hooks[HookType(phase)]:
+            hook(self, step)
+
+    def variables(self) -> dict:
+        """The whole model's `params/...` and `coder/...` under the flax names."""
+        return toJaxGeneratorParams(self._model.state_dict(), **self._geometry)
+
+    def upload(self, array: np.ndarray) -> torch.Tensor:
+        host = torch.from_numpy(np.ascontiguousarray(array))
+        if self._device.type == "cuda":
+            return host.pin_memory().to(self._device, non_blocking=True)
+        return host
+
+    def trainStep(self, images: np.ndarray, labels: np.ndarray) -> dict:
+        """One step: uint8 NHWC images (augmented on the device) or float
+        NHWC in [-1, 1] taken as they are, and int class ids."""
+        images = np.asarray(images)
+        x = self.upload(images if images.dtype == np.uint8
+                        else images.astype(np.float32, copy=False))
+        y = self.upload(np.asarray(labels, np.int64))
+        with exactFp32():
+            if x.dtype == torch.uint8:
+                x = trainingTransform(x, augmentDraws(self._generator, x.shape[0]), gen=True)
+            else:
+                x = x.permute(0, 3, 1, 2)
+            metrics = self._stepFn(x, y)
+        self._step += 1
+        return metrics
+
+    # ------------------------------------------------------------ checkpoint
+    def checkpoint(self) -> dict:
+        return {"step": np.asarray(self._step, np.int32), **self.variables(),
+                **self._layout.leaves(self._optimizer, self._model.state_dict()),
+                "rng": np.asarray([0, (SEED + self._step) & 0xFFFFFFFF], np.uint32),
+                "torch/rng": self._generator.get_state().numpy()}
+
+    def save(self):
+        if self._saver is not None:
+            self._saver.save(self.checkpoint(), {"config": self._config.serialize()})
+
+    def close(self):
+        """Release the save directory's lock."""
+        if self._saver is not None:
+            self._saver.close()
+
+    def tryResume(self) -> bool:
+        """Resume from the checkpoint the Saver rotated away, if any: the
+        port's or the JAX package's."""
+        path = self._resumePath
+        if path is None or not Path(path).exists():
+            return False
+        flat, _ = Saver.load(path)
+        self._model.load_state_dict(_applyMap(generatorMap(**self._geometry), {
+            k: v for k, v in flat.items() if k.startswith(("params/", "coder/"))}), strict=True)
+        self._layout.load(self._optimizer, self._model.state_dict(), flat)
+        self._step = int(flat["step"])
+        restoreGenerator(self._generator, flat)
+        logger.info("Resumed from %s at step %d", path, self._step)
+        return True
+
+    # ----------------------------------------------------------------- train
+    def train(self, loaderFn: Callable[[], Iterable], onStep: Optional[Callable] = None):
+        train = self._config.Train
+        total = train.TotalStep
+        saveFreq = max(train.ValFreq // 10, 1)
+        envSave = os.environ.get("MCQUIC_SAVE_FREQ")
+        if envSave:
+            saveFreq = min(saveFreq, max(int(envSave), 1))
+        step = self._step
+        lastLog, badLogs = time.time(), 0
+        try:
+            self._runHooks("beforeRun", step)
+            while step < total:
+                self._runHooks("epochStart", step)
+                for images, labels in loaderFn():
+                    self._runHooks("stepStart", step)
+                    metrics = self.trainStep(images, labels)
+                    step = self._step
+                    self._runHooks("stepFinish", step)
+                    if step % 100 == 0:
+                        m = {k: float(v) for k, v in metrics.items()}
+                        if not math.isfinite(m["loss"]):
+                            if m["skipped"] >= 1 and badLogs < 2:
+                                badLogs += 1
+                                logger.warning("step %d: non-finite loss, update skipped by the "
+                                               "step guard (%d consecutive)", step, badLogs)
+                                lastLog = time.time()
+                                continue
+                            raise RuntimeError(f"Loss is NaN/Inf at step {step}: {m}")
+                        badLogs = 0
+                        m["stepsPerSec"] = 100 / (time.time() - lastLog)
+                        lastLog = time.time()
+                        logger.info("step %d: %s", step, m)
+                        if onStep is not None:
+                            onStep(step, m)
+                    if step % saveFreq == 0:
+                        self.save()
+                    if step >= total:
+                        break
+                self._runHooks("epochFinish", step)
+            self.save()
+            self._runHooks("afterRun", step)
+        finally:
+            self.close()
+        return self

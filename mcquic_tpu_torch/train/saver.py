@@ -9,7 +9,8 @@ process, keeps two trainers from rotating and writing each other's files.
 
 A checkpoint is a flat npz of '/'-joined keys, the format of the JAX
 package's `saveTree`, so `mcquic_tpu.train.saver.loadTree` reads the port's
-checkpoints and this package reads the JAX package's (`readExport`).
+checkpoints and this package reads the JAX package's (`readExport`);
+`OptaxLayout` writes and reads the optimizer's state as optax's leaves.
 """
 import fcntl
 import os
@@ -21,9 +22,11 @@ from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 import mcquic_tpu_torch
-from mcquic_tpu_torch.utils.convert import readExport, writeExport
+from mcquic_tpu_torch.train.optim import Adam
+from mcquic_tpu_torch.utils.convert import _applyMap, _invertMap, readExport, writeExport
 
 
 class Saver:
@@ -143,3 +146,63 @@ def saveTree(path, flat: Dict[str, np.ndarray], meta: Optional[dict] = None) -> 
     """A flat npz and its json sidecar (`saver.py:40-56`), e.g. the best
     checkpoint."""
     return writeExport(path, flat, dict(meta or {}))
+
+
+def _flaxOrder(key: str) -> tuple:
+    return tuple(key.split("/"))
+
+
+class OptaxLayout:
+    """The optimizer's state as optax's leaves, for checkpoints in the JAX
+    package's layout: [count, mu..., nu..., count] for the Adam family,
+    [trace..., count] or [count] for SGD, each moment list in the order of
+    the flax leaves (`jax.tree_util` sorts dict keys at every level). `mp`
+    is the model's name map (`utils/convert.py::_Map`); `names` are the
+    optimizer's parameters' state-dict keys, in its order. A flax leaf that
+    stacks several torch parameters (Neon's temperatures) is one moment
+    leaf; frozen parameters have none (`optax.masked`)."""
+
+    def __init__(self, mp, names):
+        self.mp, self.names = mp, list(names)
+        self.keys = sorted({mp.entries[n][0] for n in self.names}, key=_flaxOrder)
+
+    def leaves(self, optimizer, stateDict: dict) -> Dict[str, np.ndarray]:
+        def moments(tensors):
+            flat = _invertMap(self.mp, {**stateDict, **dict(zip(self.names, tensors))})
+            return [flat[k].astype(np.float32) for k in self.keys]
+
+        count = np.asarray(optimizer.count, np.int32)
+        state = optimizer.state
+        if isinstance(optimizer, Adam):
+            out = [count, *moments(state["mu"]), *moments(state["nu"]), count]
+        else:
+            out = [*(moments(state["trace"]) if "trace" in state else []), count]
+        return {f"optState/{i:05d}": leaf for i, leaf in enumerate(out)}
+
+    def load(self, optimizer, stateDict: dict, flat: dict):
+        """The inverse of `leaves`, from the port's or the JAX package's
+        checkpoint (`flat`); refuses a checkpoint of another layout."""
+        leaves = [flat[k] for k in sorted(k for k in flat if k.startswith("optState/"))]
+        slots, n = list(optimizer.state), len(self.keys)
+        adam = isinstance(optimizer, Adam)
+        if len(leaves) != (2 * n + 2 if adam else len(slots) * n + 1):
+            raise ValueError(f"optimizer state layout changed ({len(leaves)} leaves for {n} "
+                             f"parameters); cannot resume")
+        variables = _invertMap(self.mp, stateDict)
+        body = leaves[1:-1] if adam else leaves[:-1]
+        for s, slot in enumerate(slots):
+            tensors = _applyMap(self.mp, {**variables, **dict(zip(self.keys, body[s * n:(s + 1) * n]))})
+            with torch.no_grad():
+                for name, t in zip(self.names, optimizer.state[slot]):
+                    t.copy_(tensors[name])
+        optimizer.count = int(leaves[-1])
+
+
+def restoreGenerator(generator, flat: dict):
+    """A trainer's torch generator from a checkpoint: the port's saved state
+    (`torch/rng`), or seeded from a JAX checkpoint's `rng` key."""
+    if "torch/rng" in flat:
+        generator.set_state(torch.from_numpy(flat["torch/rng"]))
+    elif "rng" in flat:
+        key = np.asarray(flat["rng"]).astype(np.uint64)
+        generator.manual_seed(int((key[0] << np.uint64(32)) | key[1]))

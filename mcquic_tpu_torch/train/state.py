@@ -14,6 +14,7 @@ from typing import Callable, List, Optional
 
 import torch
 
+from mcquic_tpu_torch.models.quantizer import ResidualBackwardQuantizer
 from mcquic_tpu_torch.ops.vq import Draw, reassignCodebook
 
 
@@ -65,14 +66,32 @@ def makeTrainStep(model, optimizer, distortionFn: Callable, lpipsFn: Optional[Ca
     return step
 
 
+def sharesCodebook(model) -> bool:
+    """True for Neon, whose levels share one codebook."""
+    return isinstance(model._quantizer, ResidualBackwardQuantizer)
+
+
+def reassignShapes(model) -> List[tuple]:
+    """The shapes of the uniforms `refreshCodebooks` takes."""
+    frequencies = model._quantizer.frequencies()
+    return [tuple(frequencies[0].shape)] if sharesCodebook(model) else \
+        [tuple(f.shape) for f in frequencies]
+
+
 @torch.no_grad()
 def refreshCodebooks(model, uniforms: List[torch.Tensor]) -> torch.Tensor:
-    """Dead-codeword reassignment of every level's codebook from its
-    normalized `freqEMA` (`state.py:93-128`, per-level branch); `uniforms`
-    holds one [m, k] draw per level. Each codebook is written in place
-    (`copy_`, which moves its version counter). Returns the mean proportion
-    of codewords moved."""
+    """Dead-codeword reassignment (`state.py:93-128`). Per-level codebooks
+    (v1): each level's from its normalized `freqEMA`, one [m, k] draw per
+    level. The shared codebook (Neon): each level's frequencies normalized,
+    averaged over the levels, and one reassignment of the one codebook, one
+    [1, k] draw. A codebook is written in place (`copy_`, which moves its
+    version counter). Returns the mean proportion of codewords moved."""
     quantizer = model._quantizer
+    if sharesCodebook(model):
+        merged = torch.stack([f / f.sum(-1, keepdim=True) for f in quantizer.frequencies()]).mean(0)
+        new, prop = reassignCodebook(quantizer.codebook, merged, uniforms[0])
+        quantizer.codebook.copy_(new)
+        return prop
     props = []
     for i, (freq, u) in enumerate(zip(quantizer.frequencies(), uniforms)):
         codebook = quantizer.codebook(i)
@@ -84,7 +103,8 @@ def refreshCodebooks(model, uniforms: List[torch.Tensor]) -> torch.Tensor:
 
 def codeUsage(model, eps: float = 1e-6) -> float:
     """The mean over levels of the fraction of codewords whose normalized
-    frequency exceeds eps (`state.py:131`)."""
+    frequency exceeds eps (`state.py:131`; Neon's levels all have k
+    codewords, so this is the mean over its stacked [L, 1, k] table)."""
     used = [((f / f.sum(-1, keepdim=True)) > eps).float().mean()
             for f in model._quantizer.frequencies()]
     return float(torch.stack(used).mean())

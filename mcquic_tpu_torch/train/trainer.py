@@ -1,5 +1,6 @@
-"""Stage-1 training of the v1 Compressor on one card (counterpart of
-`mcquic_tpu/train/trainer.py`, reference `mcquic/train/trainer.py`):
+"""Stage-1 training of the v1 Compressor or the Neon tokenizer on one card
+(counterpart of `mcquic_tpu/train/trainer.py`, reference
+`mcquic/train/trainer.py`):
   * the step of `train/state.py`: loss 0.5 distortion + 0.5 mse + 2 lpips,
     the gradient's global norm clipped at 4.0, a non-finite step skipped
     whole, and the run stopped on persistent skips;
@@ -9,21 +10,28 @@
   * the learning rate of the world rule (`config.py::Train.scaledOptim`)
     at one card.
 
+A config whose model carries a `size` pyramid trains Neon, whatever its key
+says (`resolveStage1Model`); its input edge is `size[0] * 16` unless
+`cropSize` is set, the v1 Compressor's 512.
+
 Training runs in fp32 with TF32 off (`utils.exactFp32`), the numerics of
 the codec's paths. The initial weights come from a CPU generator seeded
 with SEED (`models/compressor.py::initialize`), so one seed gives one start
 on every device; the sampling and augmentation draw from a generator on the
 training device seeded with SEED + 1.
 
-LPIPS is not ported yet (ROADMAP): its VGG16 backbone is not in the repo
-either, and the JAX trainer then trains without the term too
-(`mcquic_tpu/loss/lpips.py:162-192`), which is what this trainer does.
+The perceptual term is `loss/lpips.py::makeDefaultLpipsFn`, as the JAX
+trainer assembles it (`mcquic_tpu/train/trainer.py:72-82`): the VGG16
+backbone from MCQUIC_VGG16_WEIGHTS, the proxy under MCQUIC_LPIPS_PROXY=1,
+or no term (with one loud warning) when neither is there; `lpipsFn=False`
+opts out.
 
 A checkpoint is the JAX package's layout: `step`, `params/...` and
-`coder/...` under the flax names (`utils/convert.py::toJaxParams`) and
-`optState/NNNNN`, optax's state leaves in its order, so the JAX package
-reads the port's checkpoints (`train/saver.py::loadTree`,
-`validate/cli.py::loadAnyCheckpoint`) and the port resumes the JAX
+`coder/...` under the flax names (`utils/convert.py::toJaxParams`),
+`optState/NNNNN`, optax's state leaves in its order (`saver.py::OptaxLayout`),
+and `rng`, so the JAX package resumes the port's checkpoints
+(`Trainer.tryResume`) and reads them (`train/saver.py::loadTree`,
+`validate/cli.py::loadAnyCheckpoint`), and the port resumes the JAX
 package's. The torch generator's state is kept under `torch/rng`; a JAX
 checkpoint's `rng` key seeds the generator instead.
 """
@@ -33,7 +41,7 @@ import os
 import signal
 import time
 from pathlib import Path
-from typing import Callable, Iterable, List, Optional
+from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
@@ -42,18 +50,19 @@ import mcquic_tpu_torch
 from mcquic_tpu_torch.config import Config
 from mcquic_tpu_torch.data.augment import augmentDraws, trainingTransform
 from mcquic_tpu_torch.loss import MsSSIM, PSNR
-from mcquic_tpu_torch.models.compressor import Compressor, initialize
+from mcquic_tpu_torch.loss.lpips import makeDefaultLpipsFn
+from mcquic_tpu_torch.models.compressor import Neon, buildModel, initialize
 from mcquic_tpu_torch.ops.vq import draws
 from mcquic_tpu_torch.train.hooks import HookType, getAllHooks
 from mcquic_tpu_torch.train.logging import MetricsLogger
 from mcquic_tpu_torch.train.lrSchedulers import checkScheduleCoversBudget, getSchedule
-from mcquic_tpu_torch.train.optim import Adam, getOptimizer
-from mcquic_tpu_torch.train.saver import Saver, saveTree
-from mcquic_tpu_torch.train.state import (codeUsage, makeTrainStep, refreshCodebooks,
-                                          trainableParameters)
+from mcquic_tpu_torch.train.optim import getOptimizer
+from mcquic_tpu_torch.train.saver import OptaxLayout, Saver, restoreGenerator, saveTree
+from mcquic_tpu_torch.train.state import (codeUsage, makeTrainStep, reassignShapes,
+                                          refreshCodebooks, trainableParameters)
 from mcquic_tpu_torch.utils import exactFp32, resolveDevice
-from mcquic_tpu_torch.utils.convert import (compressorMap, modelGeometry, stateDictOf,
-                                            toJaxParams)
+from mcquic_tpu_torch.utils.convert import (compressorMap, halvingOf, modelGeometry, neonMap,
+                                            stateDictOf, toJaxParams)
 
 logger = logging.getLogger("mcquic_tpu_torch.train")
 
@@ -63,27 +72,39 @@ DISTORTIONS = {"MsSSIM": MsSSIM, "PSNR": PSNR}
 
 def resolveStage1Model(config: Config):
     """(model key, constructor kwargs) of a stage-1 config, resolved as
-    `mcquic_tpu/train/trainer.py:398-434` resolves them; a `size` pyramid
-    means Neon, whose training is not ported yet."""
+    `mcquic_tpu/train/trainer.py:398-434` resolves them: a `size` pyramid
+    means Neon whatever the key says, and a list-valued k is read at its
+    first entry; otherwise the v1 Compressor, a uniform list-valued m read
+    as its int."""
     geometry = modelGeometry({"config": config.serialize()})
+    return ("Neon" if "size" in geometry else "Compressor"), geometry
+
+
+def modelMap(geometry: dict):
+    """The stage-1 model's name map: Neon's or the v1 Compressor's."""
     if "size" in geometry:
-        raise NotImplementedError("Neon (a `size` pyramid) trains in the JAX package only; its "
-                                  "training is ROADMAP A3 of this package")
-    return "Compressor", geometry
+        return neonMap(halvingOf(geometry["size"]))
+    return compressorMap(len(geometry["k"]))
+
+
+def geometryOf(model) -> dict:
+    if isinstance(model, Neon):
+        return {"channel": model.channel, "k": model.k, "size": list(model.size)}
+    return {"channel": model.channel, "m": model.m, "k": list(model.k)}
 
 
 class Trainer:
-    def __init__(self, config: Config, model: Compressor = None, device="cuda",
-                 inputShape=None, seed: int = SEED):
+    def __init__(self, config: Config, model=None, device="cuda", inputShape=None,
+                 seed: int = SEED, lpipsFn=None):
         self._config = config
         train = config.Train
         self._device = resolveDevice(device)
         if model is None:
             _, params = resolveStage1Model(config)
-            model = initialize(Compressor(**params), torch.Generator().manual_seed(seed))
-        self._geometry = {"channel": model.channel, "m": model.m, "k": list(model.k)}
+            model = initialize(buildModel(params), torch.Generator().manual_seed(seed))
+        self._geometry = geometryOf(model)
         self._model = model.to(self._device).train()
-        edge = train.CropSize or 512
+        edge = train.CropSize or (int(model.size[0]) * 16 if isinstance(model, Neon) else 512)
         self._inputShape = tuple(inputShape or (edge, edge))
 
         optimCfg = train.scaledOptim(1)
@@ -92,11 +113,16 @@ class Trainer:
         self._names = [name for name, p in self._model.named_parameters() if p.requires_grad]
         self._optimizer = getOptimizer(optimCfg.Key, self._schedule, optimCfg.Params,
                                        trainableParameters(self._model))
+        self._layout = OptaxLayout(modelMap(self._geometry), self._names)
         if train.Target not in DISTORTIONS:
             raise KeyError(f"unknown target {train.Target!r}; known: {sorted(DISTORTIONS)}")
-        logger.warning("LPIPS is not ported: the 2x-weighted perceptual term trains as zero, as "
-                       "the JAX trainer's does without its VGG16 backbone")
-        self._stepFn = makeTrainStep(self._model, self._optimizer, DISTORTIONS[train.Target]())
+        if lpipsFn is None:
+            lpipsFn = makeDefaultLpipsFn(self._device)
+        elif lpipsFn is False:
+            lpipsFn = None
+        self._lpipsFn = lpipsFn
+        self._stepFn = makeTrainStep(self._model, self._optimizer, DISTORTIONS[train.Target](),
+                                     lpipsFn)
         self._step = 0
         self._generator = torch.Generator(device=self._device).manual_seed(seed + 1)
 
@@ -109,7 +135,7 @@ class Trainer:
 
     # ----------------------------------------------------------------- state
     @property
-    def model(self) -> Compressor:
+    def model(self):
         return self._model
 
     @property
@@ -136,53 +162,6 @@ class Trainer:
         """The model's `params/...` and `coder/...` under the flax names."""
         return toJaxParams(self._model.state_dict(), self._geometry)
 
-    def _optaxOrder(self) -> List[int]:
-        """Indices of the trainable parameters in the order of their flax
-        leaves (`jax.tree_util` sorts dict keys at every level)."""
-        keys = [tuple(key.split("/")) for key in self._flaxKeys()]
-        return sorted(range(len(keys)), key=keys.__getitem__)
-
-    def _flaxKeys(self) -> List[str]:
-        entries = compressorMap(len(self._geometry["k"])).entries
-        return [entries[name][0] for name in self._names]
-
-    def _optState(self) -> dict:
-        """The optimizer's state as optax's leaves: [count, mu..., nu...,
-        count] for the Adam family, [trace..., count] or [count] for SGD."""
-        order, keys = self._optaxOrder(), self._flaxKeys()
-
-        def leaves(tensors):
-            flat = toJaxParams({**self._model.state_dict(), **dict(zip(self._names, tensors))},
-                               self._geometry)
-            return [flat[keys[i]].astype(np.float32) for i in order]
-
-        count = np.asarray(self._optimizer.count, np.int32)
-        state = self._optimizer.state
-        if isinstance(self._optimizer, Adam):
-            out = [count, *leaves(state["mu"]), *leaves(state["nu"]), count]
-        else:
-            out = [*(leaves(state["trace"]) if "trace" in state else []), count]
-        return {f"optState/{i:05d}": leaf for i, leaf in enumerate(out)}
-
-    def _loadOptState(self, flat: dict):
-        """The inverse of `_optState`, for the port's and the JAX package's
-        checkpoints."""
-        leaves = [flat[k] for k in sorted(k for k in flat if k.startswith("optState/"))]
-        slots, n = list(self._optimizer.state), len(self._names)
-        adam = isinstance(self._optimizer, Adam)
-        if len(leaves) != (2 * n + 2 if adam else len(slots) * n + 1):
-            raise ValueError(f"optimizer state layout changed ({len(leaves)} leaves for {n} "
-                             f"parameters); cannot resume")
-        order, keys = self._optaxOrder(), self._flaxKeys()
-        body = leaves[1:-1] if adam else leaves[:-1]
-        for s, slot in enumerate(slots):
-            moments = {keys[i]: body[s * n + j] for j, i in enumerate(order)}
-            tensors = stateDictOf({**self.variables(), **moments}, self._geometry)
-            with torch.no_grad():
-                for name, t in zip(self._names, self._optimizer.state[slot]):
-                    t.copy_(tensors[name])
-        self._optimizer.count = int(leaves[-1])
-
     # ---------------------------------------------------------------- resume
     def tryResume(self) -> bool:
         """Resume from the checkpoint the Saver rotated away, if any: the
@@ -194,18 +173,18 @@ class Trainer:
         self._model.load_state_dict(
             stateDictOf({k: v for k, v in flat.items() if k.startswith(("params/", "coder/"))},
                         self._geometry), strict=True)
-        self._loadOptState(flat)
+        self._layout.load(self._optimizer, self._model.state_dict(), flat)
         self._step = int(flat["step"])
-        if "torch/rng" in flat:
-            self._generator.set_state(torch.from_numpy(flat["torch/rng"]))
-        elif "rng" in flat:
-            key = np.asarray(flat["rng"]).astype(np.uint64)
-            self._generator.manual_seed(int((key[0] << np.uint64(32)) | key[1]))
+        restoreGenerator(self._generator, flat)
         logger.info("Resumed from %s at step %d", path, self._step)
         return True
 
     def checkpoint(self) -> dict:
-        return {"step": np.asarray(self._step, np.int32), **self.variables(), **self._optState(),
+        """The JAX layout; `rng` is a key the JAX package resumes with, the
+        port resumes its own generator from `torch/rng`."""
+        return {"step": np.asarray(self._step, np.int32), **self.variables(),
+                **self._layout.leaves(self._optimizer, self._model.state_dict()),
+                "rng": np.asarray([0, (SEED + 1 + self._step) & 0xFFFFFFFF], np.uint32),
                 "torch/rng": self._generator.get_state().numpy()}
 
     def save(self):
@@ -336,8 +315,8 @@ class Trainer:
     def reassignCodebooks(self) -> float:
         """Dead-codeword reassignment of every level, uniforms from the
         trainer's generator."""
-        uniforms = [torch.rand(tuple(f.shape), generator=self._generator, device=self._device)
-                    for f in self._model._quantizer.frequencies()]
+        uniforms = [torch.rand(shape, generator=self._generator, device=self._device)
+                    for shape in reassignShapes(self._model)]
         return float(refreshCodebooks(self._model, uniforms))
 
     def codeUsage(self) -> float:

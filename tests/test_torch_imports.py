@@ -7,7 +7,8 @@ so a subprocess blocks them (and the JAX package itself) with a
 through `python -m mcquic_tpu_torch --device cpu`, a tiny generator's
 sampling through `python -m mcquic_tpu_torch generate --device cpu`, and
 `train -h` and a 2-step tiny training run through
-`python -m mcquic_tpu_torch train --device cpu`.
+`python -m mcquic_tpu_torch train --device cpu`, and 2-step runs of a tiny
+Neon (`train`) and of a tiny generator over it (`train -G`).
 """
 import ast
 import subprocess
@@ -131,7 +132,7 @@ def test_train_runs_without_the_jax_package_and_its_dependencies(tmp_path):
     the `train`, `config` and `data` modules are among those imported."""
     from test_torch_train_cli import tinyConfig
     config = tinyConfig(tmp_path)
-    runs = [["train", "-h"], ["train", "-G", str(config), "--device", "cpu"]]
+    runs = [["train", "-h"], ["train", str(config), "--device", "cpu"]]
     script = GUARD.format(blocked=BLOCKED, root=str(ROOT), runs=runs)
     proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, capture_output=True,
                           text=True, timeout=300)
@@ -145,6 +146,32 @@ def test_train_runs_without_the_jax_package_and_its_dependencies(tmp_path):
     assert {"mcquic_tpu_torch.config", "mcquic_tpu_torch.train.trainer", "mcquic_tpu_torch.train.cli",
             "mcquic_tpu_torch.data.augment", "mcquic_tpu_torch.data.dataset",
             "mcquic_tpu_torch.utils.yamlsubset"} <= names
+
+
+def test_v2_training_runs_without_the_jax_package_and_its_dependencies(tmp_path):
+    """Two steps of a tiny Neon (`train CONFIG`, LPIPS warned off, the shared
+    reassign, validation, export), then of a tiny generator over it
+    (`train -G CONFIG`, class folders, the Neon checkpoint as `loadFrom`);
+    the `loss.lpips`, `train.genTrainer`, `train.valueTuners` and
+    `data.imagenet_classes` modules are among those imported. Two torch
+    threads, so that the subprocess does not spin against the test workers."""
+    import os
+    from test_torch_train_cli import tinyGenConfig, tinyNeonConfig
+    neon = tinyNeonConfig(tmp_path)
+    gen = tinyGenConfig(tmp_path, tmp_path / "neon" / "latest" / "saved.ckpt.npz")
+    runs = [["train", str(neon), "--device", "cpu"], ["train", "-G", str(gen), "--device", "cpu"]]
+    script = GUARD.format(blocked=BLOCKED, root=str(ROOT), runs=runs)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, capture_output=True,
+                          text=True, timeout=300, env=dict(os.environ, OMP_NUM_THREADS="2"))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "LPIPS DISABLED" in proc.stdout and "codebook reassigned" in proc.stderr
+    assert list((tmp_path / "neon").glob("export_*.mcquic.npz"))
+    assert (tmp_path / "gen" / "latest" / "saved.ckpt.npz").exists()
+    import pkgutil
+    import mcquic_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(mcquic_tpu_torch.__path__, "mcquic_tpu_torch.")}
+    assert {"mcquic_tpu_torch.loss.lpips", "mcquic_tpu_torch.train.genTrainer",
+            "mcquic_tpu_torch.train.valueTuners", "mcquic_tpu_torch.data.imagenet_classes"} <= names
 
 
 def _portFiles():

@@ -623,3 +623,112 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
         cpu, card = float(metrics["cpu"][key]), float(metrics["cuda"][key])
         assert abs(card - cpu) <= 1e-4 * abs(cpu), (key, card, cpu)
     assert metrics["cuda"]["skipped"] == metrics["cpu"]["skipped"] == 0.0
+
+
+def _recordedDraw(uniforms):
+    """A draw that makes CPU uniforms on first use and replays them after."""
+    def draw(device):
+        queue = iter(uniforms)
+
+        def fn(shape):
+            u = next(queue, None)
+            if u is None:
+                u = torch.rand(shape, generator=torch.Generator().manual_seed(len(uniforms)))
+                uniforms.append(u)
+            return u.to(device)
+        return fn
+    return draw
+
+
+def _neon(device, channel=16, k=64, size=(2, 1, 1), useRemat=True):
+    from mcquic_tpu_torch.models.compressor import Neon, initialize
+    model = initialize(Neon(channel, k, size, useRemat), torch.Generator().manual_seed(0))
+    return model.to(device).train()
+
+
+def test_k1_codes_match_plain_after_a_shared_codebook_reassign(cuda):
+    """Neon's levels share one codebook; its reassignment writes it with
+    copy_, which K1's norm cache must see."""
+    from mcquic_tpu_torch.train.state import refreshCodebooks
+    model = _neon(cuda, k=256)
+    codebook = model._quantizer.codebook
+    tokens = torch.randn((1, 900, 8), device=cuda, generator=torch.Generator(cuda).manual_seed(2))
+    with exactFp32(), torch.no_grad():
+        assert torch.equal(vqNearest(tokens, codebook.detach()), vqEncodePlain(tokens, codebook.detach()))
+        for freq in model._quantizer.frequencies():
+            freq[:, ::4] = 0.0
+        prop = refreshCodebooks(model, [torch.rand((1, 256), device=cuda)])
+        assert float(prop) > 0 and model._quantizer.codebook is codebook
+        assert torch.equal(vqNearest(tokens, codebook.detach()), vqEncodePlain(tokens, codebook.detach()))
+
+
+def test_neon_train_step_on_the_card_matches_the_cpu_with_and_without_remat(cuda):
+    """One Neon step from the same weights, batch and uniforms: loss and
+    gradient norm on the card within 1e-4 of the CPU's; remat on the card
+    gives the plain pass's gradients within 1e-5."""
+    from mcquic_tpu_torch.loss import PSNR
+    from mcquic_tpu_torch.train.optim import Optimizer
+    from mcquic_tpu_torch.train.state import makeTrainStep, trainableParameters
+
+    class Keep(Optimizer):
+        def step(self, g):
+            self.kept = [t.clone() for t in g]
+
+    x = torch.rand((2, 3, 32, 32), generator=torch.Generator().manual_seed(1)) * 2 - 1
+    draw = _recordedDraw([])
+    runs = {}
+    for label, device, remat in (("cpu", torch.device("cpu"), True), ("card", cuda, True),
+                                 ("card plain", cuda, False)):
+        model = _neon(device, useRemat=remat)
+        keep = Keep(trainableParameters(model), lambda count: 0.0)
+        with exactFp32():
+            runs[label] = (makeTrainStep(model, keep, PSNR())(x.to(device), draw(device)), keep.kept)
+    for key in ("loss", "gradNorm"):
+        cpu, card = float(runs["cpu"][0][key]), float(runs["card"][0][key])
+        assert abs(card - cpu) <= 1e-4 * abs(cpu), (key, card, cpu)
+    for a, b in zip(runs["card"][1], runs["card plain"][1]):
+        assert (a - b).abs().max().item() <= 1e-5 * max(1.0, b.abs().max().item())
+
+
+def test_gen_train_step_launches_k1_per_level_and_no_k3(cuda):
+    """The generator's step on the card: the frozen encode runs K1 once per
+    level, the transformer attends through the plain version (no K3), and
+    the loss equals the CPU's within 1e-4."""
+    from mcquic_tpu_torch.models.generator import GeneratorV3SelfAttention
+    from mcquic_tpu_torch.train.genTrainer import initializeGenerator, makeGenTrainStep
+    from mcquic_tpu_torch.train.optim import getOptimizer
+    geometry = dict(channel=8, k=16, size=[2, 1, 1], hiddenSize=32, depth=2, nHeads=4,
+                    numClasses=10)
+    cpuModel = initializeGenerator(GeneratorV3SelfAttention(**geometry),
+                                   torch.Generator().manual_seed(0))
+    with torch.no_grad():                      # open the adaLN gates so attention counts
+        for name, p in cpuModel.named_parameters():
+            if "adaLN" in name or "gate" in name:
+                p.copy_(torch.randn(p.shape, generator=torch.Generator().manual_seed(7)) * 0.1)
+    cardModel = GeneratorV3SelfAttention(**geometry)
+    cardModel.load_state_dict(cpuModel.state_dict())
+    x = torch.rand((3, 3, 32, 32), generator=torch.Generator().manual_seed(1)) * 2 - 1
+    y = torch.tensor([1, 4, -1])
+    metrics = {}
+    for model, device in ((cpuModel, torch.device("cpu")), (cardModel.to(cuda), cuda)):
+        model.compressor.requires_grad_(False)
+        params = [p for p in model.parameters() if p.requires_grad]
+        step = makeGenTrainStep(model.train(), getOptimizer("Adam", lambda c: 1e-4, {}, params))
+        k1, k3 = vqNearest.launches, flashAttention.launches
+        with exactFp32():
+            metrics[device.type] = step(x.to(device), y.to(device))
+        launched = (vqNearest.launches - k1, flashAttention.launches - k3)
+    assert launched == (3, 0)
+    for key in ("loss", "gradNorm", "ceLv02"):
+        cpu, card = float(metrics["cpu"][key]), float(metrics["cuda"][key])
+        assert abs(card - cpu) <= 1e-4 * abs(cpu), (key, card, cpu)
+
+
+def test_lpips_on_the_card_matches_the_cpu(cuda):
+    from mcquic_tpu_torch.loss.lpips import makeLpipsFn, proxyModule
+    x = torch.rand((2, 3, 64, 64), generator=torch.Generator().manual_seed(3)) * 2 - 1
+    y = (x + 0.2 * torch.randn(x.shape, generator=torch.Generator().manual_seed(4))).clamp(-1, 1)
+    cpu = float(makeLpipsFn(proxyModule())(y, x))
+    with exactFp32():
+        card = float(makeLpipsFn(proxyModule().to(cuda))(y.to(cuda), x.to(cuda)))
+    assert abs(card - cpu) <= 1e-4 * abs(cpu), (card, cpu)

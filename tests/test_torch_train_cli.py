@@ -9,9 +9,16 @@ m 2, k (16, 8) on 64x64 crops.
     the port: parameters, moments, count and step.
   * A port checkpoint resumes to the same step, parameters, moments and
     generator state.
-  * `python -m mcquic_tpu_torch train -G cfg.yaml --device cpu` runs 2 steps
+  * `python -m mcquic_tpu_torch train cfg.yaml --device cpu` runs 2 steps
     with the reassign hook and a validation, writes a checkpoint and an
     export, and the export compresses and restores through `--local`.
+  * Neon (`train CONFIG`, a `size` pyramid) and the generator over it
+    (`train -G CONFIG`, `loadFrom` the Neon checkpoint) train through the
+    CLI; their checkpoints hold the keys and shapes of the JAX trainers'
+    checkpoints for the same configs; the port's Neon checkpoint loads in
+    the JAX package's `loadCompressorParams` and resumes in its `Trainer`;
+    a JAX `GenTrainer` checkpoint resumes in the port and the port's in the
+    JAX `GenTrainer`; `generate` samples from the port's.
 """
 import subprocess
 import sys
@@ -167,7 +174,7 @@ def test_port_checkpoint_resumes_to_the_same_state(trained):
 
 def test_train_cli_writes_a_checkpoint_and_an_export_that_compresses(tmp_path):
     config = tinyConfig(tmp_path)
-    proc = subprocess.run([sys.executable, "-m", "mcquic_tpu_torch", "train", "-G", str(config),
+    proc = subprocess.run([sys.executable, "-m", "mcquic_tpu_torch", "train", str(config),
                            "--device", "cpu"], cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     export = Path(proc.stdout.strip().splitlines()[-1])
@@ -189,19 +196,31 @@ def test_train_cli_writes_a_checkpoint_and_an_export_that_compresses(tmp_path):
 
 
 def test_train_cli_refuses_what_the_port_cannot_train(tmp_path):
+    """GeneratorVAR (ROADMAP A7), a stage-2 config without -G, tar shards."""
     config = tinyConfig(tmp_path)
     text = config.read_text()
-    neon = tmp_path / "neon.yaml"
-    neon.write_text(text.replace("{channel: 8, m: 2, k: [16, 8]}",
-                                 "{channel: 8, k: 16, size: [4, 2, 2]}"))
+    var = tmp_path / "var.yaml"
+    var.write_text(text.replace("{key: Compressor, params: {channel: 8, m: 2, k: [16, 8]}}",
+                                "{key: GeneratorVAR, params: {channel: 8, k: 16, size: [2, 1, 1]}}"))
     shards = tmp_path / "shards.yaml"
     shards.write_text(text.replace(f"trainSet: {tmp_path / 'pngs'}",
                                    f"trainSet: {tmp_path / 'shards'}/*.tar.gz"))
     from mcquic_tpu_torch.train.cli import main
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        main(neon, device="cpu")
+    from mcquic_tpu_torch.train.genTrainer import constructGenerator
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        main(var, gen=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        constructGenerator("GeneratorVAR", {})
+    with pytest.raises(ValueError, match="-G/--gen"):
+        main(var, device="cpu")
     with pytest.raises(ValueError, match="tar shards"):
         main(shards, device="cpu")
+    genShards = tmp_path / "genShards.yaml"
+    genShards.write_text(shards.read_text().replace(
+        "{key: Compressor, params: {channel: 8, m: 2, k: [16, 8]}}",
+        "{key: GeneratorV3SelfAttention, params: {channel: 8, k: 16, size: [2, 1, 1]}}"))
+    with pytest.raises(ValueError, match="tar shards"):
+        main(genShards, gen=True, device="cpu")
 
 
 def test_saver_rotates_locks_and_caps_its_history(tmp_path):
@@ -225,3 +244,197 @@ def test_saver_rotates_locks_and_caps_its_history(tmp_path):
     assert int(Saver.load(third.PreviousCkpt)[0]["step"]) == 2
     assert len([d for d in tmp_path.iterdir() if d.is_dir() and d.name != "latest"]) == 1
     third.close()
+
+
+# ------------------------------------------------------------------ v2 family
+
+NEON = "{key: Neon, params: {channel: 8, k: 16, size: [16, 8, 4, 2, 2]}}"
+WNIDS = ["n01440764", "n02099601"]
+
+
+def _recipe(tmp: Path, name: str, model: str, trainSet: Path, hooks: str = "") -> Path:
+    config = tmp / f"{name}.yaml"
+    config.write_text(f"""model: {model}
+train:
+  totalStep: 2
+  batchSize: 2
+  epoch: 100
+  valFreq: 2
+  trainSet: {trainSet}
+  valSet: {trainSet}
+  saveDir: {tmp / name}
+  target: MsSSIM
+  optim: {{key: Adam, params: {{lr: 1.0e-4}}}}
+  schdr:
+    key: CosineAnnealingWarmupRestarts
+    params: {{first_cycle_steps: 10, warmup_steps: 1, lrScaleRatio: 0.001}}
+{hooks}  gpu: {{gpus: 1, vRam: -1, wantsMore: false}}
+""")
+    return config
+
+
+def tinyNeonConfig(tmp: Path) -> Path:
+    """Neon at channel 8, k 16, size [16, 8, 4, 2, 2] (256x256 input) on
+    three PNG crops, the reassign hook every step."""
+    pngs = tmp / "neon_pngs"
+    pngs.mkdir(exist_ok=True)
+    img = readPng(ROOT / "assets" / "photo_768x512.png")
+    for i in range(3):
+        writePng(pngs / f"{i}.png", img[i * 100:i * 100 + 300, i * 90:i * 90 + 300])
+    return _recipe(tmp, "neon", NEON, pngs,
+                   "  hooks:\n    - {key: CodebookReassign, params: {freq: 1}}\n")
+
+
+def tinyGenConfig(tmp: Path, loadFrom: Path) -> Path:
+    """The generator of .claude/skills/verify/SKILL.md (hidden 32, depth 1,
+    4 heads) over the tiny Neon, on two class folders of PNGs."""
+    img = readPng(ROOT / "assets" / "photo_768x512.png")
+    for j, wnid in enumerate(WNIDS):
+        folder = tmp / "classes" / wnid
+        folder.mkdir(parents=True, exist_ok=True)
+        for i in range(2):
+            writePng(folder / f"{i}.png", img[j * 150 + i * 40:j * 150 + i * 40 + 260,
+                                              i * 200:i * 200 + 300])
+    model = ("{key: GeneratorV3SelfAttention, params: {channel: 8, k: 16, size: [16, 8, 4, 2, 2], "
+             f"hiddenSize: 32, depth: 1, nHeads: 4, numClasses: 1000, loadFrom: {loadFrom}}}}}")
+    return _recipe(tmp, "gen", model, tmp / "classes")
+
+
+def _cli(*args):
+    """The train CLI on two torch threads, so that it does not spin against
+    the test workers."""
+    import os
+    proc = subprocess.run([sys.executable, "-m", "mcquic_tpu_torch", "train", *map(str, args),
+                           "--device", "cpu"], cwd=ROOT, capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, OMP_NUM_THREADS="2"))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return Path(proc.stdout.strip().splitlines()[-1])
+
+
+def _oneDeviceMesh():
+    from mcquic_tpu.parallel import makeMesh
+    return makeMesh(devices=jax.devices()[:1])
+
+
+def _shapes(path) -> dict:
+    from mcquic_tpu_torch.utils.convert import readExport
+    flat, _ = readExport(path)
+    return {k: v.shape for k, v in flat.items() if not k.startswith("torch/")}
+
+
+@pytest.fixture(scope="module")
+def v2(tmp_path_factory):
+    """Neon, then the generator over it, each 2 steps through the CLI."""
+    tmp = tmp_path_factory.mktemp("v2")
+    neonConfig = tinyNeonConfig(tmp)
+    export = _cli(neonConfig)
+    neonCkpt = tmp / "neon" / "latest" / "saved.ckpt.npz"
+    genConfig = tinyGenConfig(tmp, neonCkpt)
+    genCkpt = _cli("-G", genConfig)
+    return tmp, neonConfig, export, neonCkpt, genConfig, genCkpt
+
+
+def test_neon_checkpoint_is_the_jax_trainers_and_loads_there(v2, tmp_path):
+    from mcquic_tpu.config import Config as JaxConfig
+    from mcquic_tpu.train.genTrainer import loadCompressorParams
+    from mcquic_tpu.train.trainer import Trainer as JaxTrainer
+    _, neonConfig, export, neonCkpt, _, _ = v2
+    assert export.name.startswith("export_") and export.exists()
+    tree, meta = loadTree(neonCkpt)
+    assert int(tree["step"]) == 2 and meta["config"]["model"]["key"] == "Neon"
+    data = JaxConfig.load(str(neonConfig)).serialize()
+    data["train"]["saveDir"] = str(tmp_path / "jax")
+    jaxConfig = JaxConfig.deserialize(data)
+    jaxTrainer = JaxTrainer(jaxConfig, lpipsFn=False, mesh=_oneDeviceMesh())
+    jaxTrainer.save()
+    jaxTrainer.close()
+    jaxCkpt = tmp_path / "jax" / "latest" / "saved.ckpt.npz"
+    assert _shapes(neonCkpt) == _shapes(jaxCkpt)
+    # the JAX trainer's checkpoint resumes in the port, and is a tokenizer there
+    from mcquic_tpu_torch.train.genTrainer import loadCompressorParams as portLoadCompressor
+    from mcquic_tpu_torch.utils.convert import readExport
+    theirs, _ = readExport(jaxCkpt)
+    assert portLoadCompressor(jaxCkpt).keys() == {k for k in theirs
+                                                   if k.startswith(("params/", "coder/"))}
+    portTrainer = Trainer(Config.deserialize(data), device="cpu", lpipsFn=False)
+    try:
+        assert portTrainer.tryResume() and portTrainer.step == 0
+        mine = portTrainer.checkpoint()
+        for key, value in theirs.items():
+            if key.startswith(("params/", "coder/", "optState/")):
+                np.testing.assert_array_equal(mine[key], value, err_msg=key)
+    finally:
+        portTrainer.close()
+    params, coder = loadCompressorParams(neonCkpt)
+    flat = flattenTree({"params": params, "coder": coder})
+    from mcquic_tpu_torch.utils.convert import readExport
+    ours, _ = readExport(neonCkpt)
+    for key, value in flat.items():
+        np.testing.assert_array_equal(value, ours[key], err_msg=key)
+    # the JAX trainer resumes the port's checkpoint
+    import shutil
+    resumeDir = tmp_path / "jaxResume" / "latest"
+    resumeDir.mkdir(parents=True)
+    shutil.copy(neonCkpt, resumeDir / "saved.ckpt.npz")
+    shutil.copy(neonCkpt.with_suffix(".json"), resumeDir / "saved.ckpt.json")
+    data["train"]["saveDir"] = str(tmp_path / "jaxResume")
+    resumed = JaxTrainer(JaxConfig.deserialize(data), lpipsFn=False, mesh=_oneDeviceMesh())
+    try:
+        assert resumed.tryResume() and int(resumed.state.step) == 2
+        np.testing.assert_array_equal(np.asarray(resumed.state.params["_quantizer"]["codebook"]),
+                                      ours["params/_quantizer/codebook"])
+    finally:
+        resumed.close()
+
+
+def test_gen_checkpoint_is_the_jax_gen_trainers_both_ways_and_samples(v2, tmp_path):
+    from mcquic_tpu.config import Config as JaxConfig
+    from mcquic_tpu.train.genTrainer import GenTrainer as JaxGenTrainer
+    from mcquic_tpu_torch.train.genTrainer import GenTrainer
+    from mcquic_tpu_torch.utils.convert import readExport
+    tmp, _, _, neonCkpt, genConfig, genCkpt = v2
+    ours, meta = readExport(genCkpt)
+    assert int(ours["step"]) == 2 and meta["config"]["model"]["key"] == "GeneratorV3SelfAttention"
+    neon, _ = readExport(neonCkpt)
+    for key, value in neon.items():               # the tokenizer is the loaded one, untouched
+        if key.startswith(("params/", "coder/")):
+            np.testing.assert_array_equal(ours[key.replace("/", "/compressor/", 1)], value)
+    data = JaxConfig.load(str(genConfig)).serialize()
+    data["train"]["saveDir"] = str(tmp_path / "jax")
+    jaxConfig = JaxConfig.deserialize(data)
+    jaxTrainer = JaxGenTrainer(jaxConfig, mesh=_oneDeviceMesh())
+    jaxTrainer.save()
+    jaxTrainer.close()
+    jaxCkpt = tmp_path / "jax" / "latest" / "saved.ckpt.npz"
+    assert _shapes(genCkpt) == _shapes(jaxCkpt)
+    # the JAX checkpoint resumes in the port
+    trainer = GenTrainer(Config.deserialize(data), device="cpu")
+    try:
+        assert trainer.tryResume() and trainer.step == 0
+        theirs, _ = readExport(trainer._resumePath)
+        mine = trainer.checkpoint()
+        for key, value in theirs.items():
+            if key.startswith(("params/", "coder/", "optState/")):
+                np.testing.assert_array_equal(mine[key], value, err_msg=key)
+        assert trainer.trainStep(np.zeros((2, 256, 256, 3), np.uint8),
+                                 np.array([0, 1]))["skipped"] == 0.0
+    finally:
+        trainer.close()
+    # the port's checkpoint resumes in the JAX GenTrainer
+    import shutil
+    resumeDir = tmp_path / "jaxResume" / "latest"
+    resumeDir.mkdir(parents=True)
+    shutil.copy(genCkpt, resumeDir / "saved.ckpt.npz")
+    shutil.copy(genCkpt.with_suffix(".json"), resumeDir / "saved.ckpt.json")
+    data["train"]["saveDir"] = str(tmp_path / "jaxResume")
+    resumed = JaxGenTrainer(JaxConfig.deserialize(data), mesh=_oneDeviceMesh())
+    try:
+        assert resumed.tryResume() and int(resumed.state.step) == 2
+        np.testing.assert_array_equal(np.asarray(resumed.state.params["classEmbed"]),
+                                      ours["params/classEmbed"])
+    finally:
+        resumed.close()
+    from mcquic_tpu_torch.cli import main
+    assert main(["generate", "-c", "1,207", "--device", "cpu", str(genCkpt),
+                 str(tmp_path / "out")]) == 0
+    assert readPng(tmp_path / "out" / "class207_1.png").shape == (256, 256, 3)

@@ -4,7 +4,8 @@ fp64, at channel 8, m 2, k (16, 8), on two 64x64 crops of the photo.
 Both packages run the same numpy-seeded weights (the JAX package's own
 converter, then `fromJaxParams`). The JAX step (`train/state.py::makeTrainStep`)
 draws its drop and Gumbel uniforms with jax.random from its keys; the test
-records them and hands the same arrays to the port's `draw`. Held:
+records them, un-jitted (`test_torch_recording.recordUniforms`), and hands
+the same arrays to the port's `draw`. Held:
   * codes bit-identical;
   * xHat, logits and the updated freqEMA within TOL of their magnitude;
   * the loss, the gradient norm and the (clipped) gradient of every
@@ -24,7 +25,6 @@ import optax
 import pytest
 import torch
 
-import mcquic_tpu.models.quantizer as jaxQuantizer
 from mcquic_tpu.loss import PSNR as JaxPSNR
 from mcquic_tpu.models.compressor import Compressor as JaxCompressor
 from mcquic_tpu.train.state import TrainState, makeTrainStep as jaxTrainStep
@@ -33,6 +33,7 @@ from mcquic_tpu_torch.loss import PSNR
 from mcquic_tpu_torch.train.optim import Optimizer
 from mcquic_tpu_torch.train.state import makeTrainStep
 from mcquic_tpu_torch.utils.convert import compressorMap, toJaxParams
+from test_torch_recording import recordUniforms
 from test_torch_weights import flattenTree, jaxVariables, portModel, randomStateDict
 
 TINY = {"channel": 8, "m": 2, "k": [16, 8]}
@@ -47,49 +48,13 @@ def _assertClose(got, want, label="", tol=TOL):
     np.testing.assert_allclose(got, want, rtol=0, atol=tol * scale, err_msg=label)
 
 
-class Recorder:
-    """Wraps the JAX quantizer's randomDrop and gumbelSoftmax to keep the
-    uniforms each draws, in program order, also under jit (the slot is
-    fixed while tracing, the value arrives through a debug callback)."""
-
-    def __init__(self, monkeypatch):
-        self.uniforms = {}
-        drop, gumbel = jaxQuantizer.randomDrop, jaxQuantizer.gumbelSoftmax
-
-        def keep(u):
-            slot = len(self.uniforms)
-            self.uniforms[slot] = None
-            jax.debug.callback(lambda value: self.uniforms.__setitem__(slot, np.asarray(value)), u)
-
-        def recordDrop(key, logit, freqEMA):
-            keep(jax.random.uniform(key, logit.shape, jnp.float32))
-            return drop(key, logit, freqEMA)
-
-        def recordGumbel(key, logits, temperature=1.0, hard=True):
-            keep(jax.random.uniform(key, logits.shape, logits.dtype))
-            return gumbel(key, logits, temperature, hard)
-
-        monkeypatch.setattr(jaxQuantizer, "randomDrop", recordDrop)
-        monkeypatch.setattr(jaxQuantizer, "gumbelSoftmax", recordGumbel)
-
-    def draw(self, first: int = 0):
-        """The port's draw: the recorded arrays from slot `first` on, NHWMK -> NMHWK."""
-        queue = [self.uniforms[i] for i in sorted(self.uniforms) if i >= first]
-
-        def draw(shape):
-            u = torch.from_numpy(queue.pop(0).transpose(0, 3, 1, 2, 4).copy())
-            assert tuple(u.shape) == tuple(shape)
-            return u
-        return draw
-
-
 def _batch():
     img = readPng(PHOTO)
     crops = np.stack([img[100:164, 200:264], img[300:364, 500:564]])
     return (crops.astype(np.float64) / 255.0 - 0.5) * 2.0
 
 
-def _jaxStep(monkeypatch, distortion, stateDict):
+def _jaxStep(distortion, stateDict):
     """(recorder, forward outputs, the JAX step's metrics, its clipped grads)."""
     module = JaxCompressor(channel=TINY["channel"], m=TINY["m"], k=tuple(TINY["k"]),
                            dtype=jnp.float64)
@@ -98,19 +63,17 @@ def _jaxStep(monkeypatch, distortion, stateDict):
     # an optimizer whose state is the clipped gradient it was given
     tx = optax.GradientTransformation(lambda params: jax.tree_util.tree_map(jnp.zeros_like, params),
                                       lambda grads, state, params=None: (grads, grads))
-    recorder = Recorder(monkeypatch)
-    with jax.enable_x64():
+    with recordUniforms() as recorder, jax.enable_x64():
         state = TrainState.create(variables, tx, jax.random.PRNGKey(7))
         _, sub, _ = jax.random.split(state.rng, 3)
-        (xHat, _, codes, logits), mut = jax.jit(lambda v, x: module.apply(
-            v, x, train=True, rngs={"gumbel": sub}, mutable=["coder"]))(variables, batch)
+        (xHat, _, codes, logits), mut = module.apply(variables, batch, train=True,
+                                                     rngs={"gumbel": sub}, mutable=["coder"])
         forward = {"xHat": np.asarray(xHat), "codes": [np.asarray(c) for c in codes],
                    "logits": [np.asarray(l) for l in logits],
                    "freq": flattenTree(jax.device_get(mut["coder"]))}
         drawn = len(recorder.uniforms)
-        newState, metrics = jax.jit(jaxTrainStep(module, tx, distortion))(state, batch)
+        newState, metrics = jaxTrainStep(module, tx, distortion)(state, batch)
         grads = flattenTree(jax.device_get(newState.optState))
-        jax.effects_barrier()
     # the step drew the same uniforms again, from the same key
     assert len(recorder.uniforms) == 2 * drawn
     for i in range(drawn):
@@ -121,12 +84,8 @@ def _jaxStep(monkeypatch, distortion, stateDict):
 @pytest.fixture(scope="module")
 def run():
     jaxDistortion, distortion = JaxPSNR(), PSNR()
-    monkeypatch = pytest.MonkeyPatch()
-    try:
-        stateDict = randomStateDict(**TINY, seed=4)
-        recorder, batch, forward, metrics, grads = _jaxStep(monkeypatch, jaxDistortion, stateDict)
-    finally:
-        monkeypatch.undo()
+    stateDict = randomStateDict(**TINY, seed=4)
+    recorder, batch, forward, metrics, grads = _jaxStep(jaxDistortion, stateDict)
     model = portModel(stateDict, **TINY).train()
     x = torch.from_numpy(batch.transpose(0, 3, 1, 2).copy())
     with torch.no_grad():

@@ -10,9 +10,13 @@ ends:
 
   1. environment: torch / CUDA / nvcc versions, the card, its power limit;
   2. build: kernels K1 (csrc/vq_encode.cu), K1b (csrc/vq_grouped.cu), K2
-     (csrc/thin_head.cu) and K3 (csrc/flash_attention.cu) with nvcc and the
-     rANS runtime with g++, all started together; ptxas's registers and
-     spills of every kernel;
+     (csrc/thin_head.cu) and K3 (csrc/flash_attention.cu) with nvcc, the
+     rANS runtime and the JPEG codec (csrc/jpeg.cpp) with g++, all started
+     together; ptxas's registers and spills of every kernel; the JPEG
+     decoder against the fixture tests/golden/torch_jpeg/ (the SHA-256 of
+     PIL's decode of each file; the progressive file must raise
+     UnsupportedJpeg), and the codec's decode and encode rates on the host,
+     in megapixels per second, on the photo at q95;
   3. kernels against their plain versions on the card, fp32 with TF32 off,
      at the main paths' shapes, with two times each for the kernel, the
      plain version and one library call computing the same function: `ms`,
@@ -31,7 +35,12 @@ ends:
      held to the registered 0.1090 bpp / 25.15 dB, the codes and the restore
      to the CPU plain path on a crop, and the kernels' launch counts show
      that the path went through them;
-  5. the CLI round trip, `python -m mcquic_tpu_torch`, in a subprocess;
+  5. the CLI round trip, `python -m mcquic_tpu_torch`, in a subprocess; then
+     the photo as a q95 JPEG (the port's encoder): the CLI compresses it, and
+     a PNG holding the port's decode of it, to the same `.mcq` bytes; in
+     process the JPEG compresses to those bytes with 3 K1 launches and the
+     file restores with 1 K2 launch (phase 2 holds the port's q95 bytes of
+     the photo and its decode of them to PIL's);
   6. generation at the full width and depth of gen_stage2_neonA: a seeded
      checkpoint in the JAX package's format goes through the loader; greedy
      `generate` for four classes with and without the KV cache must give the
@@ -57,16 +66,25 @@ ends:
      per compress, K1's codes equal to the plain version's on its real
      latents, the card's codes to the CPU's on CODES_MIN_AGREEMENT of the
      tokens, as phase 4), and the `--local` CLI writes the same file;
-  9. stage-1 training at full width: configs/rd3/rd_qp2.yaml's model and
-     recipe (batch 8, crop 256, Adam at the world-rule lr, the cosine warm-up
-     schedule; seeded initial weights) on a folder of PNG crops of the photo
-     for TRAIN_STEPS steps through `Trainer.train`, CodebookReassign firing
-     once mid-run. Gates: the first step's loss and gradient norm equal the
-     CPU's on the same weights, batch and uniforms (TRAIN_CPU_RTOL); every
+  9. stage-1 training at full width: 512x512 crops of the photo go through
+     `python -m mcquic_tpu_torch dataset -j 2` in a subprocess (tar shards of
+     q95 JPEGs), whose tar bytes must equal the JAX writer's and whose
+     members' decode by the port must equal PIL's (`photo.json`);
+     configs/rd3/rd_qp2.yaml's model and recipe (batch 8, crop 256, Adam at
+     the world-rule lr, the cosine warm-up schedule; seeded initial
+     weights) with its trainSet a glob of those shards, for TRAIN_STEPS
+     steps through `Trainer.train`, CodebookReassign firing once mid-run.
+     The loader's images/s alone (batch 8, crop 256; on these shards and on
+     shards of 640x640 crops, the configs' size) and the time the trainer
+     waited on it are printed beside the step's images/s. Gates: the first
+     step's loss and gradient norm equal the CPU's on the same weights,
+     the shard loader's first batch and uniforms (TRAIN_CPU_RTOL); every
      loss finite, no step skipped; the validation inside the trainer launches
      K1 3 times and K2 once per image, K1's codes equal the plain version's
      after the optimizer steps and after the reassign, and the model stays in
-     training mode with its gradients on; a checkpoint resumes to the same
+     training mode with its gradients on; it logs the code-frequency
+     histograms, `val/codeMaps`, `val/raw` and `val/restored` in the JAX
+     trainer's order; a checkpoint resumes to the same
      step and parameters; the export loads through `demo.loadModel` and
      round-trips the photo. Printed: steps/s, images/s, a step's device idle
      share (`utils/profiling.py::report`) and the peak memory.
@@ -80,13 +98,14 @@ ends:
      with remat and without agree (REMAT_RTOL; cuDNN's deterministic
      algorithms, no LPIPS term), both peaks printed; no step
      skipped; the validation launches K1 9 times per image, whose codes equal
-     the plain version's after the steps and the reassign; checkpoint and
+     the plain version's after the steps and the reassign, and logs as in
+     phase 9; checkpoint and
      export written; a few steps under MCQUIC_LPIPS_PROXY=1 give a finite,
      non-zero lpips;
  11. generator training at full width: configs/rd5/gen_stage2_neonA.yaml
      (hidden 512, depth 8, 8 heads, batch 8, Adam, the cosine warm-up) with
-     `loadFrom` phase 10's checkpoint, on class folders of PNG crops under
-     two real wnids. Gates: the first step's loss, per-level CE and gradient
+     `loadFrom` phase 10's checkpoint, on class folders of `.JPEG` crops
+     (the port's encoder, q95) under two real wnids. Gates: the first step's loss, per-level CE and gradient
      norm equal the CPU's (TRAIN_CPU_RTOL); in process, K1 launches 9 times
      per step with codes equal to the plain version's, K3 never, and the
      tokenizer stays bit-identical; GEN_TRAIN_STEPS steps through
@@ -152,6 +171,13 @@ GEN_TRAIN_STEPS = 30             # through the CLI, cut from 10000
 GEN_TIMED_STEPS = 8              # in process, counted step by step
 GEN_SAMPLE_CLASSES = [1, 207]
 TILE = 256
+JPEG_FIXTURE = ROOT / "tests" / "golden" / "torch_jpeg"
+PHOTO_DIGESTS = JPEG_FIXTURE / "photo.json"   # PIL's q95 of the photo, the JAX writer's shards
+JPEG_RATE_ITERS = 20
+SHARD_CROPS = 16                 # 512x512 crops into the dataset CLI: two batches of 8 per epoch
+LOADER_EPOCHS = 4                # the loader timed alone
+CONFIG_CROP = 640                # the configs' shards hold 640x640 crops
+                                 # (examples/prepare_photo_dataset.py:49)
 TILE_BATCH_MAX_DIFF = 1          # uint8 levels: cuDNN picks algorithms by batch size, so the same
                                  # codes decoded one by one and as a batch of 6 round differently
 
@@ -318,10 +344,165 @@ def k1MatchesPlain(torch, model, gen, label):
     print(f"  K1 codes equal the plain version's on the live codebooks {label}", flush=True)
 
 
-def train9(torch, np, tmp: Path, img, smi: str) -> dict:
+def shardCrops(img) -> dict:
+    """The SHARD_CROPS 512x512 crops of the photo that phase 9 writes into
+    shards, by file name, every other one mirrored; `photo.json` holds the
+    digests of the JAX writer's shards of them (tests/test_torch_dataset_cli.py)."""
+    crops = {}
+    for i in range(SHARD_CROPS):
+        left = i * (img.shape[1] - 512) // (SHARD_CROPS - 1)
+        crop = img[:512, left:left + 512]
+        crops[f"{i:02d}.png"] = crop[:, ::-1] if i % 2 else crop
+    return crops
+
+
+def shardDigests(folder: Path, decode) -> list:
+    """For each shard in `folder`, by name: the SHA-256 of its tar bytes
+    after gzip decompression, and of its `.jpg` members' decodes by
+    `decode(bytes)`, concatenated in member order."""
+    import gzip
+    import hashlib
+    import io
+    import tarfile
+    digests = []
+    for path in sorted(Path(folder).glob("*.tar.gz")):
+        raw = gzip.decompress(path.read_bytes())
+        decoded = hashlib.sha256()
+        with tarfile.open(fileobj=io.BytesIO(raw)) as tf:
+            for member in tf:
+                if member.name.endswith(".jpg"):
+                    decoded.update(decode(tf.extractfile(member).read()).tobytes())
+        digests.append({"tar_sha256": hashlib.sha256(raw).hexdigest(),
+                        "decode_sha256": decoded.hexdigest()})
+    return digests
+
+
+class RecordingLogger:
+    """A metrics logger that keeps what the trainer hands it."""
+
+    def __init__(self):
+        self.calls = []
+
+    def log(self, step, metrics):
+        self.calls.append(("log", step, sorted(metrics)))
+
+    def histogram(self, step, name, values):
+        self.calls.append(("histogram", step, name, values))
+
+    def images(self, step, name, images):
+        self.calls.append(("images", step, name, images))
+
+
+def checkValLogging(np, recorder: RecordingLogger, model, step: int, valImages: int, label: str):
+    """The trainer's validation logged the code-frequency histograms,
+    `val/codeMaps`, `val/raw` and `val/restored` in the JAX trainer's order
+    (`mcquic_tpu/train/trainer.py:360-374`): one histogram per level, one
+    uint8 code map per level and group, and the raw / restored pair of every
+    validation image at one shape."""
+    logged = [c for c in recorder.calls if c[0] != "log" and c[1] == step]
+    names = [c[2] for c in logged]
+    levels = len(model._quantizer.frequencies())
+    want = [f"freq/freqEMA{i}" for i in range(levels)] + ["val/codeMaps", "val/raw", "val/restored"]
+    images = {c[2]: [np.asarray(i) for i in c[3]] for c in logged if c[0] == "images"}
+    maps, raw, restored = (images.get(name, []) for name in ("val/codeMaps", "val/raw",
+                                                              "val/restored"))
+    ok = (names == want and len(maps) >= levels and all(m.dtype == np.uint8 and m.ndim == 3
+                                                        for m in maps)
+          and len(raw) == len(restored) == valImages
+          and all(a.shape == b.shape and b.dtype == np.uint8 for a, b in zip(raw, restored)))
+    print(f"  {label} validation logging at step {step}: {names}; {len(maps)} code maps "
+          f"{sorted({m.shape for m in maps})}, {len(restored)} restored "
+          f"{[r.shape for r in restored]}", flush=True)
+    if not ok:
+        raise AssertionError(f"the {label} trainer's validation logging: {names}")
+
+
+def startShards(tmp: Path, img):
+    """`shardCrops` into `python -m mcquic_tpu_torch dataset -j 2`, started
+    in the background; returns (the process, its start time, the shards'
+    glob)."""
+    from mcquic_tpu_torch.data.png import writePng
+    images, shards = tmp / "images", tmp / "shards"
+    images.mkdir()
+    for name, crop in shardCrops(img).items():
+        writePng(images / name, crop)
+    proc = subprocess.Popen([sys.executable, "-m", "mcquic_tpu_torch", "dataset", "-j", "2",
+                             str(images), str(shards)], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter(), str(shards / "*.tar.gz")
+
+
+def finishShards(proc, started: float, pattern: str):
+    """Wait for the dataset CLI and check what it wrote: the metadata, and
+    every shard's tar bytes and its members' decodes by the port against
+    the JAX writer's shards and PIL's decode (`photo.json`)."""
+    from mcquic_tpu_torch.data.jpeg import readJpeg
+    _, stderr = proc.communicate(timeout=CLI_TIMEOUT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the dataset CLI exited {proc.returncode}:\n{stderr}")
+    shards = Path(pattern).parent
+    metadata = json.loads((shards / "metadata.json").read_text())
+    print(f"  dataset CLI -j 2: {metadata} in {time.perf_counter() - started:.1f} s "
+          f"(process start included): "
+          + ", ".join(f"{p.name} {p.stat().st_size} bytes" for p in sorted(shards.glob("*.tar.gz"))),
+          flush=True)
+    if metadata != {"count": SHARD_CROPS, "shards": 2, "imageText": False}:
+        raise AssertionError(f"the dataset CLI wrote {metadata}")
+    got = shardDigests(shards, readJpeg)
+    want = json.loads(PHOTO_DIGESTS.read_text())["shard_crops"]
+    print(f"  shards: tar bytes equal the JAX writer's {[g['tar_sha256'] == w['tar_sha256'] for g, w in zip(got, want)]}, "
+          f"the port's decode of their {SHARD_CROPS} members equals PIL's "
+          f"{[g['decode_sha256'] == w['decode_sha256'] for g, w in zip(got, want)]}", flush=True)
+    if got != want:
+        raise AssertionError(f"the shards or their decode differ from the JAX writer's and PIL's: "
+                             f"{got} against {want}")
+
+
+def timeLoader(getTrainLoader, pattern: str, batchSize: int, cropSize: int) -> tuple:
+    """(images, images/s) of the shard loader alone over LOADER_EPOCHS epochs."""
+    loaderFn = getTrainLoader(pattern, batchSize, cropSize=cropSize)
+    start, loaded = time.perf_counter(), 0
+    for _ in range(LOADER_EPOCHS):
+        for b in loaderFn():
+            loaded += b.shape[0]
+    return loaded, loaded / (time.perf_counter() - start)
+
+
+def configSizeShards(tmp: Path, img) -> str:
+    """SHARD_CROPS crops of CONFIG_CROP x CONFIG_CROP, the photo's rows
+    mirrored past its bottom edge, written into shards in process by the
+    dataset writer with 2 jobs; returns their glob."""
+    import numpy as np
+    from mcquic_tpu_torch.data.cli import main as writeShards
+    from mcquic_tpu_torch.data.png import writePng
+    tall = np.pad(img, ((0, CONFIG_CROP - img.shape[0]), (0, 0), (0, 0)), mode="reflect")
+    images = tmp / f"images{CONFIG_CROP}"
+    images.mkdir()
+    for i in range(SHARD_CROPS):
+        left = i * (img.shape[1] - CONFIG_CROP) // (SHARD_CROPS - 1)
+        writePng(images / f"{i:02d}.png", tall[:, left:left + CONFIG_CROP])
+    if writeShards(images, tmp / f"shards{CONFIG_CROP}", jobs=2) != SHARD_CROPS:
+        raise AssertionError(f"the {CONFIG_CROP}x{CONFIG_CROP} crops did not all pass the filter")
+    return str(tmp / f"shards{CONFIG_CROP}" / "*.tar.gz")
+
+
+def train9(torch, np, tmp: Path, img, smi: str, codec: dict) -> dict:
     """Phase 9: rd_qp2's model and recipe trained on the card for
-    TRAIN_STEPS steps, with every gate of the phase; returns the K1 and K2
-    launches per image of the validation inside the trainer."""
+    TRAIN_STEPS steps from shards the dataset CLI wrote, with every gate of
+    the phase; returns the K1 and K2 launches per image of the validation
+    inside the trainer."""
+    datasetCli, started, shards = startShards(tmp, img)
+    try:
+        return trainFromShards(torch, np, tmp, img, smi, codec, datasetCli, started, shards)
+    finally:
+        if datasetCli.poll() is None:
+            datasetCli.kill()
+            datasetCli.wait()
+
+
+def trainFromShards(torch, np, tmp: Path, img, smi: str, codec: dict, datasetCli, started,
+                    shards: str) -> dict:
+    """Phase 9 after the dataset CLI started: the run and its gates."""
     from mcquic_tpu_torch.config import Config
     from mcquic_tpu_torch.container import File
     from mcquic_tpu_torch.data import getTrainLoader, getValLoader
@@ -340,12 +521,11 @@ def train9(torch, np, tmp: Path, img, smi: str) -> dict:
     from mcquic_tpu_torch.utils.profiling import report
 
     device = torch.device("cuda")
-    pngs, val = tmp / "train", tmp / "val"
-    cropFolder(pngs, img, 16)            # two batches of 8 per epoch
+    val = tmp / "val"
     val.mkdir()
     shutil.copy(PHOTO, val / PHOTO.name)
     data = Config.load(str(RD_QP2)).serialize()
-    data["train"].update(totalStep=TRAIN_STEPS, valFreq=TRAIN_STEPS, trainSet=str(pngs),
+    data["train"].update(totalStep=TRAIN_STEPS, valFreq=TRAIN_STEPS, trainSet=shards,
                          valSet=str(val), saveDir=str(tmp / "saved"),
                          hooks=[{"key": "CodebookReassign", "params": {"freq": REASSIGN_AT}}])
     config = Config.deserialize(data)
@@ -359,8 +539,10 @@ def train9(torch, np, tmp: Path, img, smi: str) -> dict:
     if abs(trainer._baseLr - 1e-4 / 2 ** 1.5) > 1e-12:
         raise AssertionError(f"lr {trainer._baseLr} is not rd_qp2's 1e-4 under the world rule")
 
-    # the first step on the card against the CPU: same weights, batch, uniforms
-    batch = next(iter(getTrainLoader(pngs, config.Train.BatchSize, cropSize=trainer.inputSize)()))
+    # the shards, checked; the first step on the card against the CPU: same
+    # weights, batch (the shard loader's first), uniforms
+    finishShards(datasetCli, started, shards)
+    batch = next(iter(getTrainLoader(shards, config.Train.BatchSize, cropSize=trainer.inputSize)()))
     cpuGen = torch.Generator().manual_seed(0)
     x = trainingTransform(torch.from_numpy(batch), augmentDraws(cpuGen, batch.shape[0]))
     recorded = recordedDraws(torch, cpuGen)
@@ -386,6 +568,16 @@ def train9(torch, np, tmp: Path, img, smi: str) -> dict:
           f"(tolerance {TRAIN_CPU_RTOL:g})", flush=True)
     del recorded, x
     torch.cuda.empty_cache()
+
+    # the loader alone, on these shards and on shards of the configs' crop size
+    loaded, loaderRate = timeLoader(getTrainLoader, shards, config.Train.BatchSize,
+                                    trainer.inputSize)
+    _, loaderRateConfig = timeLoader(getTrainLoader, configSizeShards(tmp, img),
+                                     config.Train.BatchSize, trainer.inputSize)
+    print(f"  the shard loader alone: {loaded} images (batch {config.Train.BatchSize}, crop "
+          f"{trainer.inputSize}, {LOADER_EPOCHS} epochs) at {loaderRate:.2f} images/s from the "
+          f"512x512 shards, {loaderRateConfig:.2f} images/s from {CONFIG_CROP}x{CONFIG_CROP} "
+          f"shards ({smi})", flush=True)
 
     # the run, through Trainer.train, instrumented
     stepS, losses, skipped, valInfo = [], [], [], {}
@@ -436,10 +628,25 @@ def train9(torch, np, tmp: Path, img, smi: str) -> dict:
 
     trainer.trainStep, trainer.reassignCodebooks, trainer.validate = (timedStep, checkedReassign,
                                                                       countedValidate)
+    waits = []
+    shardLoader = getTrainLoader(shards, config.Train.BatchSize, cropSize=trainer.inputSize)
+
+    def waitedLoader():
+        """The shard loader, timing each wait of the trainer for a batch."""
+        batches = iter(shardLoader())
+        while True:
+            start = time.perf_counter()
+            b = next(batches, None)
+            if b is None:
+                return
+            waits.append(time.perf_counter() - start)
+            yield b
+
+    recorder = RecordingLogger()
     torch.cuda.reset_peak_memory_stats()
     start = time.perf_counter()
-    trainer.train(getTrainLoader(pngs, config.Train.BatchSize, cropSize=trainer.inputSize),
-                  valLoader=getValLoader(val), onStep=lambda step, metrics: None)
+    trainer.train(waitedLoader, valLoader=getValLoader(val), onStep=recorder.log,
+                  metricsLogger=recorder)
     runS = time.perf_counter() - start
     peak = torch.cuda.max_memory_allocated()
     steady = statistics.median(stepS[1:])
@@ -447,6 +654,12 @@ def train9(torch, np, tmp: Path, img, smi: str) -> dict:
           f"{steady * 1e3:.1f} ms (first {stepS[0] * 1e3:.1f} ms): {1 / steady:.3f} steps/s, "
           f"{config.Train.BatchSize / steady:.2f} images/s; peak memory "
           f"{peak / 2 ** 30:.2f} GiB ({smi})", flush=True)
+    print(f"  data: the shard loader alone {loaderRate:.2f} images/s ({loaderRateConfig:.2f} at "
+          f"{CONFIG_CROP}x{CONFIG_CROP}) against the step's "
+          f"{config.Train.BatchSize / steady:.2f}; the trainer waited {sum(waits):.2f} s for "
+          f"{len(waits)} batches (median {statistics.median(waits) * 1e3:.1f} ms, first "
+          f"{waits[0] * 1e3:.1f} ms); JPEG decode {codec['decode_mp_s']:.2f} MP/s, encode "
+          f"{codec['encode_mp_s']:.2f} MP/s on the host ({smi})", flush=True)
     print(f"  losses: first {losses[0]:.6f}, last {losses[-1]:.6f}, all finite "
           f"{all(np.isfinite(losses))}, skipped {int(sum(skipped))}", flush=True)
     if len(stepS) != TRAIN_STEPS or not all(np.isfinite(losses)) or any(skipped):
@@ -454,6 +667,7 @@ def train9(torch, np, tmp: Path, img, smi: str) -> dict:
     if (not valInfo or valInfo["K1"] != 3 or valInfo["K2"] != 1 or not valInfo["training"]
             or not valInfo["grads"]):
         raise AssertionError(f"the validation inside the trainer: {valInfo}")
+    checkValLogging(np, recorder, model, TRAIN_STEPS, 1, "rd_qp2")
 
     # resume: a fresh trainer on the save directory comes back to this state
     resumed = Trainer(config, device="cuda")
@@ -484,7 +698,9 @@ def train9(torch, np, tmp: Path, img, smi: str) -> dict:
         raise AssertionError("the export does not round-trip the photo")
     return {"K1": valInfo["K1"], "K2": valInfo["K2"], "steps_per_s": 1 / steady,
             "images_per_s": config.Train.BatchSize / steady, "idle_share": idle,
-            "peak_gib": peak / 2 ** 30}
+            "peak_gib": peak / 2 ** 30, "loader_images_per_s": loaderRate,
+            "loader_images_per_s_config_crop": loaderRateConfig,
+            "loader_wait_s": sum(waits)}
 
 
 def seededVgg16(torch, path: Path, seed: int = 0) -> Path:
@@ -505,15 +721,22 @@ def seededVgg16(torch, path: Path, seed: int = 0) -> Path:
     return path
 
 
-def cropFolder(folder: Path, img, count: int, size: int = 320, seed: int = 0):
-    """`count` PNG crops of the photo, every other one mirrored."""
+def cropFolder(folder: Path, img, count: int, size: int = 320, seed: int = 0,
+               jpeg: bool = False):
+    """`count` crops of the photo, every other one mirrored: PNGs, or q95
+    `.JPEG` files of the port's encoder."""
+    from mcquic_tpu_torch.data.jpeg import encodeJpeg
     from mcquic_tpu_torch.data.png import writePng
     folder.mkdir(parents=True)
     h, w = img.shape[:2]
     for i in range(count):
         top, left = (i * 37 + seed * 11) % (h - size), (i * 61 + seed * 23) % (w - size)
         crop = img[top:top + size, left:left + size]
-        writePng(folder / f"{i:02d}.png", crop[:, ::-1] if i % 2 else crop)
+        crop = crop[:, ::-1] if i % 2 else crop
+        if jpeg:
+            (folder / f"{folder.name}_{i:02d}.JPEG").write_bytes(encodeJpeg(crop, 95))
+        else:
+            writePng(folder / f"{i:02d}.png", crop)
 
 
 def writeConfig(path: Path, data: dict) -> Path:
@@ -709,10 +932,11 @@ def train10(torch, np, tmp: Path, img, smi: str) -> dict:
 
     trainer.trainStep, trainer.reassignCodebooks, trainer.validate = (timedStep, checkedReassign,
                                                                       countedValidate)
+    recorder = RecordingLogger()
     torch.cuda.reset_peak_memory_stats()
     start = time.perf_counter()
     trainer.train(getTrainLoader(pngs, bs, cropSize=trainer.inputSize),
-                  valLoader=getValLoader(val), onStep=lambda step, metrics: None)
+                  valLoader=getValLoader(val), onStep=recorder.log, metricsLogger=recorder)
     runS = time.perf_counter() - start
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     steady = statistics.median(stepS[1:])
@@ -730,6 +954,7 @@ def train10(torch, np, tmp: Path, img, smi: str) -> dict:
         raise AssertionError("a Neon training step was skipped or not finite")
     if not valInfo or valInfo["K1"] != len(NEON_V2_60K["size"]) or not valInfo["training"]:
         raise AssertionError(f"the validation inside the Neon trainer: {valInfo}")
+    checkValLogging(np, recorder, model, NEON_TRAIN_STEPS, 1, "Neon")
     if not (checkpoint.exists() and export.exists()):
         raise AssertionError("the Neon checkpoint or export is missing")
     wall, busy, idle = report(f"  Neon training step (batch {bs}, input {trainer.inputSize})",
@@ -796,7 +1021,7 @@ def train11(torch, np, tmp: Path, img, smi: str, neonCheckpoint: Path, lengths) 
     device = torch.device("cuda")
     classes = tmp / "classes"
     for j, wnid in enumerate(GEN_WNIDS):
-        cropFolder(classes / wnid, img, 8, size=300, seed=j + 1)
+        cropFolder(classes / wnid, img, 8, size=300, seed=j + 1, jpeg=True)
     data = Config.load(str(GEN_NEON_A_CONFIG)).serialize()
     data["model"]["params"]["loadFrom"] = str(neonCheckpoint)
     data["train"].update(totalStep=GEN_TRAIN_STEPS, trainSet=str(classes), valSet=str(classes),
@@ -964,6 +1189,57 @@ def train11(torch, np, tmp: Path, img, smi: str, neonCheckpoint: Path, lengths) 
             "busy_ms": busy, "wall_ms": wall, "peak_gib": peak}
 
 
+def jpegCheck(np, photo, smi: str) -> dict:
+    """The JPEG decoder against the fixture's hashes of PIL's decode, the
+    progressive file refused; the photo's q95 bytes and their decode against
+    PIL's (`photo.json`); then the codec's rates on the photo at q95,
+    medians of JPEG_RATE_ITERS calls, in megapixels per second."""
+    import hashlib
+    from mcquic_tpu_torch.data.jpeg import UnsupportedJpeg, encodeJpeg, readJpeg
+    manifest = json.loads((JPEG_FIXTURE / "manifest.json").read_text())
+    for name, entry in sorted(manifest.items()):
+        data = (JPEG_FIXTURE / name).read_bytes()
+        if entry.get("unsupported"):
+            try:
+                readJpeg(data, name)
+            except UnsupportedJpeg as e:
+                print(f"  fixture {name}: refused ({e})", flush=True)
+                continue
+            raise AssertionError(f"the fixture's {name} decoded; it must raise UnsupportedJpeg")
+        got = readJpeg(data, name)
+        digest = hashlib.sha256(got.tobytes()).hexdigest()
+        if list(got.shape) != entry["shape"] or digest != entry["sha256"]:
+            raise AssertionError(f"the decode of the fixture's {name} is not PIL's "
+                                 f"({digest[:16]} against {entry['sha256'][:16]})")
+        print(f"  fixture {name} {tuple(got.shape)}: decode equals PIL's (sha256 "
+              f"{digest[:16]})", flush=True)
+    data = encodeJpeg(photo, 95)
+    want = json.loads(PHOTO_DIGESTS.read_text())["photo_q95"]
+    got = {"sha256": hashlib.sha256(data).hexdigest(),
+           "decode_sha256": hashlib.sha256(readJpeg(data).tobytes()).hexdigest()}
+    print(f"  the photo at q95: the port's bytes equal PIL's {got['sha256'] == want['sha256']}, "
+          f"its decode of them equals PIL's {got['decode_sha256'] == want['decode_sha256']}",
+          flush=True)
+    if got != want:
+        raise AssertionError(f"the photo's q95 bytes or their decode differ from PIL's: {got} "
+                             f"against {want}")
+    megapixels = photo.shape[0] * photo.shape[1] / 1e6
+
+    def rate(fn):
+        times = []
+        for _ in range(JPEG_RATE_ITERS):
+            start = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - start)
+        return megapixels / statistics.median(times)
+    rates = {"decode_mp_s": rate(lambda: readJpeg(data)),
+             "encode_mp_s": rate(lambda: encodeJpeg(photo, 95)), "photo_jpeg": data}
+    print(f"  JPEG codec on the host, the photo {photo.shape[1]}x{photo.shape[0]} at q95 "
+          f"({len(data)} bytes): decode {rates['decode_mp_s']:.2f} MP/s, encode "
+          f"{rates['encode_mp_s']:.2f} MP/s (medians of {JPEG_RATE_ITERS}; {smi})", flush=True)
+    return rates
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -979,7 +1255,9 @@ def main() -> int:
 
     from mcquic_tpu_torch.coding import rans
     from mcquic_tpu_torch.container import File
+    from mcquic_tpu_torch.data import jpeg
     from mcquic_tpu_torch.data.png import readPng, writePng
+    from mcquic_tpu_torch.data.dataset import readImage
     from mcquic_tpu_torch.demo import loadModel, writeSeededExport, zooPath
     from mcquic_tpu_torch.models.compressor import Compressor, seededCompressor
     from mcquic_tpu_torch.models.engine import CompressorEngine
@@ -1025,13 +1303,14 @@ def main() -> int:
             start = time.perf_counter()
             fn()
             return name, time.perf_counter() - start
-        with ThreadPoolExecutor(5) as pool:
+        with ThreadPoolExecutor(6) as pool:
             jobs = [pool.submit(timed, name, fn) for name, fn in
                     (("K1 vq_encode.cu (nvcc)", vq_cuda.build),
                      ("K1b vq_grouped.cu (nvcc)", vq_grouped_cuda.build),
                      ("K2 thin_head.cu (nvcc)", subpixel_cuda.build),
                      ("K3 flash_attention.cu (nvcc)", attention_cuda.build),
-                     ("rANS mcquic_rans.cpp (g++)", rans.build))]
+                     ("rANS mcquic_rans.cpp (g++)", rans.build),
+                     ("JPEG jpeg.cpp (g++)", jpeg.build))]
             for job in jobs:
                 name, seconds = job.result()
                 print(f"  built {name} in {seconds:.2f} s", flush=True)
@@ -1039,6 +1318,7 @@ def main() -> int:
             for line in buildLog(stem).splitlines():
                 if "entry function" in line or "spill" in line or "Used" in line:
                     print(f"  ptxas {stem}: {line.strip()}", flush=True)
+        codec = jpegCheck(np, readPng(PHOTO), smi)
 
     gen = torch.Generator(device=device).manual_seed(0)
     levels = [(2, 1536, 8192, 64), (2, 384, 2048, 64), (2, 96, 512, 64)]   # (m, T, k, d)
@@ -1365,13 +1645,35 @@ def main() -> int:
     with Phase("5 CLI round trip"):
         with tempfile.TemporaryDirectory() as tmp:
             out = Path(tmp)
-            for args in (["-qp", str(QP), str(PHOTO), str(out / "cli.mcq")],
-                         [str(out / "cli.mcq"), str(out / "cli.png")]):
-                proc = subprocess.run([sys.executable, "-m", "mcquic_tpu_torch", *args],
-                                      cwd=ROOT, capture_output=True, text=True,
-                                      timeout=CLI_TIMEOUT)
+
+            def cli(*args):
+                return subprocess.Popen([sys.executable, "-m", "mcquic_tpu_torch", *map(str, args)],
+                                        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                        text=True)
+
+            def finish(proc):
+                _, stderr = proc.communicate(timeout=CLI_TIMEOUT)
                 if proc.returncode != 0:
-                    raise RuntimeError(f"CLI {args} exited {proc.returncode}:\n{proc.stderr}")
+                    raise RuntimeError(f"CLI {proc.args} exited {proc.returncode}:\n{stderr}")
+
+            # three compressions at once: the photo; the photo as a q95 JPEG; a PNG
+            # holding the port's decode of that JPEG, which must give the JPEG's .mcq
+            photoJpg, decodedPng = out / "photo.jpg", out / "photo_decoded.png"
+            photoJpg.write_bytes(codec["photo_jpeg"])
+            decoded = jpeg.readJpeg(codec["photo_jpeg"])
+            writePng(decodedPng, decoded)
+            procs = [cli("-qp", QP, PHOTO, out / "cli.mcq")] + [
+                cli("-qp", QP, src, out / f"{src.stem}.mcq") for src in (photoJpg, decodedPng)]
+            try:
+                finish(procs[0])
+                procs.append(cli(out / "cli.mcq", out / "cli.png"))
+                for proc in procs[1:]:
+                    finish(proc)
+            finally:
+                for proc in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
             cliFile = File.deserialize((out / "cli.mcq").read_bytes())
             cliQuality = psnr(img, readPng(out / "cli.png"))
             print(f"  CLI: {cliFile.BPP:.4f} bpp, PSNR {cliQuality:.2f} dB, .mcq identical to "
@@ -1380,6 +1682,22 @@ def main() -> int:
             if (abs(cliFile.BPP - REGISTERED_BPP) > BPP_RTOL * REGISTERED_BPP
                     or abs(cliQuality - REGISTERED_PSNR) > PSNR_ATOL):
                 raise AssertionError("the CLI round trip misses the registered bpp / PSNR")
+
+            jpgMcq = (out / "photo.mcq").read_bytes()
+            sameAsPng = jpgMcq == (out / "photo_decoded.mcq").read_bytes()
+            vqNearest.launches = conv3x3SubpixelThin.launches = 0
+            inProcess = engine.compressImage(readImage(photoJpg)).serialize()
+            jpgK1 = vqNearest.launches
+            jpgRestored = engine.decompressImage(File.deserialize(jpgMcq))
+            jpgK2 = conv3x3SubpixelThin.launches
+            print(f"  CLI on photo.jpg (q95, {len(codec['photo_jpeg'])} bytes): "
+                  f"{File.deserialize(jpgMcq).BPP:.4f} bpp, .mcq identical to the CLI's on a PNG "
+                  f"of its decode: {sameAsPng}, to the in-process compress: "
+                  f"{inProcess == jpgMcq}; K1 {jpgK1} launches in the compress, K2 {jpgK2} in the "
+                  f"restore; PSNR against the JPEG's decode {psnr(decoded, jpgRestored):.2f} dB",
+                  flush=True)
+            if not (sameAsPng and inProcess == jpgMcq and jpgK1 == 3 and jpgK2 == 1):
+                raise AssertionError("the JPEG input does not compress as the PNG of its decode")
 
     with Phase("6 generation"), tempfile.TemporaryDirectory() as tmp:
         start = time.perf_counter()
@@ -1749,7 +2067,7 @@ def main() -> int:
 
     with Phase("9 stage-1 training"), tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        trainTrace = train9(torch, np, tmp, img, smi)
+        trainTrace = train9(torch, np, tmp, img, smi, codec)
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)

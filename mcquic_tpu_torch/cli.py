@@ -1,9 +1,11 @@
-"""`python -m mcquic_tpu_torch`: compress a PNG to `.mcq`, or restore a
-`.mcq` to PNG, by the input's suffix (the default command of
+"""`python -m mcquic_tpu_torch`: compress a PNG or JPEG to `.mcq`, or restore
+a `.mcq` to PNG, by the input's suffix (the default command of
 `mcquic_tpu/cli.py`, reference `mcquic/cli.py:40-61`); as
 `python -m mcquic_tpu_torch validate [-e EXPORT] [--bf16] MODEL [IMAGES]`,
-evaluate a model on a folder of PNGs, export it and time it
-(`mcquic_tpu/cli.py:92-110`); or, as
+evaluate a model on a folder of images, export it and time it
+(`mcquic_tpu/cli.py:92-110`); as
+`python -m mcquic_tpu_torch dataset [-j N] [-G] IMAGES OUTPUT`, write an image
+folder into tar shards of JPEGs (`mcquic_tpu/cli.py:116-127`); or, as
 `python -m mcquic_tpu_torch generate -c 1,207 model.npz outdir/`, sample
 images from a stage-2 generator (`mcquic_tpu/cli.py:130-147`); or, as
 `python -m mcquic_tpu_torch train [-G] config.yaml`, train a stage-1 model
@@ -18,8 +20,9 @@ import mcquic_tpu_torch
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m mcquic_tpu_torch",
-        description=f"mcquic_tpu_torch {mcquic_tpu_torch.__version__}: compress IMAGE.png -> "
-                    ".mcq, or restore .MCQ -> PNG. `generate -h` samples from a generator.")
+        description=f"mcquic_tpu_torch {mcquic_tpu_torch.__version__}: compress IMAGE (PNG or "
+                    "JPEG) -> .mcq, or restore .MCQ -> PNG. `generate -h` samples from a "
+                    "generator, `train -h` trains, `dataset -h` writes training shards.")
     p.add_argument("-qp", type=int, choices=range(0, 14), default=None, metavar="{0..13}",
                    help="quantization parameter (zoo slot); a .mcq records its own")
     p.add_argument("--local", default=None, help="use a local exported model instead of the zoo")
@@ -39,7 +42,7 @@ def validateParser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m mcquic_tpu_torch validate",
         description="Evaluate MODEL (an exported model, or a trainer checkpoint with its json "
-                    "sidecar) on the PNGs under IMAGES: MS-SSIM, PSNR, bpp and ideal bpp; "
+                    "sidecar) on the PNG and JPEG images under IMAGES: MS-SSIM, PSNR, bpp and ideal bpp; "
                     "optionally export it; then time it under the reference's speed protocol.")
     p.add_argument("-e", "--export", default=None,
                    help="write a deploy model here (renamed with its sha256 prefix)")
@@ -71,8 +74,9 @@ def trainParser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m mcquic_tpu_torch train",
         description="Stage-1 training (the v1 Compressor, or Neon where the model has a "
-                    "`size` pyramid) on a folder of PNGs, or with -G stage-2 training of the "
-                    "generator on class folders of PNGs, from a YAML config (model, train: "
+                    "`size` pyramid) on tar shards or a folder of PNG or JPEG images, or with -G "
+                    "stage-2 training of the generator on class folders or wnid-keyed shards, "
+                    "from a YAML config (model, train: "
                     "trainSet, valSet, saveDir, ...). Resumes from saveDir/latest where a "
                     "checkpoint is and writes checkpoints there; prints the deploy model's path "
                     "(stage 1, written into saveDir) or the checkpoint's (stage 2).")
@@ -83,6 +87,22 @@ def trainParser() -> argparse.ArgumentParser:
     p.add_argument("-G", "--gen", action="store_true", help="train the stage-2 generation model")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("configPath", metavar="CONFIG")
+    return p
+
+
+def datasetParser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m mcquic_tpu_torch dataset",
+        description="Write the images under IMAGES that pass the filter (at least 512 x 512, "
+                    "textured) into tar shards of quality-95 JPEGs, "
+                    "OUTPUT/mcquic_DATA_%05d.tar.gz, and OUTPUT/metadata.json.")
+    p.add_argument("-D", "--debug", action="store_true", help="verbose logging")
+    p.add_argument("-q", "--quiet", action="store_true", help="warnings and errors only")
+    p.add_argument("-j", "--jobs", type=int, default=1, help="parallel shard writers")
+    p.add_argument("-G", "--gen", action="store_true",
+                   help="write a caption member per image (image-text dataset for generation)")
+    p.add_argument("images")
+    p.add_argument("output")
     return p
 
 
@@ -104,6 +124,16 @@ def main(argv=None) -> int:
         logging.getLogger().setLevel(level)
         from mcquic_tpu_torch.train.cli import main as train
         print(train(args.configPath, gen=args.gen, device=args.device))
+        return 0
+    if argv[:1] == ["dataset"]:
+        args = datasetParser().parse_args(argv[1:])
+        level = logging.DEBUG if args.debug else (logging.WARNING if args.quiet else logging.INFO)
+        logging.getLogger().setLevel(level)
+        from pathlib import Path
+        if not Path(args.images).is_dir():
+            datasetParser().error(f"IMAGES {args.images!r} is not a directory")
+        from mcquic_tpu_torch.data.cli import main as dataset
+        print(dataset(args.images, args.output, jobs=args.jobs, gen=args.gen))
         return 0
     if argv[:1] == ["validate"]:
         args = validateParser().parse_args(argv[1:])

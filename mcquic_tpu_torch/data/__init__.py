@@ -1,27 +1,29 @@
 """Data loaders (counterpart of `mcquic_tpu/data/__init__.py`, reference
 `mcquic/data/__init__.py`):
-  * `getTrainLoader` (`:42-67`): a folder of PNGs, shuffled through a
+  * `getTrainLoader` (`:42-67`): tar shards (a glob, a `.tar` or a
+    `.tar.gz` path) or a folder of PNG and JPEG images, shuffled through a
     bounded buffer, random-resized-cropped to the crop size, batched; yields
     uint8 NHWC numpy batches through a background prefetch thread (the
     augmentation runs on the device, `data/augment.py`).
   * `getValLoader` (`:70-89`): a folder, batch 1, aligned crop.
 
-The port reads PNG only (`data/dataset.py`). A tar-shard pattern or a
-training folder holding images of another format is refused with an error:
-training on a silent subset would be a different run.
+The port reads PNG and baseline JPEG (`data/dataset.py`). A training folder
+holding BMP or WebP images is refused with an error: training on a silent
+subset would be a different run.
 """
 import logging
 import queue
 import random
 import threading
-from pathlib import Path
 from typing import Iterable, Iterator
 
-from mcquic_tpu_torch.data.dataset import (BasicFolder, batched, listImages, randomResizedCrop,
+from mcquic_tpu_torch.data.dataset import (UNREAD_EXTENSIONS, BasicFolder, TarShards, batched,
+                                           isShardPattern, listImages, randomResizedCrop,
                                            shuffled)
 from mcquic_tpu_torch.data.transforms import alignedCrop
 
-__all__ = ["BasicFolder", "listImages", "prefetched", "getTrainLoader", "getValLoader"]
+__all__ = ["BasicFolder", "TarShards", "listImages", "prefetched", "getTrainLoader",
+           "getValLoader"]
 logger = logging.getLogger("mcquic_tpu_torch.data")
 
 
@@ -51,26 +53,26 @@ def prefetched(gen: Iterable, depth: int = 4) -> Iterator:
         raise failure[0]
 
 
-def checkTrainSet(pattern) -> Path:
-    """The training folder, after refusing what the port cannot read: tar
-    shards (a glob or a .tar path) and folders with non-PNG images."""
+def checkTrainSet(pattern) -> str:
+    """The training set, after refusing a folder that holds images the port
+    cannot read (BMP, WebP). Tar shards pass: their BMP and WebP members are
+    skipped with a warning as they stream."""
     src = str(pattern)
-    if any(ch in src for ch in "*?[") or src.endswith((".tar", ".tar.gz")):
-        raise ValueError(f"trainSet {src!r} names tar shards; this package reads a folder of "
-                         "PNGs only (no JPEG decoder without PIL)")
-    others = [p for p in listImages(src) if p.suffix.lower() != ".png"]
+    if isShardPattern(src):
+        return src
+    others = [p for p in listImages(src) if p.suffix.lower() in UNREAD_EXTENSIONS]
     if others:
-        raise ValueError(f"trainSet {src!r} holds {len(others)} non-PNG images (e.g. "
-                         f"{others[0]}); this package decodes PNG only")
-    return Path(src)
+        raise ValueError(f"trainSet {src!r} holds {len(others)} BMP or WebP images (e.g. "
+                         f"{others[0]}); this package decodes PNG and baseline JPEG only")
+    return src
 
 
 def getTrainLoader(pattern, batchSize: int, cropSize: int = 512, seed: int = 0,
                    shuffleBuffer: int = 500, prefetch: int = 4):
     """A zero-argument callable returning a fresh epoch's iterator of uint8
-    [batchSize, cropSize, cropSize, 3] batches; epoch e shuffles and crops
-    with seed + e."""
-    root = checkTrainSet(pattern)
+    [batchSize, cropSize, cropSize, 3] batches; epoch e shuffles the shards
+    and the samples and crops with seed + e."""
+    src = checkTrainSet(pattern)
     epochBox = [0]
 
     def loaderFn():
@@ -79,7 +81,8 @@ def getTrainLoader(pattern, batchSize: int, cropSize: int = 512, seed: int = 0,
         rng = random.Random(seed + epoch)
 
         def samples():
-            for img in shuffled(iter(BasicFolder(root)), shuffleBuffer, seed=seed + epoch):
+            source = TarShards(src, seed=seed + epoch) if isShardPattern(src) else BasicFolder(src)
+            for img in shuffled(iter(source), shuffleBuffer, seed=seed + epoch):
                 if img.shape[0] < 64 or img.shape[1] < 64:
                     continue
                 yield randomResizedCrop(rng, img, cropSize)

@@ -1,55 +1,161 @@
-"""Image folders, the random resized crop, and the sample stream's shuffle
-and batching (counterpart of `mcquic_tpu/data/dataset.py`, reference
-`mcquic/data/dataset.py:67-123` and the webdataset pipeline of
+"""Image folders, tar shards, the random resized crop, and the sample
+stream's shuffle and batching (counterpart of `mcquic_tpu/data/dataset.py`,
+reference `mcquic/data/dataset.py:67-123` and the webdataset pipeline of
 `mcquic/data/__init__.py:96-151`).
 
-The port decodes PNG only (`data/png.py`): torch, numpy and the standard
-library have no JPEG, BMP or WebP decoder, so the JAX package's tar shards of
-JPEGs are not read here (ROADMAP: JPEG shards).
+Images decode through the port's own codecs: PNG (`data/png.py`) and
+baseline JPEG (`data/jpeg.py`), chosen by the file's magic bytes. A corrupt
+or truncated file decodes to None, as in the JAX package; a file of a kind
+the port does not read raises: `UnsupportedJpeg` (progressive, arithmetic,
+12-bit, CMYK), `UnsupportedPng` (16-bit, palette, interlaced). BMP and WebP files, which the JAX package reads through
+PIL, are listed and then skipped with a warning that names them.
 """
+import glob
 import logging
 import random
+import struct
+import tarfile
+import zlib
 from pathlib import Path
-from typing import Iterator, List
+from typing import Iterator, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mcquic_tpu_torch.data.png import readPng
+from mcquic_tpu_torch.data.jpeg import MAGIC as JPEG_MAGIC, UnsupportedJpeg, readJpeg
+from mcquic_tpu_torch.data.png import SIGNATURE as PNG_SIGNATURE, UnsupportedPng, decodePng
 
 IMG_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
+UNREAD_EXTENSIONS = (".bmp", ".webp")        # listed, then skipped with a warning
 logger = logging.getLogger("mcquic_tpu_torch.data")
+
+
+class UnsupportedImage(ValueError):
+    """An image format the port has no decoder for."""
 
 
 def listImages(root) -> List[Path]:
     return sorted(p for p in Path(root).rglob("*") if p.suffix.lower() in IMG_EXTENSIONS)
 
 
+def isShardPattern(source) -> bool:
+    """A glob or a `.tar` / `.tar.gz` path names tar shards, as in
+    `mcquic_tpu/data/__init__.py:53-58`."""
+    src = str(source)
+    return any(ch in src for ch in "*?[") or src.endswith((".tar", ".tar.gz"))
+
+
+def skipUnread(name) -> bool:
+    """True, with a warning naming it, for a BMP or WebP file or member."""
+    if Path(str(name)).suffix.lower() in UNREAD_EXTENSIONS:
+        logger.warning("%s is BMP or WebP; this package decodes PNG and baseline JPEG only; "
+                       "skipped", name)
+        return True
+    return False
+
+
+def _decodeImage(data: bytes, name: str = "") -> Optional[np.ndarray]:
+    """RGB uint8 [h, w, 3] of a PNG or JPEG file's bytes, by their magic;
+    None for a corrupt or truncated file (`mcquic_tpu/data/dataset.py:27-34`).
+    A JPEG or PNG the port does not read raises `UnsupportedJpeg` or
+    `UnsupportedPng`, a BMP or WebP `UnsupportedImage`, each naming `name`."""
+    data = bytes(data)
+    if data.startswith(PNG_SIGNATURE):
+        try:
+            return decodePng(data)
+        except UnsupportedPng as e:
+            raise UnsupportedPng(f"{name}: {e}; this package reads 8-bit gray, RGB and RGBA "
+                                 "PNG only") from None
+        except (ValueError, zlib.error, struct.error):
+            return None
+    if data.startswith(JPEG_MAGIC):
+        try:
+            return readJpeg(data, name)
+        except UnsupportedJpeg:
+            raise
+        except ValueError:
+            return None
+    if data.startswith(b"BM") or (data[:4] == b"RIFF" and data[8:12] == b"WEBP"):
+        raise UnsupportedImage(f"{name}: BMP or WebP; this package decodes PNG and baseline "
+                               "JPEG only")
+    return None
+
+
+def readImage(path) -> np.ndarray:
+    """RGB uint8 [h, w, 3] of a PNG or baseline JPEG file; a file that does
+    not decode raises (`mcquic_tpu/demo.py:151-154` and
+    `mcquic_tpu/data/dataset.py:72-76` read what PIL reads)."""
+    img = _decodeImage(Path(path).read_bytes(), str(path))
+    if img is None:
+        raise RuntimeError(f"Cannot decode {path}")
+    return img
+
+
 class BasicFolder:
-    """The PNG images under `root`, sorted by path, as uint8 [h, w, 3].
-    Files of the other image suffixes are listed as the JAX package lists
-    them, then skipped with a warning, so a folder that mixes formats is
-    never read silently as a subset."""
+    """The PNG and JPEG images under `root`, sorted by path, as uint8
+    [h, w, 3]; a file that does not decode raises, as in
+    `mcquic_tpu/data/dataset.py:61-80`. BMP and WebP files are listed as the
+    JAX package lists them, then skipped with a warning, so a folder that
+    mixes formats is never read silently as a subset."""
 
     def __init__(self, root):
         files = listImages(root)
         if not files:
             raise FileNotFoundError(f"No images under {root}")
-        self._files = [p for p in files if p.suffix.lower() == ".png"]
-        for p in files:
-            if p.suffix.lower() != ".png":
-                logger.warning("%s is not a PNG; this package decodes PNG only; skipped", p)
+        self._files = [p for p in files if not skipUnread(p)]
 
     def __len__(self):
         return len(self._files)
 
     def __getitem__(self, idx) -> np.ndarray:
-        return readPng(self._files[idx])
+        return readImage(self._files[idx])
 
     def __iter__(self) -> Iterator[np.ndarray]:
         for i in range(len(self)):
             yield self[i]
+
+
+def shardMembers(shard: str):
+    """(member name, bytes) of a shard's image files, in member order; BMP
+    and WebP members are skipped with a warning."""
+    mode = "r:gz" if shard.endswith(".gz") else "r"
+    with tarfile.open(shard, mode) as tf:
+        for member in tf:
+            if not member.isfile() or Path(member.name).suffix.lower() not in IMG_EXTENSIONS:
+                continue
+            if skipUnread(f"{shard}:{member.name}"):
+                continue
+            yield member.name, tf.extractfile(member).read()
+
+
+class TarShards:
+    """The `{key}.{ext}` images of tar shards (the webdataset layout), as in
+    `mcquic_tpu/data/dataset.py:83-120`: every shard the glob matches, in an
+    order shuffled with `seed` plus the pass number, its images decoded in
+    member order; a sample that does not decode and a shard that cannot be
+    read are skipped."""
+
+    def __init__(self, pattern: str, seed: int = 0):
+        shards = sorted(glob.glob(str(pattern)))
+        if not shards:
+            raise FileNotFoundError(f"No shards match {pattern}")
+        self._shards = shards
+        self._seed = seed
+        self._epoch = 0
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        shards = list(self._shards)
+        random.Random(self._seed + self._epoch).shuffle(shards)
+        self._epoch += 1
+        for shard in shards:
+            try:
+                for name, data in shardMembers(shard):
+                    img = _decodeImage(data, f"{shard}:{name}")
+                    if img is not None:
+                        yield img
+            except (tarfile.TarError, OSError):
+                continue
 
 
 def resizeBilinear(img: np.ndarray, size: int) -> np.ndarray:

@@ -7,20 +7,24 @@ order of the 1000 wnids is the canonical ImageNet-1k index, so, as in the
 JAX package, no table is hard-coded; a folder with every class gets the
 canonical ids, and the labels come from the folder names.
 
-`getGenLoader` reads an imagenet-style folder (`root/<wnid>/*.png`). The
-port decodes PNG only (`data/png.py`), so tar shards and folders holding
-JPEG (or any other non-PNG) images are refused, as `data/__init__.py::
-checkTrainSet` refuses them for stage 1 (ROADMAP: JPEG shards).
+`getGenLoader` reads an imagenet-style folder (`root/<wnid>/*.JPEG`, PNG or
+JPEG) or wnid-keyed tar shards (a glob, `.tar` or `.tar.gz`), as the JAX
+package's does. A class folder holding BMP or WebP images is refused, as
+`data/__init__.py::checkTrainSet` refuses one for stage 1.
 """
+import glob
+import json
 import random
 import re
+import tarfile
 from pathlib import Path
 from typing import Dict, List
 
 import numpy as np
 
-from mcquic_tpu_torch.data.dataset import IMG_EXTENSIONS, randomResizedCrop
-from mcquic_tpu_torch.data.png import readPng
+from mcquic_tpu_torch.data.dataset import (IMG_EXTENSIONS, UNREAD_EXTENSIONS, _decodeImage,
+                                           isShardPattern, randomResizedCrop, shardMembers,
+                                           shuffled)
 
 _WNID = re.compile(r"^n\d{8}$")
 
@@ -52,22 +56,91 @@ def classFiles(root) -> List[tuple]:
     return files
 
 
+def shardClassIndex(pattern) -> Dict[str, int]:
+    """The class index of wnid-keyed shards (`{wnid}_{n}.{ext}` members;
+    `mcquic_tpu/data/imagenet_classes.py:41-68`): a `classes.json` beside the
+    first shard (a list of wnids, or {wnid: label}) defines the class set;
+    otherwise one pass over the shards' members collects it."""
+    shards = sorted(glob.glob(str(pattern)))
+    if not shards:
+        raise FileNotFoundError(f"No shards match {pattern}")
+    sidecar = Path(shards[0]).parent / "classes.json"
+    if sidecar.exists():
+        loaded = json.loads(sidecar.read_text())
+        return classIndexFromWnids(list(loaded.keys()) if isinstance(loaded, dict) else loaded)
+    wnids = set()
+    for shard in shards:
+        with tarfile.open(shard, "r:gz" if shard.endswith(".gz") else "r") as tf:
+            for member in tf:
+                wnid = Path(member.name).stem.split("_")[0]
+                if _WNID.match(wnid):
+                    wnids.add(wnid)
+    if not wnids:
+        raise FileNotFoundError(f"No wnid-keyed samples in {pattern}")
+    return classIndexFromWnids(wnids)
+
+
+def _genShardLoader(pattern, batchSize: int, cropSize: int, seed: int):
+    """(image, label) batches from wnid-keyed tar shards
+    (`mcquic_tpu/data/imagenet_classes.py:71-129`): epoch e shuffles the
+    shards with `random.Random(seed + e)`, streams their members through the
+    500-sample shuffle and crops with the same generator."""
+    index = shardClassIndex(pattern)
+    allShards = sorted(glob.glob(str(pattern)))
+    epochBox = [0]
+
+    def loaderFn():
+        epoch = epochBox[0]
+        epochBox[0] += 1
+        rng = random.Random(seed + epoch)
+        shards = list(allShards)
+        rng.shuffle(shards)
+
+        def samples():
+            for shard in shards:
+                try:
+                    for name, data in shardMembers(shard):
+                        wnid = Path(name).stem.split("_")[0]
+                        if wnid not in index:
+                            continue
+                        img = _decodeImage(data, f"{shard}:{name}")
+                        if img is not None:
+                            yield img, index[wnid]
+                except (tarfile.TarError, OSError):
+                    continue
+
+        def gen():
+            imgs, lbls = [], []
+            for img, cls in shuffled(samples(), 500, seed=seed + epoch):
+                if img.shape[0] < cropSize // 2 or img.shape[1] < cropSize // 2:
+                    continue
+                imgs.append(randomResizedCrop(rng, img, cropSize))
+                lbls.append(cls)
+                if len(imgs) == batchSize:
+                    yield np.stack(imgs), np.asarray(lbls, np.int32)
+                    imgs, lbls = [], []
+
+        return gen()
+
+    return loaderFn
+
+
 def getGenLoader(root, batchSize: int, cropSize: int = 256, seed: int = 0):
     """A zero-argument callable returning a fresh epoch's iterator of
-    (uint8 images [n, s, s, 3], int32 labels [n]); epoch e shuffles the files
-    and crops with `random.Random(seed + e)`, as the JAX loader does. Images
-    under half the crop size are skipped; a short last batch is dropped."""
-    src = str(root)
-    if any(ch in src for ch in "*?[") or src.endswith((".tar", ".tar.gz")):
-        raise ValueError(f"trainSet {src!r} names tar shards; this package reads class folders "
-                         "of PNGs only (no JPEG decoder without PIL)")
+    (uint8 images [n, s, s, 3], int32 labels [n]) from class folders or
+    wnid-keyed tar shards; epoch e shuffles and crops with
+    `random.Random(seed + e)`, as the JAX loader does. Images under half the
+    crop size and files that do not decode are skipped; a short last batch
+    is dropped."""
+    if isShardPattern(root):
+        return _genShardLoader(str(root), batchSize, cropSize, seed)
     files = classFiles(root)
     if not files:
         raise FileNotFoundError(f"No class-labeled images under {root}")
-    others = [f for f, _ in files if f.suffix.lower() != ".png"]
+    others = [f for f, _ in files if f.suffix.lower() in UNREAD_EXTENSIONS]
     if others:
-        raise ValueError(f"trainSet {src!r} holds {len(others)} non-PNG images (e.g. {others[0]}); "
-                         "this package decodes PNG only")
+        raise ValueError(f"trainSet {str(root)!r} holds {len(others)} BMP or WebP images (e.g. "
+                         f"{others[0]}); this package decodes PNG and baseline JPEG only")
     epochBox = [0]
 
     def loaderFn():
@@ -81,8 +154,8 @@ def getGenLoader(root, batchSize: int, cropSize: int = 256, seed: int = 0):
             imgs, lbls = [], []
             for idx in order:
                 path, cls = files[idx]
-                img = readPng(path)
-                if img.shape[0] < cropSize // 2 or img.shape[1] < cropSize // 2:
+                img = _decodeImage(path.read_bytes(), str(path))
+                if img is None or img.shape[0] < cropSize // 2 or img.shape[1] < cropSize // 2:
                     continue
                 imgs.append(randomResizedCrop(rng, img, cropSize))
                 lbls.append(cls)

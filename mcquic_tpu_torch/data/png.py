@@ -3,7 +3,8 @@
 `readPng` takes 8-bit gray, RGB and RGBA images, non-interlaced, with any of
 the five row filters, and returns an RGB uint8 [H, W, 3] array (gray is
 replicated and alpha dropped, as `PIL.Image.convert("RGB")` does). Other
-PNGs raise. `writePng` writes RGB with filter 0 on every row.
+valid PNGs raise `UnsupportedPng`, corrupt ones `ValueError`. `writePng`
+writes RGB with filter 0 on every row.
 """
 import struct
 import zlib
@@ -12,6 +13,11 @@ from pathlib import Path
 import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+class UnsupportedPng(ValueError):
+    """A valid PNG of a kind this reader does not take (16-bit, palette,
+    gray with alpha, interlaced)."""
 _CHANNELS = {0: 1, 2: 3, 6: 4}           # color type -> samples per pixel
 
 
@@ -77,7 +83,7 @@ def decodePng(data: bytes) -> np.ndarray:
         raise ValueError("PNG lacks IHDR")
     width, height, depth, colorType, _, _, interlace = header
     if depth != 8 or colorType not in _CHANNELS or interlace != 0:
-        raise ValueError(f"unsupported PNG: bit depth {depth}, color type {colorType}, "
+        raise UnsupportedPng(f"unsupported PNG: bit depth {depth}, color type {colorType}, "
                          f"interlace {interlace} (only 8-bit gray/RGB/RGBA, non-interlaced)")
     channels = _CHANNELS[colorType]
     stride = width * channels

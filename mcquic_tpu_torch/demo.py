@@ -2,13 +2,15 @@
 reference `mcquic/demo.py:45-77`): an image becomes a `.mcq`, whole or as a
 grid of tiles; a `.mcq` becomes a PNG. Models come from the bundled zoo
 (`assets/zoo/`, by `-qp`, sha256-checked) or from a local exported model
-file, a v1 Compressor or a Neon tokenizer; nothing is downloaded.
+file, a v1 Compressor or a Neon tokenizer; nothing is downloaded. The input
+image is a PNG or a baseline JPEG (`readImage`).
 """
 import logging
 from pathlib import Path
 
 from mcquic_tpu_torch.container import File
-from mcquic_tpu_torch.data.png import readPng, writePng
+from mcquic_tpu_torch.data.dataset import readImage
+from mcquic_tpu_torch.data.png import writePng
 from mcquic_tpu_torch.data.transforms import alignedCrop
 import mcquic_tpu_torch
 from mcquic_tpu_torch.models.compressor import buildModel, seededModel
@@ -79,7 +81,7 @@ def main(inputPath, outputPath=None, qp: int = None, local=None, device="cuda",
         writePng(out, restored)
         logger.info("Restored %s -> %s", inputPath, out)
         return out
-    img = readPng(inputPath)
+    img = readImage(inputPath)
     if crop:
         img = alignedCrop(img, 128)
     engine = loadModel(qp=qp, local=local, device=device)

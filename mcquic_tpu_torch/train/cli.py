@@ -3,11 +3,13 @@
 build the trainer, resume from `saveDir/latest` where a checkpoint is, and
 train.
   * Stage 1 (the v1 Compressor, or Neon where the model has a `size`
-    pyramid) trains on the PNG folder `trainSet`, validates on `valSet`
-    where it exists, and writes the deploy model beside the checkpoints.
+    pyramid) trains on `trainSet`, tar shards (a glob, `.tar` or `.tar.gz`)
+    or a folder of PNG and JPEG images, validates on `valSet` where it
+    exists, and writes the deploy model beside the checkpoints.
   * Stage 2 (`gen`, `-G`) trains `GeneratorV3SelfAttention` or its NoAda
     variant over the frozen tokenizer of `loadFrom`, on class folders of
-    PNGs (`data/imagenet_classes.py::getGenLoader`, 256x256 crops); it
+    PNG or JPEG images or wnid-keyed tar shards
+    (`data/imagenet_classes.py::getGenLoader`, 256x256 crops); it
     returns the checkpoint, which `generate` samples from. `GeneratorVAR` is
     not ported (ROADMAP A7).
 A config's `externalLib` (user files that extend the JAX package's

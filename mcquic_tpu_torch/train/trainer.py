@@ -4,9 +4,14 @@
   * the step of `train/state.py`: loss 0.5 distortion + 0.5 mse + 2 lpips,
     the gradient's global norm clipped at 4.0, a non-finite step skipped
     whole, and the run stopped on persistent skips;
-  * a save every valFreq // 10 steps, validation through the real codec
-    every valFreq with the best MS-SSIM kept, the CodebookReassign hook,
-    auto-resume from the rotated `latest/`, and a save on SIGTERM;
+  * a save every valFreq // 10 steps (at most every MCQUIC_SAVE_FREQ steps),
+    validation through the real codec every valFreq with the best MS-SSIM
+    kept, the CodebookReassign hook, auto-resume from the rotated `latest/`,
+    and a save on SIGTERM;
+  * npz checkpoints only: MCQUIC_CKPT_BACKEND is read as the JAX trainer
+    reads it (`mcquic_tpu/train/trainer.py:113-124`), and `orbax`, an unknown
+    value, or a saveDir that holds only a JAX run's `orbax/` is refused
+    (`checkpointBackend`);
   * the learning rate of the world rule (`config.py::Train.scaledOptim`)
     at one card.
 
@@ -93,6 +98,24 @@ def geometryOf(model) -> dict:
     return {"channel": model.channel, "m": model.m, "k": list(model.k)}
 
 
+def checkpointBackend(saveDir) -> str:
+    """MCQUIC_CKPT_BACKEND (default npz), the only backend this package has.
+    `orbax` and unknown values raise, and so does a saveDir holding a JAX
+    run's `orbax/` and no `latest/`, which would otherwise start again from
+    step 0 without a word."""
+    backend = os.environ.get("MCQUIC_CKPT_BACKEND", "npz")
+    if backend not in ("npz", "orbax"):
+        raise ValueError(f"unknown ckptBackend {backend!r}")
+    if backend == "orbax":
+        raise NotImplementedError("MCQUIC_CKPT_BACKEND=orbax: this package has no orbax "
+                                  "backend; it saves and resumes npz checkpoints in "
+                                  "saveDir/latest")
+    if saveDir and (Path(saveDir) / "orbax").is_dir() and not (Path(saveDir) / "latest").is_dir():
+        raise ValueError(f"saveDir {saveDir} holds an orbax checkpoint (orbax/) and no latest/; "
+                         "this package resumes npz checkpoints only")
+    return backend
+
+
 class Trainer:
     def __init__(self, config: Config, model=None, device="cuda", inputShape=None,
                  seed: int = SEED, lpipsFn=None):
@@ -127,6 +150,7 @@ class Trainer:
         self._generator = torch.Generator(device=self._device).manual_seed(seed + 1)
 
         # the Saver rotates the previous `latest/` away; resume reads it there
+        checkpointBackend(train.SaveDir)
         self._saver = Saver(train.SaveDir) if train.SaveDir else None
         self._resumePath = self._saver.PreviousCkpt if self._saver else None
         self._bestDistortion = float("-inf")
@@ -224,6 +248,9 @@ class Trainer:
         maxEpochs = max(int(train.Epoch or 0), 0) or None
         valFreq = train.ValFreq
         saveFreq = max(valFreq // 10, 1)
+        envSave = os.environ.get("MCQUIC_SAVE_FREQ")
+        if envSave:
+            saveFreq = min(saveFreq, max(int(envSave), 1))
         if metricsLogger is None and onStep is None:
             metricsLogger = MetricsLogger()
         if onStep is None:
@@ -290,16 +317,27 @@ class Trainer:
         logger.info("step %d validation: %s", step, results)
         onStep(step, {f"val/{k}": v for k, v in results.items()})
         if metricsLogger is not None:
-            for i, freq in enumerate(self._model._quantizer.frequencies()):
-                metricsLogger.histogram(step, f"freq/freqEMA{i}", freq.detach().cpu().numpy())
-            pairs = self._lastValExtras.get("pairs") or []
-            if pairs:
-                metricsLogger.images(step, "val/raw", [p[0] for p in pairs])
+            self._logValObservability(metricsLogger, step, self._lastValExtras)
         if self._saver is not None and results.get("msssim", 0) > self._bestDistortion:
             self._bestDistortion = results["msssim"]
             saveTree(self._saver.SaveDir / "best.ckpt.npz", self.variables(),
                      {"config": self._config.serialize(), "step": step,
                       "version": mcquic_tpu_torch.__version__})
+
+    def _logValObservability(self, metricsLogger, step: int, extras: dict):
+        """The code-frequency histograms, the code maps of the last image and
+        the raw / restored pairs, in the order of
+        `mcquic_tpu/train/trainer.py:360-374`."""
+        from mcquic_tpu_torch.validate.validator import visualizeCodeMaps
+        for i, freq in enumerate(self._model._quantizer.frequencies()):
+            metricsLogger.histogram(step, f"freq/freqEMA{i}", freq.detach().cpu().numpy())
+        if extras.get("codes"):
+            metricsLogger.images(step, "val/codeMaps",
+                                 [m[0] for m in visualizeCodeMaps(extras["codes"])])
+        pairs = extras.get("pairs") or []
+        if pairs:
+            metricsLogger.images(step, "val/raw", [p[0] for p in pairs])
+            metricsLogger.images(step, "val/restored", [p[1] for p in pairs])
 
     def validate(self, valLoader) -> dict:
         """The real codec's metrics with the current weights (reference

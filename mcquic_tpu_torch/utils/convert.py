@@ -466,7 +466,7 @@ def modelGeometry(meta: dict) -> dict:
     if "size" in params:
         if params.get("denseNorm"):
             raise NotImplementedError("Neon with denseNorm (GroupNorm blocks) is not ported "
-                                      "(ROADMAP A3)")
+                                      "(ROADMAP A10)")
         return {"channel": int(params["channel"]),
                 "k": int(k[0] if isinstance(k, (list, tuple)) else k),
                 "size": [int(s) for s in params["size"]]}

@@ -34,7 +34,6 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from mcquic_tpu_torch.data.png import readPng
 
 PHOTO = Path(__file__).resolve().parent.parent.parent / "assets" / "photo_768x512.png"
 
@@ -90,9 +89,10 @@ def main(argv=None):
     args.iters = args.iters or 10
     if args.mode == "generate":
         return generateReport(args)
+    from mcquic_tpu_torch.data.dataset import readImage
     from mcquic_tpu_torch.demo import loadModel
     engine = loadModel(qp=args.qp, device="cuda")
-    img = readPng(args.image)
+    img = readImage(args.image)
     file = engine.compressImage(img)
     engine.decompressImage(file)
     print(f"{Path(args.image).name} {img.shape[1]}x{img.shape[0]}, qp {args.qp}: "

@@ -3,7 +3,8 @@ sorted wnids, the class-folder loader's labels and epoch order
 (`mcquic_tpu/data/imagenet_classes.py::getGenLoader`, whose crops PIL
 resizes: the port's are held within one level), the generator's transform
 (`augment.trainingTransform(gen=True)`: the gamma and the jitter, no flips)
-on the same draws, and the refusal of tar shards and JPEG files."""
+on the same draws, tar shards and JPEG class folders read as the JAX loader
+reads them, and the refusal of BMP, WebP and progressive JPEG files."""
 from pathlib import Path
 
 import jax
@@ -77,16 +78,47 @@ def test_gen_transform_equals_jax_and_never_flips():
 
 
 def test_shards_and_jpeg_are_refused(classes, tmp_path):
-    with pytest.raises(ValueError, match="tar shards"):
-        imagenet_classes.getGenLoader(str(tmp_path / "shards" / "*.tar"), 2)
-    with pytest.raises(ValueError, match="tar shards"):
-        imagenet_classes.getGenLoader(str(tmp_path / "train.tar.gz"), 2)
+    """Tar shards and JPEG class folders are read and match the JAX loader
+    (labels equal, crops within one level); BMP and WebP files are refused
+    naming one, and a progressive JPEG raises `UnsupportedJpeg` naming it."""
+    import io
+    import tarfile
+    from PIL import Image
+    from mcquic_tpu_torch.data.jpeg import UnsupportedJpeg, encodeJpeg
+    img = readPng(ROOT / "assets" / "photo_768x512.png")
+    (tmp_path / "shards").mkdir()
+    with tarfile.open(tmp_path / "shards" / "a.tar.gz", "w:gz") as tf:
+        for i in range(4):
+            data = encodeJpeg(img[i * 50:i * 50 + 200, i * 80:i * 80 + 240], 95)
+            info = tarfile.TarInfo(f"{WNIDS[i % 3]}_{i}.jpg")
+            info.size = len(data)
+            tf.addfile(info, io.BytesIO(data))
     jpeg = tmp_path / "jpeg"
-    (jpeg / WNIDS[0]).mkdir(parents=True)
-    writePng(jpeg / WNIDS[0] / "a.png", np.zeros((200, 200, 3), np.uint8))
-    (jpeg / WNIDS[0] / "b.JPEG").write_bytes(b"\xff\xd8\xff")
-    with pytest.raises(ValueError, match="non-PNG"):
+    for i, wnid in enumerate(WNIDS):
+        (jpeg / wnid).mkdir(parents=True)
+        (jpeg / wnid / f"{i}.JPEG").write_bytes(encodeJpeg(img[i * 90:i * 90 + 200, :260], 95))
+    writePng(jpeg / WNIDS[0] / "a.png", img[200:400, 300:560])
+    for source in (str(tmp_path / "shards" / "*.tar.gz"), str(tmp_path / "shards" / "a.tar.gz"),
+                   jpeg):
+        ours = list(imagenet_classes.getGenLoader(source, 2, cropSize=128, seed=1)())
+        theirs = list(jaxClasses.getGenLoader(str(source), 2, cropSize=128, seed=1)())
+        assert len(ours) == len(theirs) == 2
+        for (imgA, lblA), (imgB, lblB) in zip(ours, theirs):
+            np.testing.assert_array_equal(lblA, lblB)
+            assert np.abs(imgA.astype(int) - imgB.astype(int)).max() <= 1
+
+    progressive = io.BytesIO()
+    Image.fromarray(img[:200, :200]).save(progressive, format="JPEG", progressive=True)
+    (jpeg / WNIDS[1] / "p.JPEG").write_bytes(progressive.getvalue())
+    with pytest.raises(UnsupportedJpeg, match=r"p.JPEG: progressive JPEG \(SOF marker 0xFFC2\)"):
+        for _ in imagenet_classes.getGenLoader(jpeg, 2, seed=1)():
+            pass
+    (jpeg / WNIDS[1] / "p.JPEG").unlink()
+    (jpeg / WNIDS[0] / "b.webp").write_bytes(b"RIFF")
+    with pytest.raises(ValueError, match=r"1 BMP or WebP images \(e.g. .*b.webp\)"):
         imagenet_classes.getGenLoader(jpeg, 2)
     (tmp_path / "empty").mkdir()
     with pytest.raises(FileNotFoundError):
         imagenet_classes.getGenLoader(tmp_path / "empty", 2)
+    with pytest.raises(FileNotFoundError, match="No shards match"):
+        imagenet_classes.getGenLoader(str(tmp_path / "none" / "*.tar"), 2)

@@ -7,8 +7,11 @@ so a subprocess blocks them (and the JAX package itself) with a
 through `python -m mcquic_tpu_torch --device cpu`, a tiny generator's
 sampling through `python -m mcquic_tpu_torch generate --device cpu`, and
 `train -h` and a 2-step tiny training run through
-`python -m mcquic_tpu_torch train --device cpu`, and 2-step runs of a tiny
-Neon (`train`) and of a tiny generator over it (`train -G`).
+`python -m mcquic_tpu_torch train --device cpu`, 2-step runs of a tiny
+Neon (`train`) and of a tiny generator over it (`train -G`), and the
+`dataset` command (JPEG encoder, tar shards) followed by a 2-step run that
+reads its shards (JPEG decoder, shard loader), the codec compressing one of
+the JPEGs.
 """
 import ast
 import subprocess
@@ -172,6 +175,44 @@ def test_v2_training_runs_without_the_jax_package_and_its_dependencies(tmp_path)
     names = {m.name for m in pkgutil.walk_packages(mcquic_tpu_torch.__path__, "mcquic_tpu_torch.")}
     assert {"mcquic_tpu_torch.loss.lpips", "mcquic_tpu_torch.train.genTrainer",
             "mcquic_tpu_torch.train.valueTuners", "mcquic_tpu_torch.data.imagenet_classes"} <= names
+
+
+def test_dataset_and_shards_run_without_the_jax_package_and_its_dependencies(tmp_path):
+    """`dataset -j 2` over two 512x512 photo crops, then `train` on a
+    `*.tar.gz` glob of its shards, and a JPEG member through the codec CLI:
+    neither PIL nor joblib (the JAX writer's) is imported."""
+    import tarfile
+    from test_torch_train_cli import tinyConfig
+    photo = readPng(ROOT / "assets" / "photo_768x512.png")
+    (tmp_path / "images").mkdir()
+    for i, left in enumerate((0, 256)):
+        writePng(tmp_path / "images" / f"{i}.png", photo[:, left:left + 512])
+    config = tinyConfig(tmp_path)
+    config.write_text(config.read_text().replace(f"trainSet: {tmp_path / 'pngs'}",
+                                                 f"trainSet: {tmp_path / 'shards'}/*.tar.gz"))
+    runs = [["dataset", "-j", "2", str(tmp_path / "images"), str(tmp_path / "shards")],
+            ["train", str(config), "--device", "cpu"]]
+    script = GUARD.format(blocked=BLOCKED, root=str(ROOT), runs=runs)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "round trip ok" in proc.stdout
+    assert sorted(p.name for p in (tmp_path / "shards").iterdir()) == [
+        "mcquic_DATA_00000.tar.gz", "mcquic_DATA_00001.tar.gz", "metadata.json"]
+    assert (tmp_path / "saved" / "latest" / "saved.ckpt.npz").exists()
+    with tarfile.open(tmp_path / "shards" / "mcquic_DATA_00001.tar.gz", "r:gz") as tf:
+        (tmp_path / "in.jpg").write_bytes(tf.extractfile("000000001.jpg").read())
+    runs = [["--device", "cpu", "--local", str(TINY), str(tmp_path / "in.jpg"),
+             str(tmp_path / "out.mcq")]]
+    proc = subprocess.run([sys.executable, "-c", GUARD.format(blocked=BLOCKED, root=str(ROOT),
+                                                              runs=runs)],
+                          cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert (tmp_path / "out.mcq").stat().st_size > 0
+    import pkgutil
+    import mcquic_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(mcquic_tpu_torch.__path__, "mcquic_tpu_torch.")}
+    assert {"mcquic_tpu_torch.data.jpeg", "mcquic_tpu_torch.data.cli"} <= names
 
 
 def _portFiles():

@@ -1,0 +1,190 @@
+"""The port's shard and JPEG loaders against the JAX package's, for two
+epochs each: the batches come in the same sample order with the same labels,
+and their crops are within the tolerance that
+`test_torch_train_functional.py::test_random_resized_crop_is_pil_bilinear_within_one_level`
+states for `randomResizedCrop` (one level, under a quarter of the values):
+
+  * `getTrainLoader` on a glob of shards the JAX writer built
+    (`mcquic_tpu.data.cli.main`, `{key}.jpg` members at q95), and on a
+    folder of PNG and JPEG files;
+  * `TarShards` directly: the shard order of each pass and the member order,
+    pixel-exact against the JAX package's (PIL) decode;
+  * `getGenLoader` on wnid-keyed shards (`{wnid}_{n}.jpg`; the JAX writer
+    keys samples by number, so these are written here) with and without a
+    `classes.json` sidecar, and on class folders of `.JPEG` files.
+"""
+import io
+import json
+import tarfile
+from pathlib import Path
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from mcquic_tpu_torch.data import TarShards, getTrainLoader
+from mcquic_tpu_torch.data.imagenet_classes import getGenLoader, shardClassIndex
+from mcquic_tpu_torch.data.png import readPng, writePng
+
+ROOT = Path(__file__).resolve().parent.parent
+PHOTO = readPng(ROOT / "assets" / "photo_768x512.png")
+WNIDS = ["n02099601", "n01440764", "n04592741"]
+
+
+def _close(ours, theirs, what):
+    assert ours.dtype == theirs.dtype == np.uint8 and ours.shape == theirs.shape, what
+    diff = np.abs(ours.astype(np.int16) - theirs.astype(np.int16))
+    assert diff.max() <= 1 and (diff > 0).mean() < 0.25, what
+
+
+def _jpeg(img, quality=95) -> bytes:
+    buffer = io.BytesIO()
+    Image.fromarray(img).save(buffer, format="JPEG", quality=quality)
+    return buffer.getvalue()
+
+
+@pytest.fixture(scope="module")
+def jaxShards(tmp_path_factory):
+    """Shards of 7 photo crops (mirrored and shifted), written by the JAX
+    writer with -j 3."""
+    from mcquic_tpu.data.cli import main
+    tmp = tmp_path_factory.mktemp("shards")
+    (tmp / "images").mkdir()
+    for i, left in enumerate((0, 40, 96, 128, 180, 220, 256)):
+        crop = PHOTO[:, left:left + 512]
+        writePng(tmp / "images" / f"{i}.png", crop[:, ::-1] if i % 2 else crop)
+    assert main(tmp / "images", tmp / "out", jobs=3) == 7
+    return tmp / "out"
+
+
+@pytest.mark.parametrize("pattern", ["*.tar.gz", "mcquic_DATA_00001.tar.gz"])
+def test_train_loader_on_jax_shards_equals_jax(jaxShards, pattern):
+    from mcquic_tpu.data import getTrainLoader as jaxGetTrainLoader
+    source = str(jaxShards / pattern)
+    ours = getTrainLoader(source, 2, cropSize=64, seed=3)
+    theirs = jaxGetTrainLoader(source, 2, cropSize=64, seed=3)
+    for epoch in range(2):
+        a, b = list(ours()), list(theirs())
+        assert len(a) == len(b) == (3 if pattern.startswith("*") else 1)
+        for i, (x, y) in enumerate(zip(a, b)):
+            _close(x, y, f"epoch {epoch} batch {i}")
+
+
+def test_tar_shards_equal_jax_in_shard_and_member_order(jaxShards):
+    from mcquic_tpu.data.dataset import TarShards as JaxTarShards
+    ours, theirs = TarShards(str(jaxShards / "*.tar.gz"), seed=4), JaxTarShards(
+        str(jaxShards / "*.tar.gz"), seed=4)
+    for _ in range(2):                              # each pass reshuffles the shards
+        a, b = list(ours), list(theirs)
+        assert len(a) == len(b) == 7
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_train_loader_on_a_jpeg_and_png_folder_equals_jax(tmp_path):
+    from mcquic_tpu.data import getTrainLoader as jaxGetTrainLoader
+    for i in range(5):
+        crop = PHOTO[i * 60:i * 60 + 200, i * 100:i * 100 + 260]
+        if i % 2:
+            (tmp_path / f"{i}.jpg").write_bytes(_jpeg(crop, 90))
+        else:
+            writePng(tmp_path / f"{i}.png", crop)
+    ours = getTrainLoader(tmp_path, 2, cropSize=48, seed=1)
+    theirs = jaxGetTrainLoader(str(tmp_path), 2, cropSize=48, seed=1)
+    for epoch in range(2):
+        a, b = list(ours()), list(theirs())
+        assert len(a) == len(b) == 2
+        for i, (x, y) in enumerate(zip(a, b)):
+            _close(x, y, f"epoch {epoch} batch {i}")
+
+
+@pytest.fixture(scope="module")
+def genShards(tmp_path_factory):
+    """Two wnid-keyed shards: `{wnid}_{n}.jpg` members, a `.txt` member and
+    a member of a wnid outside the sidecar's classes."""
+    tmp = tmp_path_factory.mktemp("genShards")
+    n = 0
+    for s in range(2):
+        with tarfile.open(tmp / f"gen_{s}.tar", "w") as tf:
+            for j in range(5):
+                wnid = WNIDS[(s + j) % 3] if j != 4 else "n09999999"
+                crop = PHOTO[j * 50:j * 50 + 180, s * 200 + j * 40:s * 200 + j * 40 + 220]
+                for name, data in ((f"{wnid}_{n}.jpg", _jpeg(crop)), (f"{wnid}_{n}.txt", b"a")):
+                    info = tarfile.TarInfo(name)
+                    info.size = len(data)
+                    tf.addfile(info, io.BytesIO(data))
+                n += 1
+    return tmp
+
+
+@pytest.mark.parametrize("sidecar", [False, True])
+def test_gen_loader_on_wnid_shards_equals_jax(genShards, tmp_path, sidecar):
+    from mcquic_tpu.data import imagenet_classes as jaxClasses
+    folder = genShards
+    if sidecar:
+        folder = tmp_path
+        for shard in genShards.glob("*.tar"):
+            (tmp_path / shard.name).write_bytes(shard.read_bytes())
+        (tmp_path / "classes.json").write_text(json.dumps(sorted(WNIDS)))
+    pattern = str(folder / "*.tar")
+    assert shardClassIndex(pattern) == jaxClasses.shardClassIndex(pattern)
+    assert len(shardClassIndex(pattern)) == (3 if sidecar else 4)
+    ours = getGenLoader(pattern, 2, cropSize=64, seed=2)
+    theirs = jaxClasses.getGenLoader(pattern, 2, cropSize=64, seed=2)
+    for epoch in range(2):
+        a, b = list(ours()), list(theirs())
+        assert len(a) == len(b) == (4 if sidecar else 5)
+        for i, ((x, lx), (y, ly)) in enumerate(zip(a, b)):
+            np.testing.assert_array_equal(lx, ly, err_msg=f"epoch {epoch} batch {i}")
+            _close(x, y, f"epoch {epoch} batch {i}")
+
+
+def test_gen_loader_on_jpeg_class_folders_equals_jax(tmp_path):
+    from mcquic_tpu.data import imagenet_classes as jaxClasses
+    for c, wnid in enumerate(WNIDS):
+        (tmp_path / wnid).mkdir()
+        for i in range(2 + c):
+            crop = PHOTO[c * 100 + i * 30:c * 100 + i * 30 + 160, i * 90:i * 90 + 200]
+            (tmp_path / wnid / f"{wnid}_{i}.JPEG").write_bytes(_jpeg(crop))
+    ours = getGenLoader(tmp_path, 3, cropSize=64, seed=7)
+    theirs = jaxClasses.getGenLoader(str(tmp_path), 3, cropSize=64, seed=7)
+    for epoch in range(2):
+        a, b = list(ours()), list(theirs())
+        assert len(a) == len(b) == 3
+        for i, ((x, lx), (y, ly)) in enumerate(zip(a, b)):
+            np.testing.assert_array_equal(lx, ly, err_msg=f"epoch {epoch} batch {i}")
+            _close(x, y, f"epoch {epoch} batch {i}")
+
+
+def test_tar_shards_skip_what_is_corrupt_and_name_what_is_unsupported(tmp_path):
+    """A truncated JPEG, a truncated PNG and a non-image member are skipped, as
+    the JAX package's `TarShards` skips them; a BMP member is skipped with a
+    warning naming it; a palette PNG (valid, which this package does not
+    read) raises `UnsupportedPng` naming the member."""
+    from mcquic_tpu.data.dataset import TarShards as JaxTarShards
+    from mcquic_tpu_torch.data.png import UnsupportedPng, encodePng
+    good = [PHOTO[:120, :160], PHOTO[200:320, 300:460]]
+    members = [("0.jpg", _jpeg(good[0])), ("1.jpg", _jpeg(good[1])[:300]),
+               ("2.png", encodePng(good[1])), ("3.png", encodePng(good[0])[:2000]),
+               ("4.txt", b"caption")]
+    with tarfile.open(tmp_path / "a.tar", "w") as tf:
+        for name, data in members:
+            info = tarfile.TarInfo(name)
+            info.size = len(data)
+            tf.addfile(info, io.BytesIO(data))
+    ours, theirs = list(TarShards(str(tmp_path / "a.tar"))), list(JaxTarShards(str(tmp_path / "a.tar")))
+    assert len(ours) == len(theirs) == 2
+    for x, y in zip(ours, theirs):
+        np.testing.assert_array_equal(x, y)
+
+    palette = io.BytesIO()
+    Image.fromarray(good[0]).convert("P").save(palette, format="PNG")
+    bmp = io.BytesIO()
+    Image.fromarray(good[0]).save(bmp, format="BMP")
+    with tarfile.open(tmp_path / "b.tar", "w") as tf:
+        for name, data in (("5.bmp", bmp.getvalue()), ("6.png", palette.getvalue())):
+            info = tarfile.TarInfo(name)
+            info.size = len(data)
+            tf.addfile(info, io.BytesIO(data))
+    with pytest.raises(UnsupportedPng, match=r"b.tar:6.png: unsupported PNG"):
+        list(TarShards(str(tmp_path / "b.tar")))

@@ -195,16 +195,36 @@ def test_train_cli_writes_a_checkpoint_and_an_export_that_compresses(tmp_path):
     assert readPng(tmp_path / "o.png").shape == readPng(png).shape
 
 
-def test_train_cli_refuses_what_the_port_cannot_train(tmp_path):
-    """GeneratorVAR (ROADMAP A7), a stage-2 config without -G, tar shards."""
+def _jpegShard(path: Path, members):
+    """A tar shard of (name, RGB image) members written as q95 JPEGs by the
+    port's encoder, the JAX writer's member format."""
+    import io
+    import tarfile
+    from mcquic_tpu_torch.data.jpeg import encodeJpeg
+    with tarfile.open(path, "w:gz") as tf:
+        for name, img in members:
+            data = encodeJpeg(img, 95)
+            info = tarfile.TarInfo(name)
+            info.size = len(data)
+            tf.addfile(info, io.BytesIO(data))
+
+
+def test_train_cli_refuses_what_the_port_cannot_train(tmp_path, v2):
+    """GeneratorVAR (ROADMAP A7) and a stage-2 config without -G are refused.
+    Tar shards are read: stage 1 trains 2 steps from a `*.tar.gz` glob of
+    `{key}.jpg` members (the JAX writer's layout) and stage 2 (`-G`) from
+    wnid-keyed `{wnid}_{n}.jpg` shards over the tiny Neon. A training folder
+    of BMP or WebP images is refused naming one, and a progressive JPEG
+    member stops the run with `UnsupportedJpeg` naming the member."""
+    import io
+    import tarfile
+    from PIL import Image
+    from mcquic_tpu_torch.data.jpeg import UnsupportedJpeg
     config = tinyConfig(tmp_path)
     text = config.read_text()
     var = tmp_path / "var.yaml"
     var.write_text(text.replace("{key: Compressor, params: {channel: 8, m: 2, k: [16, 8]}}",
                                 "{key: GeneratorVAR, params: {channel: 8, k: 16, size: [2, 1, 1]}}"))
-    shards = tmp_path / "shards.yaml"
-    shards.write_text(text.replace(f"trainSet: {tmp_path / 'pngs'}",
-                                   f"trainSet: {tmp_path / 'shards'}/*.tar.gz"))
     from mcquic_tpu_torch.train.cli import main
     from mcquic_tpu_torch.train.genTrainer import constructGenerator
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
@@ -213,14 +233,57 @@ def test_train_cli_refuses_what_the_port_cannot_train(tmp_path):
         constructGenerator("GeneratorVAR", {})
     with pytest.raises(ValueError, match="-G/--gen"):
         main(var, device="cpu")
-    with pytest.raises(ValueError, match="tar shards"):
-        main(shards, device="cpu")
+
+    img = readPng(ROOT / "assets" / "photo_768x512.png")
+    (tmp_path / "shards").mkdir()
+    for s in range(2):
+        _jpegShard(tmp_path / "shards" / f"mcquic_DATA_{s:05d}.tar.gz",
+                   [(f"{2 * s + i:09d}.jpg", img[i * 120:i * 120 + 256, s * 300:s * 300 + 300])
+                    for i in range(2)])
+    shards = tmp_path / "shards.yaml"
+    shards.write_text(text.replace(f"trainSet: {tmp_path / 'pngs'}",
+                                   f"trainSet: {tmp_path / 'shards'}/*.tar.gz"))
+    export = main(shards, device="cpu")
+    assert export.exists()
+    tree, _ = loadTree(tmp_path / "saved" / "latest" / "saved.ckpt.npz")
+    assert int(tree["step"]) == 2
+
+    _, _, _, neonCkpt, genConfig, _ = v2
+    (tmp_path / "genShards").mkdir()
+    _jpegShard(tmp_path / "genShards" / "gen.tar.gz",
+               [(f"{WNIDS[i % 2]}_{i}.jpg", img[i * 60:i * 60 + 260, i * 90:i * 90 + 300])
+                for i in range(4)])
     genShards = tmp_path / "genShards.yaml"
-    genShards.write_text(shards.read_text().replace(
-        "{key: Compressor, params: {channel: 8, m: 2, k: [16, 8]}}",
-        "{key: GeneratorV3SelfAttention, params: {channel: 8, k: 16, size: [2, 1, 1]}}"))
-    with pytest.raises(ValueError, match="tar shards"):
-        main(genShards, gen=True, device="cpu")
+    genShards.write_text(genConfig.read_text()
+                         .replace(f"trainSet: {genConfig.parent / 'classes'}",
+                                  f"trainSet: {tmp_path / 'genShards'}/*.tar.gz")
+                         .replace(f"saveDir: {genConfig.parent / 'gen'}",
+                                  f"saveDir: {tmp_path / 'gen'}"))
+    checkpoint = main(genShards, gen=True, device="cpu")
+    assert int(loadTree(checkpoint)[0]["step"]) == 2
+
+    (tmp_path / "bmp").mkdir()
+    writePng(tmp_path / "bmp" / "a.png", img[:256, :256])
+    (tmp_path / "bmp" / "b.bmp").write_bytes(b"BM")
+    (tmp_path / "bmp" / "c.webp").write_bytes(b"RIFF")
+    bmp = tmp_path / "bmp.yaml"
+    bmp.write_text(text.replace(f"trainSet: {tmp_path / 'pngs'}", f"trainSet: {tmp_path / 'bmp'}"))
+    with pytest.raises(ValueError, match=r"2 BMP or WebP images \(e.g. .*b.bmp\)"):
+        main(bmp, device="cpu")
+
+    progressive = io.BytesIO()
+    Image.fromarray(np.ascontiguousarray(img[:256, :300])).save(progressive, format="JPEG",
+                                                                progressive=True)
+    with tarfile.open(tmp_path / "shards" / "mcquic_DATA_00002.tar", "w") as tf:
+        info = tarfile.TarInfo("000000009.jpg")
+        info.size = len(progressive.getvalue())
+        tf.addfile(info, io.BytesIO(progressive.getvalue()))
+    mixed = tmp_path / "mixed.yaml"
+    mixed.write_text(text.replace(f"trainSet: {tmp_path / 'pngs'}",
+                                  f"trainSet: {tmp_path / 'shards'}/*.tar*")
+                     .replace(f"saveDir: {tmp_path / 'saved'}", f"saveDir: {tmp_path / 'mixed'}"))
+    with pytest.raises(UnsupportedJpeg, match=r"mcquic_DATA_00002.tar:000000009.jpg: progressive"):
+        main(mixed, device="cpu")
 
 
 def test_saver_rotates_locks_and_caps_its_history(tmp_path):

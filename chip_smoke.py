@@ -114,6 +114,34 @@ ends:
      each held to its plain version, and the generate CLI writes 2 PNGs.
      Both phases print steps/s, images/s, idle share, device busy per step
      and peak memory.
+ 12. data parallelism on the one card: (a) the train CLI's `main` on
+     rd_qp2 (phase 9's shards, DDP_CLI_STEPS steps) under
+     MCQUIC_COORDINATOR / MCQUIC_NUM_PROCESSES=1 / MCQUIC_PROCESS_ID=0, which
+     is NCCL at world 1, against the same run without the variables in the
+     same process: the checkpoints must be bit-identical (the backend and
+     NCCL's version printed); (b) two ranks (`chip_smoke.py --ddp-worker`,
+     gloo, which reduces CUDA tensors) sharing the card at full width, rd_qp2
+     and gen_stage2_neonA at batch 4 each against one process at batch 8 on
+     the same 8 images, DDP_STEPS steps: the first step's loss and gradient
+     norm within TRAIN_CPU_RTOL, the ranks' parameter checksums equal after
+     every step, rank 0's validation K1 3 and K2 1 per image (rank 1 none),
+     K1 9 per generator step on each rank; steps/s and peak per rank (two
+     ranks on one card measure no scaling); (c) NCCL at world 2 on the one
+     card, its outcome printed verbatim;
+ 13. GeneratorVAR at the JAX package's defaults (depth 24, width 1536, 16
+     heads, about 1.0 B transformer parameters) over the neonA tokenizer,
+     seeded: `generate --cfg 1.5` writes 4 PNGs; in process K3 is held to its
+     plain version on every call's q/k/v, 216 launches per generate (24
+     blocks x 9 levels); the card's codes equal the CPU plain path's at depth
+     2 with the same Gumbel noise; K3 timed at the last level (B 8, H 16, Tq
+     256, Tk 426, D 96) beside SDPA; the first VAR training step at depth 2
+     equals the CPU's (TRAIN_CPU_RTOL); `train -G` on a VAR config at batch 8
+     through the CLI's `main` takes VAR_TRAIN_STEPS steps (K1 9 per step,
+     none skipped) and its checkpoint samples (K3 216).
+     Phases 9-11 run fewer steps than before these phases (TRAIN_STEPS,
+     NEON_TRAIN_STEPS, GEN_TRAIN_STEPS) to keep the run inside its limit.
+
+`chip_smoke.py --ddp-worker ...` is one rank of phase 12, started by it.
 
 Any failure ends the run with a non-zero exit and no result line. The last
 two lines are the kernel table as JSON and
@@ -155,19 +183,19 @@ QP12 = (192, 12, [8192, 2048, 512])      # channel, m, k (no zoo file: seeded we
 PAST_BUDGET = (128, 2, [16384, 2048, 512])
 NEON_V2_60K = dict(channel=256, k=1024, size=[16, 8, 8, 4, 4, 2, 2, 1, 1])  # configs/rd5/neon_v2_60k.yaml
 RD_QP2 = ROOT / "configs" / "rd3" / "rd_qp2.yaml"
-TRAIN_STEPS = 30
-REASSIGN_AT = 15                 # CodebookReassign's freq: fires once, mid-run
+TRAIN_STEPS = 12                 # cut from 30 to make room for phases 12 and 13
+REASSIGN_AT = 6                  # CodebookReassign's freq: fires once, mid-run
 TRAIN_CPU_RTOL = 1e-3            # first step, card vs CPU, loss and grad norm (fp32, TF32 off;
                                  # cuDNN and the CPU sum in other orders)
 NEON_V2_60K_CONFIG = ROOT / "configs" / "rd5" / "neon_v2_60k.yaml"
 GEN_NEON_A_CONFIG = ROOT / "configs" / "rd5" / "gen_stage2_neonA.yaml"
-NEON_TRAIN_STEPS = 30
-NEON_REASSIGN_AT = 15            # CodebookReassign's freq, cut from 3000 so that one runs
+NEON_TRAIN_STEPS = 6             # cut from 30: a save every step at valFreq < 20
+NEON_REASSIGN_AT = 3             # CodebookReassign's freq, cut from 3000 so that one runs
 LPIPS_CPU_RTOL = 1e-4            # the first Neon step's LPIPS, card vs CPU
 REMAT_RTOL = 1e-5                # the first Neon step's gradients, remat vs plain, on the card
 PROXY_STEPS = 3
 GEN_WNIDS = ["n01440764", "n02099601"]
-GEN_TRAIN_STEPS = 30             # through the CLI, cut from 10000
+GEN_TRAIN_STEPS = 10             # through the CLI, cut from 10000 (and from 30 here)
 GEN_TIMED_STEPS = 8              # in process, counted step by step
 GEN_SAMPLE_CLASSES = [1, 207]
 TILE = 256
@@ -178,6 +206,14 @@ SHARD_CROPS = 16                 # 512x512 crops into the dataset CLI: two batch
 LOADER_EPOCHS = 4                # the loader timed alone
 CONFIG_CROP = 640                # the configs' shards hold 640x640 crops
                                  # (examples/prepare_photo_dataset.py:49)
+DDP_CLI_STEPS = 3                # phase 12 (a): the train CLI's steps, with and without NCCL
+DDP_STEPS = 3                    # phase 12 (b): steps of each case, ranks and one process
+DDP_GLOBAL_BATCH = 8             # rd_qp2's and gen_stage2_neonA's batch: 2 ranks x 4
+DDP_TIMEOUT = 480                # seconds for the two ranks of a phase-12 case
+NCCL_TIMEOUT = 90                # seconds for NCCL at world 2 on one card to succeed or fail
+VAR_D24 = dict(channel=256, k=1024, size=[16, 8, 8, 4, 4, 2, 2, 1, 1], depth=24, embedDim=1536,
+               nHeads=16, numClasses=1000)   # GeneratorVAR's defaults over the neonA tokenizer
+VAR_TRAIN_STEPS = 3              # train -G on the VAR config
 TILE_BATCH_MAX_DIFF = 1          # uint8 levels: cuDNN picks algorithms by batch size, so the same
                                  # codes decoded one by one and as a batch of 6 round differently
 
@@ -1189,6 +1225,522 @@ def train11(torch, np, tmp: Path, img, smi: str, neonCheckpoint: Path, lengths) 
             "busy_ms": busy, "wall_ms": wall, "peak_gib": peak}
 
 
+def paramChecksum(torch, tensors) -> int:
+    """The sum of every float's bits read as int32: any changed bit in any
+    tensor changes it (bar compensating changes)."""
+    return int(sum(int(t.detach().float().contiguous().view(torch.int32).long().sum())
+                   for t in tensors))
+
+
+def ddpCase(torch, np, case: str, config: Path, device: str = "cuda") -> dict:
+    """One rank's run of a phase-12 case (or the one-process reference
+    outside a process group): DDP_STEPS steps through the trainer on this
+    rank's rows of the same DDP_GLOBAL_BATCH images per step; per step the
+    metrics, the parameters' checksum, the seconds and the K1 launches;
+    rank 0's validation's K1 and K2 launches per image (rd_qp2)."""
+    from mcquic_tpu_torch import parallel
+    from mcquic_tpu_torch.config import Config
+    from mcquic_tpu_torch.ops.subpixel_cuda import conv3x3SubpixelThin
+    from mcquic_tpu_torch.ops.vq_cuda import vqNearest
+    cfg = Config.load(str(config))
+    rank, world = parallel.rank(), parallel.world()
+    n = DDP_GLOBAL_BATCH // world
+    rows = slice(rank * n, (rank + 1) * n)
+    trainSet = cfg.Train.TrainSet
+    if case == "gen":
+        from mcquic_tpu_torch.data.imagenet_classes import getGenLoader
+        from mcquic_tpu_torch.train.genTrainer import GenTrainer
+        trainer = GenTrainer(cfg, device=device)
+        loaderFn = getGenLoader(trainSet, DDP_GLOBAL_BATCH, cropSize=256)
+        tensors = [p for p in trainer.model.parameters() if p.requires_grad]
+    else:
+        from mcquic_tpu_torch.data import getTrainLoader
+        from mcquic_tpu_torch.train.trainer import Trainer
+        trainer = Trainer(cfg, device=device)
+        loaderFn = getTrainLoader(trainSet, DDP_GLOBAL_BATCH, cropSize=trainer.inputSize)
+        tensors = list(trainer.model.state_dict().values())
+    batches = []
+    while len(batches) < DDP_STEPS:                    # the whole set on every rank, by epochs
+        epoch = list(loaderFn())
+        if not epoch:
+            raise AssertionError(f"{trainSet} holds no batch of {DDP_GLOBAL_BATCH}")
+        batches += epoch
+    batches = batches[:DDP_STEPS]
+    out = {"rank": rank, "world": world, "metrics": [], "checksums": [], "seconds": [], "K1": [],
+           "val": None}
+    trainStep = trainer.trainStep
+
+    def step(*args):
+        vqNearest.launches = 0
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        metrics = trainStep(*args)
+        torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - start)
+        if len(out["seconds"]) == 1:              # the peak after cuDNN's autotuning
+            torch.cuda.reset_peak_memory_stats()
+        out["K1"].append(vqNearest.launches)
+        out["metrics"].append({k: float(v) for k, v in metrics.items()})
+        out["checksums"].append(paramChecksum(torch, tensors))
+        return metrics
+
+    trainer.trainStep = step
+    if case == "gen":
+        trainer.train(lambda: iter([(b[0][rows], b[1][rows]) for b in batches]))
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    else:
+        from mcquic_tpu_torch.data import getValLoader
+        validate = trainer.validate
+
+        def countedValidate(loader):
+            out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30    # the steps'
+            vqNearest.launches = conv3x3SubpixelThin.launches = 0
+            results = validate(loader)
+            out["val"] = {"K1": vqNearest.launches / results["images"],
+                          "K2": conv3x3SubpixelThin.launches / results["images"]}
+            return results
+
+        trainer.validate = countedValidate
+        trainer.train(lambda: iter([b[rows] for b in batches]),
+                      valLoader=getValLoader(cfg.Train.ValSet))
+        out.setdefault("peak_gib", torch.cuda.max_memory_allocated() / 2 ** 30)
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def ddpWorker(argv) -> int:
+    """`chip_smoke.py --ddp-worker CASE RANK WORLD PORT OUT [CONFIG]`: one
+    rank of phase 12, started by it. CASE rd_qp2 or gen: gloo between the
+    ranks (which share one card), `ddpCase`, its result as JSON in OUT.
+    CASE nccl: NCCL at world WORLD on the one card, one all-reduce; what
+    happened, verbatim, in OUT."""
+    import os
+    case, rank, world, port, out = argv[:5]
+    os.environ.update(MCQUIC_COORDINATOR=f"localhost:{port}", MCQUIC_NUM_PROCESSES=world,
+                      MCQUIC_PROCESS_ID=rank)
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+    from mcquic_tpu_torch import parallel
+    if case == "nccl":
+        try:
+            parallel.initDistributed("cuda")
+            value = torch.full((4,), float(rank) + 1, device="cuda")
+            parallel.allReduceSum_([value])
+            torch.cuda.synchronize()
+            result = {"ok": True, "sum": value.tolist()}
+        except Exception as err:                  # the outcome is the measurement
+            result = {"ok": False, "error": f"{type(err).__name__}: {err}"}
+        finally:
+            parallel.destroy()
+        Path(out).write_text(json.dumps(result))
+        return 0
+    parallel.initDistributed("cuda", backend="gloo")
+    try:
+        result = ddpCase(torch, np, case, Path(argv[5]))
+    finally:
+        parallel.destroy()
+    Path(out).write_text(json.dumps(result))
+    return 0
+
+
+def startRanks(case: str, world: int, tmp: Path, config=None) -> list:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    return [(subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--ddp-worker", case,
+                               str(r), str(world), str(port), str(tmp / f"{case}_rank{r}.json")]
+                              + ([str(config)] if config else []),
+                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+             tmp / f"{case}_rank{r}.json") for r in range(world)]
+
+
+def joinRanks(ranks, timeout: float) -> list:
+    """Each rank's JSON; a rank that fails or outlives `timeout` fails the
+    phase (all are killed first)."""
+    deadline = time.perf_counter() + timeout
+    errors = []
+    for proc, _ in ranks:
+        try:
+            _, err = proc.communicate(timeout=max(deadline - time.perf_counter(), 1))
+            if proc.returncode != 0:
+                errors.append(f"exit {proc.returncode}: {err[-3000:]}")
+        except subprocess.TimeoutExpired:
+            errors.append("timed out")
+    for proc, _ in ranks:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if errors:
+        raise RuntimeError(f"phase-12 ranks failed: {errors}")
+    return [json.loads(path.read_text()) for _, path in ranks]
+
+
+def ddp12(torch, np, tmp: Path, smi: str, shards: str, val: Path, classes: Path,
+          neonCheckpoint: Path) -> dict:
+    """Phase 12: data parallelism on the one card. (a) the train CLI's
+    `main` on rd_qp2 at world 1 under the three variables (NCCL) against
+    the same run without them, in one process so that cuDNN's algorithm
+    choices are the same; (b) two ranks sharing the card over gloo against
+    one process at the global batch, rd_qp2 and gen_stage2_neonA at full
+    width; (c) NCCL at world 2 on the one card."""
+    import logging
+    import os
+    import socket
+    from mcquic_tpu_torch.config import Config
+    from mcquic_tpu_torch.train import cli as trainCli
+    from mcquic_tpu_torch.utils.convert import readExport
+
+    # (a) world 1 under NCCL against no variables, the same config
+    data = Config.load(str(RD_QP2)).serialize()
+    data["train"].update(totalStep=DDP_CLI_STEPS, valFreq=DDP_CLI_STEPS, trainSet=shards,
+                         valSet=str(tmp / "no_validation"), hooks=[])
+    joined = []
+
+    class Joined(logging.Handler):
+        def emit(self, record):
+            joined.append(record.getMessage())
+
+    handler = Joined()
+    parallelLog = logging.getLogger("mcquic_tpu_torch.parallel")
+    parallelLog.addHandler(handler)
+    parallelLog.setLevel(logging.INFO)
+    checkpoints, seconds = {}, {}
+    try:
+        for name in ("plain", "nccl"):
+            config = writeConfig(tmp / f"rd_qp2_{name}.yaml",
+                                 dict(data, train=dict(data["train"],
+                                                       saveDir=str(tmp / f"cli_{name}"))))
+            if name == "nccl":
+                with socket.socket() as s:
+                    s.bind(("localhost", 0))
+                    port = s.getsockname()[1]
+                os.environ.update(MCQUIC_COORDINATOR=f"localhost:{port}",
+                                  MCQUIC_NUM_PROCESSES="1", MCQUIC_PROCESS_ID="0")
+            start = time.perf_counter()
+            try:
+                trainCli.main(config, device="cuda")
+            finally:
+                for key in ("MCQUIC_COORDINATOR", "MCQUIC_NUM_PROCESSES", "MCQUIC_PROCESS_ID"):
+                    os.environ.pop(key, None)
+            seconds[name] = time.perf_counter() - start
+            checkpoints[name], _ = readExport(tmp / f"cli_{name}" / "latest" / "saved.ckpt.npz")
+    finally:
+        parallelLog.removeHandler(handler)
+    a, b = checkpoints["plain"], checkpoints["nccl"]
+    differ = sorted(k for k in a if k not in b or not np.array_equal(a[k], b[k]))
+    print(f"  (a) train CLI main on configs/rd3/rd_qp2.yaml, {DDP_CLI_STEPS} steps: without the "
+          f"variables {seconds['plain']:.1f} s, under MCQUIC_COORDINATOR / MCQUIC_NUM_PROCESSES=1 "
+          f"/ MCQUIC_PROCESS_ID=0 {seconds['nccl']:.1f} s; {joined}; NCCL "
+          f"{torch.cuda.nccl.version()}; checkpoints at step {int(b['step'])}: {len(a)} arrays, "
+          f"{len(differ)} differ {differ[:5]}", flush=True)
+    if differ or set(a) != set(b) or int(b["step"]) != DDP_CLI_STEPS or not any(
+            "over nccl" in m for m in joined):
+        raise AssertionError("the NCCL world-1 run differs from the run without the variables")
+
+    # (b) two ranks on the one card over gloo against one process at batch 8
+    results = {}
+    gen = Config.load(str(GEN_NEON_A_CONFIG)).serialize()
+    gen["model"]["params"]["loadFrom"] = str(neonCheckpoint)
+    for case, base, extra in (("rd_qp2", data, {"valFreq": DDP_STEPS, "valSet": str(val)}),
+                              ("gen", gen, {"valFreq": 1000})):
+        configs = {}
+        for world in (1, 2):
+            train = dict(base["train"], totalStep=DDP_STEPS, batchSize=DDP_GLOBAL_BATCH // world,
+                         trainSet=shards if case == "rd_qp2" else str(classes), hooks=[],
+                         saveDir=str(tmp / f"ddp_{case}") if world == 2 and case == "rd_qp2"
+                         else "", **extra)
+            configs[world] = writeConfig(tmp / f"ddp_{case}_{world}.yaml", dict(base, train=train))
+        start = time.perf_counter()
+        ranks = joinRanks(startRanks(case, 2, tmp, configs[2]), DDP_TIMEOUT)
+        ranksS = time.perf_counter() - start
+        one = ddpCase(torch, np, case, configs[1])
+        first = ranks[0]["metrics"][0]
+        for r in ranks:
+            print(f"  (b) {case} rank {r['rank']}: step seconds "
+                  f"{[round(t, 3) for t in r['seconds']]}", flush=True)
+        gaps = {key: relativeGap(first[key], one["metrics"][0][key]) for key in ("loss", "gradNorm")}
+        sameRanks = ranks[0]["checksums"] == ranks[1]["checksums"]
+        steady = [statistics.median(r["seconds"][1:]) for r in ranks]
+        print(f"  (b) {case}, 2 ranks x batch {DDP_GLOBAL_BATCH // 2} over gloo on the one card "
+              f"({ranksS:.1f} s, processes included) against 1 process x batch {DDP_GLOBAL_BATCH}: "
+              f"first step loss {first['loss']:.8f} against {one['metrics'][0]['loss']:.8f}, grad "
+              f"norm {first['gradNorm']:.8f} against {one['metrics'][0]['gradNorm']:.8f} (gaps "
+              f"{gaps['loss']:.2e}, {gaps['gradNorm']:.2e}; tolerance {TRAIN_CPU_RTOL:g}); the "
+              f"ranks' parameter checksums equal after every step: {sameRanks}; K1 per step "
+              f"{[r['K1'] for r in ranks]}, rank 0's validation {ranks[0]['val']}, rank 1's "
+              f"{ranks[1]['val']}; per rank {[f'{1 / t:.3f}' for t in steady]} steps/s, peak of "
+              f"the steps {[round(r['peak_gib'], 2) for r in ranks]} GiB; one process "
+              f"{1 / statistics.median(one['seconds'][1:]):.3f} steps/s, peak "
+              f"{one['peak_gib']:.2f} GiB. Two ranks sharing one card measure no scaling ({smi})",
+              flush=True)
+        if max(gaps.values()) > TRAIN_CPU_RTOL or not sameRanks or any(
+                m["skipped"] for r in ranks for m in r["metrics"]):
+            raise AssertionError(f"phase 12 (b) {case}: {gaps}, ranks equal {sameRanks}")
+        if case == "rd_qp2" and (ranks[0]["val"] != {"K1": 3, "K2": 1} or ranks[1]["val"]):
+            raise AssertionError(f"the validation ran off rank 0 or missed its kernels: "
+                                 f"{[r['val'] for r in ranks]}")
+        if case == "gen" and any(k != len(NEON_V2_60K["size"]) for r in ranks for k in r["K1"]):
+            raise AssertionError(f"a rank's generator step did not launch K1 per level: "
+                                 f"{[r['K1'] for r in ranks]}")
+        results[case] = {"ranks_steps_per_s": [1 / t for t in steady],
+                         "ranks_peak_gib": [r["peak_gib"] for r in ranks],
+                         "gaps": gaps, "K1": ranks[0]["K1"], "val": ranks[0]["val"]}
+
+    # (c) NCCL at world 2 on the one card: the outcome, verbatim
+    start = time.perf_counter()
+    try:
+        outcome = joinRanks(startRanks("nccl", 2, tmp), NCCL_TIMEOUT)
+    except RuntimeError as err:
+        outcome = [str(err)]
+    print(f"  (c) NCCL at world 2 on the one card ({time.perf_counter() - start:.1f} s): "
+          f"{outcome}", flush=True)
+    results["nccl_world2"] = outcome
+    return results
+
+
+def var13(torch, np, tmp: Path, smi: str, neonCheckpoint: Path, classes: Path, k3: dict) -> dict:
+    """Phase 13: GeneratorVAR at the JAX package's defaults (depth 24, width
+    1536, 16 heads) over the neonA tokenizer: in-process sampling from a
+    seeded checkpoint held to K3's plain version on every call, the card
+    against the CPU at depth 2 with the same Gumbel noise, K3 timed at the
+    last level, the first training step against the CPU at depth 2, `train
+    -G` on a VAR config through the CLI's `main`, and the generate CLI on
+    its checkpoint."""
+    import mcquic_tpu_torch.models.generator_var as varModule
+    from torch.profiler import ProfilerActivity, profile
+    from mcquic_tpu_torch.config import Config
+    from mcquic_tpu_torch.data.augment import augmentDraws, trainingTransform
+    from mcquic_tpu_torch.data.imagenet_classes import getGenLoader
+    from mcquic_tpu_torch.generate import loadGenerator, writeSeededGenerator
+    from mcquic_tpu_torch.models.generator_var import GeneratorVAR
+    from mcquic_tpu_torch.ops.attention import flashAttentionPlain
+    from mcquic_tpu_torch.ops.attention_cuda import flashAttention
+    from mcquic_tpu_torch.ops.vq_cuda import vqNearest
+    from mcquic_tpu_torch.train import cli as trainCli
+    from mcquic_tpu_torch.train.genTrainer import GenTrainer, makeGenTrainStep
+    from mcquic_tpu_torch.train.optim import Optimizer
+    from mcquic_tpu_torch.utils import exactFp32
+    from mcquic_tpu_torch.utils.profiling import report
+
+    device = torch.device("cuda")
+    start = time.perf_counter()
+    ckpt = writeSeededGenerator(tmp / "var_d24.ckpt.npz", VAR_D24, seed=0, key="GeneratorVAR")
+    model = loadGenerator(ckpt, device="cuda")
+    params = sum(p.numel() for n, p in model.named_parameters() if not n.startswith("compressor."))
+    print(f"  seeded GeneratorVAR {VAR_D24}: {params / 1e9:.3f} B transformer parameters, "
+          f"{ckpt.stat().st_size / 1e9:.2f} GB, written and loaded in "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    levels, depth = len(model.patchNums), model.depth
+    condition = torch.tensor(GEN_CLASSES, device=device)
+    noiseGen = torch.Generator().manual_seed(1)
+    noise = [-torch.log(-torch.log(torch.rand((len(GEN_CLASSES), n, model.k), generator=noiseGen)
+                                   .clamp_min(1e-30))) for n in model.lengths]
+
+    def handed(dev):
+        """The same Gumbel noise, level by level, on `dev`."""
+        queue = iter(noise)
+        return lambda shape: next(queue).to(dev)
+
+    calls = []
+    original = varModule.flashAttention
+
+    def capture(q, k, v, mask=None, scale=None):
+        calls.append((q.clone(), k.clone(), v.clone(), mask, scale))
+        return original(q, k, v, mask, scale)
+
+    varModule.flashAttention = capture
+    try:
+        with exactFp32(), torch.inference_mode():
+            model.generate(condition, cfg=1.5, gumbel=handed(device))
+    finally:
+        varModule.flashAttention = original
+    with torch.inference_mode():
+        worst = max(k3Check(torch, flashAttention, flashAttentionPlain, *call) for call in calls)
+    k3["err"] = max(k3["err"], worst)
+    timesMs = []
+    for _ in range(3):
+        with exactFp32(), torch.inference_mode():
+            flashAttention.launches = 0
+            torch.cuda.synchronize()
+            begin = time.perf_counter()
+            _, restored = model.generate(condition, cfg=1.5, gumbel=handed(device))
+            torch.cuda.synchronize()
+            timesMs.append((time.perf_counter() - begin) * 1e3)
+            launches = flashAttention.launches
+    finite = bool(torch.isfinite(restored).all())
+    with exactFp32(), torch.inference_mode():
+        _, genBusy, genIdle = report(f"  VAR generate, {len(GEN_CLASSES)} classes, cfg 1.5",
+                                     lambda: model.generate(condition, cfg=1.5,
+                                                            gumbel=handed(device)), 3, 6)
+    print(f"  VAR-d24 generate, classes {GEN_CLASSES}, cfg 1.5: "
+          f"{statistics.median(timesMs):.1f} ms (host clock, median of 3, Neon decode included), "
+          f"K3 launches {launches}, K3 within {worst:.2e} of its plain version on all "
+          f"{len(calls)} calls' q/k/v (last q {tuple(calls[-1][0].shape)}, k "
+          f"{tuple(calls[-1][1].shape)}), restored {tuple(restored.shape)} finite {finite} ({smi})",
+          flush=True)
+    if launches != depth * levels or len(calls) != depth * levels or not finite:
+        raise AssertionError(f"VAR generate: {launches} K3 launches, {len(calls)} calls")
+
+    # K3 at VAR's last level, timed beside its plain version and SDPA
+    q, k, v, _, scale = calls[-1]
+    qh, kh, vh = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
+    cycles = sleepCyclesPerMs(torch)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.inference_mode():
+        B, Tq, H, D = q.shape
+        Tk = k.shape[1]
+        flops = 4.0 * B * H * Tq * Tk * D
+        nbytes = 4.0 * (2 * q.numel() + k.numel() + v.numel())
+        k3Var = {"shape": [B, H, Tq, Tk, D],
+                 "ms": medianMs(torch, lambda: flashAttention(q, k, v, None, scale)),
+                 "plain_ms": medianMs(torch, lambda: flashAttentionPlain(q, k, v, None, scale)),
+                 "library_ms": medianMs(torch, lambda: sdpa(qh, kh, vh, scale=scale)),
+                 "device_ms": deviceMs(torch, lambda: flashAttention(q, k, v, None, scale),
+                                       cycles)[0],
+                 "library_device_ms": deviceMs(torch, lambda: sdpa(qh, kh, vh, scale=scale),
+                                               cycles)[0]}
+        k3Var["bound_ms"], k3Var["bound_by"] = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+        k3Var["bound_fp32_ms"] = bound(flops, nbytes)[0]
+    print(f"  K3 at VAR's last level (B {B}, H {H}, Tq {Tq}, Tk {Tk}, D {D}): {k3Var['ms']:.4f} "
+          f"ms, device {k3Var['device_ms']:.4f} ms; plain {k3Var['plain_ms']:.4f}; SDPA "
+          f"{k3Var['library_ms']:.4f}, device {k3Var['library_device_ms']:.4f}; bound "
+          f"{k3Var['bound_ms']:.5f} ms 3xTF32 ({k3Var['bound_by']}), {k3Var['bound_fp32_ms']:.5f} "
+          f"fp32 ({smi})", flush=True)
+    del calls, q, k, v, qh, kh, vh
+
+    # the card against the CPU at depth 2, the same Gumbel noise
+    small = dict(VAR_D24, depth=GEN_CPU_DEPTH)
+    smallState = {key: value.cpu() for key, value in model.state_dict().items()
+                  if not key.startswith("blocks.") or int(key.split(".")[1]) < GEN_CPU_DEPTH}
+    del model
+    torch.cuda.empty_cache()
+    cardSmall, cpuSmall = GeneratorVAR(**small), GeneratorVAR(**small)
+    cardSmall.load_state_dict(smallState)
+    cpuSmall.load_state_dict(smallState)
+    cardSmall, cpuSmall = cardSmall.to(device).eval(), cpuSmall.eval()
+    with exactFp32(), torch.inference_mode():
+        cardCodes = [c.cpu() for c in cardSmall.sampleCodes(condition, cfg=1.5,
+                                                            gumbel=handed(device))]
+        cpuCodes = cpuSmall.sampleCodes(condition.cpu(), cfg=1.5, gumbel=handed("cpu"))
+    same = [torch.equal(a, b) for a, b in zip(cardCodes, cpuCodes)]
+    print(f"  depth {GEN_CPU_DEPTH} at width {VAR_D24['embedDim']}, the same Gumbel noise: card "
+          f"codes equal the CPU's by level {same}", flush=True)
+    if not all(same):
+        raise AssertionError("the card's VAR sampling differs from the CPU plain path")
+    del cardSmall, cpuSmall
+    torch.cuda.empty_cache()
+
+    # train -G on a VAR config: the first step against the CPU at depth 2, then the CLI's main
+    data = {"model": {"key": "GeneratorVAR", "params": dict(VAR_D24, loadFrom=str(neonCheckpoint))},
+            "train": dict(Config.load(str(GEN_NEON_A_CONFIG)).serialize()["train"],
+                          totalStep=VAR_TRAIN_STEPS, valFreq=10 * VAR_TRAIN_STEPS,
+                          trainSet=str(classes), valSet=str(classes), saveDir=str(tmp / "var"))}
+    config = writeConfig(tmp / "var_d24.yaml", data)
+    bs = data["train"]["batchSize"]
+    images, labels = next(iter(getGenLoader(classes, bs, cropSize=256)()))
+    x = trainingTransform(torch.from_numpy(images),
+                          augmentDraws(torch.Generator().manual_seed(0), bs), gen=True)
+    y = torch.from_numpy(labels.astype(np.int64))
+    drop = torch.rand((bs,), generator=torch.Generator().manual_seed(2))
+
+    class Keep(Optimizer):
+        """Applies nothing."""
+
+        def step(self, grads):
+            pass
+
+    first = {}
+    for dev in (torch.device("cpu"), device):
+        copy = GeneratorVAR(**small)
+        copy.load_state_dict(smallState)
+        GenTrainer.loadCompressor(copy, neonCheckpoint)
+        copy = copy.to(dev).train()
+        copy.compressor.requires_grad_(False)
+        keep = Keep([p for p in copy.parameters() if p.requires_grad], lambda step: 0.0)
+        with exactFp32():
+            metrics = makeGenTrainStep(copy, keep)(x.to(dev), y.to(dev),
+                                                   lambda shape: drop.to(dev))
+        first[dev.type] = {key: float(v) for key, v in metrics.items()}
+        del copy, keep
+    gaps = {key: relativeGap(first["cuda"][key], first["cpu"][key]) for key in ("loss", "gradNorm")}
+    print(f"  VAR first step at depth {GEN_CPU_DEPTH}, card vs CPU: loss {first['cuda']['loss']:.8f} "
+          f"/ {first['cpu']['loss']:.8f}, grad norm {first['cuda']['gradNorm']:.8f} / "
+          f"{first['cpu']['gradNorm']:.8f} (gaps {gaps['loss']:.2e}, {gaps['gradNorm']:.2e}; "
+          f"tolerance {TRAIN_CPU_RTOL:g})", flush=True)
+    if max(gaps.values()) > TRAIN_CPU_RTOL:
+        raise AssertionError(f"the VAR step's first loss or grad norm, card vs CPU: {gaps}")
+    del smallState
+    torch.cuda.empty_cache()
+
+    perStep, stepBusy = [], []
+    trainStep = GenTrainer.trainStep
+
+    def countedStep(self, imgs, lbls):
+        """One step of the CLI's trainer, timed and counted; the third also
+        traced, for the card's busy time."""
+        vqNearest.launches = 0
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        if len(perStep) == 2:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                metrics = trainStep(self, imgs, lbls)
+                torch.cuda.synchronize()
+            stepBusy.append(sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                                if e.device_type == torch.autograd.DeviceType.CUDA))
+        else:
+            metrics = trainStep(self, imgs, lbls)
+        torch.cuda.synchronize()
+        perStep.append((time.perf_counter() - begin, vqNearest.launches, float(metrics["loss"]),
+                        float(metrics["skipped"])))
+        if len(perStep) == 1:
+            torch.cuda.reset_peak_memory_stats()
+        return metrics
+
+    GenTrainer.trainStep = countedStep
+    start = time.perf_counter()
+    try:
+        checkpoint = trainCli.main(config, gen=True, device="cuda")
+    finally:
+        GenTrainer.trainStep = trainStep
+    runS = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = perStep[1][0]                        # the second step; the third is traced
+    print(f"  train -G on the VAR config (batch {bs}, {data['train']['optim']}): {len(perStep)} "
+          f"steps in {runS:.1f} s (build, load and the checkpoint's save included), K1 per step "
+          f"{sorted({s[1] for s in perStep})}, losses {[round(s[2], 5) for s in perStep]}, "
+          f"skipped {int(sum(s[3] for s in perStep))}; the second step {steady * 1e3:.1f} ms "
+          f"(first {perStep[0][0] * 1e3:.1f} ms): {1 / steady:.3f} steps/s, device busy "
+          f"{stepBusy[0]:.3f} ms in the third step (traced, {perStep[2][0] * 1e3:.1f} ms host "
+          f"clock); peak after the first step {peak:.2f} GiB; checkpoint "
+          f"{checkpoint.stat().st_size / 1e9:.2f} GB ({smi})", flush=True)
+    if (len(perStep) != VAR_TRAIN_STEPS or {s[1] for s in perStep} != {levels}
+            or any(s[3] for s in perStep) or not all(np.isfinite([s[2] for s in perStep]))):
+        raise AssertionError(f"the VAR training steps: {perStep}")
+    torch.cuda.empty_cache()
+
+    # the trained checkpoint samples through the generate CLI
+    out = tmp / "var_generated"
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mcquic_tpu_torch", "generate", "--cfg", "1.5",
+                           "-c", ",".join(map(str, GEN_CLASSES)), str(checkpoint), str(out)],
+                          cwd=ROOT, capture_output=True, text=True, timeout=CLI_TIMEOUT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"generate --cfg exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    written = sorted(out.glob("*.png"))
+    print(f"  python -m mcquic_tpu_torch generate --cfg 1.5 -c {GEN_CLASSES} on the trained "
+          f"checkpoint: {[p.name for p in written]} in {time.perf_counter() - start:.1f} s "
+          f"(process, load and build included)", flush=True)
+    if len(written) != len(GEN_CLASSES):
+        raise AssertionError("the generate CLI did not write one PNG per class")
+    return {"generate_ms": statistics.median(timesMs), "generate_busy_ms": genBusy,
+            "generate_idle": genIdle, "K3_per_generate": launches, "err": worst, "k3": k3Var,
+            "steps_per_s": 1 / steady, "busy_ms": stepBusy[0], "peak_gib": peak,
+            "K1_per_step": levels}
+
+
 def jpegCheck(np, photo, smi: str) -> dict:
     """The JPEG decoder against the fixture's hashes of PIL's decode, the
     progressive file refused; the photo's q95 bytes and their decode against
@@ -2065,16 +2617,22 @@ def main() -> int:
         del neonEngine
         torch.cuda.empty_cache()
 
-    with Phase("9 stage-1 training"), tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        trainTrace = train9(torch, np, tmp, img, smi, codec)
-
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
+        for sub in ("p9", "p10", "p12", "p13"):
+            (tmp / sub).mkdir()
+        with Phase("9 stage-1 training"):
+            trainTrace = train9(torch, np, tmp / "p9", img, smi, codec)
         with Phase("10 Neon training"):
-            neonTrace = train10(torch, np, tmp, img, smi)
+            neonTrace = train10(torch, np, tmp / "p10", img, smi)
         with Phase("11 generator training"):
-            genTrace = train11(torch, np, tmp, img, smi, neonTrace["checkpoint"], lengths)
+            genTrace = train11(torch, np, tmp / "p10", img, smi, neonTrace["checkpoint"], lengths)
+        with Phase("12 data parallel"):
+            ddpTrace = ddp12(torch, np, tmp / "p12", smi, str(tmp / "p9" / "shards" / "*.tar.gz"),
+                             tmp / "p9" / "val", tmp / "p10" / "classes", neonTrace["checkpoint"])
+        with Phase("13 GeneratorVAR"):
+            varTrace = var13(torch, np, tmp / "p13", smi, neonTrace["checkpoint"],
+                             tmp / "p10" / "classes", k3)
 
     kernels = [
         {"name": "vq_nearest", "route": "cuda", "source": "mcquic_tpu_torch/csrc/vq_encode.cu",
@@ -2088,6 +2646,9 @@ def main() -> int:
          "train_validation_launches_per_image": trainTrace["K1"],
          "neon_train_validation_launches_per_image": neonTrace["K1"],
          "gen_train_launches_per_step": genTrace["K1"],
+         "ddp_gen_launches_per_rank_step": ddpTrace["gen"]["K1"],
+         "ddp_validation_launches_per_image": ddpTrace["rd_qp2"]["val"]["K1"],
+         "var_train_launches_per_step": varTrace["K1_per_step"],
          "neon_device_ms": neonK1["device_ms"], "neon_ms": neonK1["ms"],
          "neon_library_device_ms": neonK1["library_device_ms"],
          "qp12_device_ms": qp12K1["device_ms"],
@@ -2105,6 +2666,7 @@ def main() -> int:
          "bound_fp32_ms": k2["bound_fp32_ms"], "host_us": k2["host_us"],
          "library_host_us": k2["library_host_us"], "batch_device_ms": k2Batch["device_ms"],
          "train_validation_launches_per_image": trainTrace["K2"],
+         "ddp_validation_launches_per_image": ddpTrace["rd_qp2"]["val"]["K2"],
          "batch_library_device_ms": k2Batch["library_device_ms"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "mcquic_tpu_torch/csrc/flash_attention.cu",
@@ -2113,7 +2675,14 @@ def main() -> int:
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": k3["library_ms"],
          "device_ms": k3["device_ms"], "library_device_ms": k3["library_device_ms"],
          "bound_fp32_ms": k3["bound_fp32_ms"], "after_gen_train_launches": genTrace["K3_after"],
-         "gen_train_launches_per_step": genTrace["K3_in_step"]},
+         "gen_train_launches_per_step": genTrace["K3_in_step"],
+         "var_launches_per_generate": varTrace["K3_per_generate"],
+         "var_shape_b_h_tq_tk_d": varTrace["k3"]["shape"], "var_ms": varTrace["k3"]["ms"],
+         "var_device_ms": varTrace["k3"]["device_ms"], "var_plain_ms": varTrace["k3"]["plain_ms"],
+         "var_bound_ms": varTrace["k3"]["bound_ms"], "var_bound_by": varTrace["k3"]["bound_by"],
+         "var_bound_fp32_ms": varTrace["k3"]["bound_fp32_ms"],
+         "var_library_ms": varTrace["k3"]["library_ms"],
+         "var_library_device_ms": varTrace["k3"]["library_device_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2122,4 +2691,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        sys.exit(ddpWorker(sys.argv[2:]))
     sys.exit(main())

@@ -61,6 +61,9 @@ def generateParser() -> argparse.ArgumentParser:
                     "checkpoint (npz + json sidecar) into OUTPUT/class{id}_{i}.png.")
     p.add_argument("-c", "--classes", required=True,
                    help="comma-separated ImageNet class ids to sample")
+    p.add_argument("--cfg", type=float, default=1.5,
+                   help="classifier-free guidance of a GeneratorVAR checkpoint (the other "
+                        "generators take --temperature)")
     p.add_argument("--top-k", type=int, default=0, help="sample from the k largest logits (0: all)")
     p.add_argument("--temperature", type=float, default=1.0)
     p.add_argument("--seed", type=int, default=0)
@@ -115,7 +118,7 @@ def main(argv=None) -> int:
         from mcquic_tpu_torch.generate import main as generate
         for path in generate(args.modelPath, [int(c) for c in args.classes.split(",")],
                              args.output, topK=args.top_k, temperature=args.temperature,
-                             seed=args.seed, device=args.device):
+                             seed=args.seed, device=args.device, cfg=args.cfg):
             print(path)
         return 0
     if argv[:1] == ["train"]:

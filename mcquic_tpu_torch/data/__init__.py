@@ -68,10 +68,14 @@ def checkTrainSet(pattern) -> str:
 
 
 def getTrainLoader(pattern, batchSize: int, cropSize: int = 512, seed: int = 0,
-                   shuffleBuffer: int = 500, prefetch: int = 4):
+                   shuffleBuffer: int = 500, prefetch: int = 4, hostId: int = 0,
+                   hostCount: int = 1):
     """A zero-argument callable returning a fresh epoch's iterator of uint8
     [batchSize, cropSize, cropSize, 3] batches; epoch e shuffles the shards
-    and the samples and crops with seed + e."""
+    and the samples and crops with seed + e. Host `hostId` of `hostCount`
+    reads its share of the tar shards (`TarShards`); a folder is read whole
+    on every host with the same seed, as the JAX loader reads it
+    (`mcquic_tpu/data/__init__.py:55-57`)."""
     src = checkTrainSet(pattern)
     epochBox = [0]
 
@@ -81,7 +85,8 @@ def getTrainLoader(pattern, batchSize: int, cropSize: int = 512, seed: int = 0,
         rng = random.Random(seed + epoch)
 
         def samples():
-            source = TarShards(src, seed=seed + epoch) if isShardPattern(src) else BasicFolder(src)
+            source = (TarShards(src, seed=seed + epoch, hostId=hostId, hostCount=hostCount)
+                      if isShardPattern(src) else BasicFolder(src))
             for img in shuffled(iter(source), shuffleBuffer, seed=seed + epoch):
                 if img.shape[0] < 64 or img.shape[1] < 64:
                     continue

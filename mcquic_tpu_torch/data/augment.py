@@ -17,6 +17,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mcquic_tpu_torch import parallel
+
 PLANCKIAN_COEFFS = np.array([
     [0.6743, 0.4029, 0.0013], [0.6281, 0.4241, 0.1665], [0.5919, 0.4372, 0.2513],
     [0.5623, 0.4457, 0.3154], [0.5376, 0.4515, 0.3672], [0.5163, 0.4555, 0.4103],
@@ -52,15 +54,18 @@ class AugmentDraws(NamedTuple):
 
 
 def augmentDraws(generator: torch.Generator, n: int) -> AugmentDraws:
-    """One batch's random values, drawn from `generator` on its device."""
+    """One batch's random values, drawn from `generator` on its device.
+    Under data parallelism the two batch-wide scalars are drawn whole on
+    every rank and each per-image value at the global batch, of which the
+    rank keeps its own rows (`parallel.shardedRows`)."""
     device = generator.device
     scalars = torch.rand(2, generator=generator, device=device).tolist()
-    return AugmentDraws(min(int(scalars[0] * 4), 3), scalars[1],
-                        torch.rand(n, generator=generator, device=device),
-                        torch.randint(0, len(PLANCKIAN_RATIO), (n,), generator=generator,
-                                      device=device),
-                        torch.rand(n, generator=generator, device=device),
-                        torch.rand(n, generator=generator, device=device))
+    rows = parallel.shardedRows(lambda shape: torch.rand(shape, generator=generator,
+                                                         device=device))
+    illuminants = parallel.shardedRows(lambda shape: torch.randint(
+        0, len(PLANCKIAN_RATIO), shape, generator=generator, device=device))
+    return AugmentDraws(min(int(scalars[0] * 4), 3), scalars[1], rows((n,)), illuminants((n,)),
+                        rows((n,)), rows((n,)))
 
 
 def srgbToLinear(x: torch.Tensor) -> torch.Tensor:

@@ -134,13 +134,17 @@ class TarShards:
     `mcquic_tpu/data/dataset.py:83-120`: every shard the glob matches, in an
     order shuffled with `seed` plus the pass number, its images decoded in
     member order; a sample that does not decode and a shard that cannot be
-    read are skipped."""
+    read are skipped. Host `hostId` of `hostCount` reads every
+    `hostCount`-th shard of the sorted list from its own index on
+    (`shards[hostId::hostCount]`, `mcquic_tpu/data/dataset.py:95`)."""
 
-    def __init__(self, pattern: str, seed: int = 0):
+    def __init__(self, pattern: str, seed: int = 0, hostId: int = 0, hostCount: int = 1):
         shards = sorted(glob.glob(str(pattern)))
         if not shards:
             raise FileNotFoundError(f"No shards match {pattern}")
-        self._shards = shards
+        self._shards = shards[hostId::hostCount]
+        logger.debug("host %d of %d reads %d of %d shards: %s", hostId, hostCount,
+                     len(self._shards), len(shards), [Path(p).name for p in self._shards])
         self._seed = seed
         self._epoch = 0
 

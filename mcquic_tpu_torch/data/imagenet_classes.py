@@ -80,13 +80,18 @@ def shardClassIndex(pattern) -> Dict[str, int]:
     return classIndexFromWnids(wnids)
 
 
-def _genShardLoader(pattern, batchSize: int, cropSize: int, seed: int):
+def _genShardLoader(pattern, batchSize: int, cropSize: int, seed: int, hostId: int = 0,
+                    hostCount: int = 1):
     """(image, label) batches from wnid-keyed tar shards
     (`mcquic_tpu/data/imagenet_classes.py:71-129`): epoch e shuffles the
     shards with `random.Random(seed + e)`, streams their members through the
-    500-sample shuffle and crops with the same generator."""
+    500-sample shuffle and crops with the same generator. Host `hostId` of
+    `hostCount` reads `shards[hostId::hostCount]`; the class index comes from
+    every shard."""
     index = shardClassIndex(pattern)
-    allShards = sorted(glob.glob(str(pattern)))
+    allShards = sorted(glob.glob(str(pattern)))[hostId::hostCount]
+    if not allShards:
+        raise FileNotFoundError(f"No shards for host {hostId} in {pattern}")
     epochBox = [0]
 
     def loaderFn():
@@ -125,22 +130,26 @@ def _genShardLoader(pattern, batchSize: int, cropSize: int, seed: int):
     return loaderFn
 
 
-def getGenLoader(root, batchSize: int, cropSize: int = 256, seed: int = 0):
+def getGenLoader(root, batchSize: int, cropSize: int = 256, seed: int = 0, hostId: int = 0,
+                 hostCount: int = 1):
     """A zero-argument callable returning a fresh epoch's iterator of
     (uint8 images [n, s, s, 3], int32 labels [n]) from class folders or
     wnid-keyed tar shards; epoch e shuffles and crops with
     `random.Random(seed + e)`, as the JAX loader does. Images under half the
     crop size and files that do not decode are skipped; a short last batch
-    is dropped."""
+    is dropped. Host `hostId` of `hostCount` reads every `hostCount`-th
+    shard, or every `hostCount`-th file of the class folders, from its own
+    index on (`mcquic_tpu/data/imagenet_classes.py:85-87`, `:154`)."""
     if isShardPattern(root):
-        return _genShardLoader(str(root), batchSize, cropSize, seed)
-    files = classFiles(root)
-    if not files:
-        raise FileNotFoundError(f"No class-labeled images under {root}")
-    others = [f for f, _ in files if f.suffix.lower() in UNREAD_EXTENSIONS]
+        return _genShardLoader(str(root), batchSize, cropSize, seed, hostId, hostCount)
+    allFiles = classFiles(root)
+    others = [f for f, _ in allFiles if f.suffix.lower() in UNREAD_EXTENSIONS]
     if others:
         raise ValueError(f"trainSet {str(root)!r} holds {len(others)} BMP or WebP images (e.g. "
                          f"{others[0]}); this package decodes PNG and baseline JPEG only")
+    files = allFiles[hostId::hostCount]
+    if not files:
+        raise FileNotFoundError(f"No class-labeled images under {root}")
     epochBox = [0]
 
     def loaderFn():

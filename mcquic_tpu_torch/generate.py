@@ -11,7 +11,10 @@ coder (a trainer's step, optimizer state, rng) are not read.
 Sampling draws from an explicit `torch.Generator` seeded with `seed`, so one
 seed gives the same images on one device; the JAX package draws other
 samples from the same seed. Greedy decoding (`model.generate` with no
-generator) is the same function in both packages.
+generator) is the same function in both packages. A `GeneratorVAR`
+checkpoint samples with classifier-free guidance `cfg` and `topK`, the
+others with `temperature` and `topK`, as `mcquic_tpu/generate.py:43-49`
+routes them.
 """
 import logging
 from pathlib import Path
@@ -23,7 +26,7 @@ import torch
 from mcquic_tpu_torch.data.png import writePng
 from mcquic_tpu_torch.data.transforms import modelOutputToImage
 import mcquic_tpu_torch
-from mcquic_tpu_torch.models.generator import GENERATORS, GeneratorV3SelfAttention
+from mcquic_tpu_torch.models.generator_var import STAGE2_MODELS, GeneratorVAR
 from mcquic_tpu_torch.utils import exactFp32, resolveDevice
 from mcquic_tpu_torch.utils.convert import (fromJaxGeneratorParams, halvingOf, readExport,
                                             toJaxGeneratorParams, writeExport)
@@ -36,6 +39,10 @@ logger = logging.getLogger("mcquic_tpu_torch.generate")
 TAKEN = ("channel", "k", "size", "qk_norm", "norm_eps", "hiddenSize", "depth", "nHeads",
          "numClasses", "useAda", "remat")
 DROPPED = ("loadFrom", "capDim")
+# `GeneratorVAR`'s fields; like the JAX package's `constructGenerator`, its
+# loader drops any other config param (a shared schema's qk_norm, say)
+VAR_TAKEN = ("channel", "k", "size", "depth", "embedDim", "nHeads", "numClasses", "condDropRate",
+             "normEps", "attnL2Norm")
 
 # The generator the repo last trained, configs/rd5/gen_stage2_neonA.yaml, over
 # the tokenizer of configs/rd5/neon_v2_60k.yaml: 426 tokens over 9 levels,
@@ -50,12 +57,17 @@ def generatorConfig(meta: dict):
         raise RuntimeError("the checkpoint's sidecar lacks its config")
     model = meta["config"]["model"]
     key, params = model["key"], dict(model.get("params") or {})
-    if key not in GENERATORS:
+    if key not in STAGE2_MODELS:
         raise NotImplementedError(f"generator `{key}` is not ported to mcquic_tpu_torch "
-                                  f"(ported: {sorted(GENERATORS)})")
+                                  f"(ported: {sorted(STAGE2_MODELS)})")
     for name in ("textConditioned", "denseNorm"):
         if params.pop(name, False):
             raise NotImplementedError(f"{key} with {name}=True is not ported")
+    if key == "GeneratorVAR":
+        dropped = sorted(set(params) - set(VAR_TAKEN) - set(DROPPED))
+        if dropped:
+            logger.info("ignoring config params not taken by GeneratorVAR: %s", dropped)
+        return key, {name: params[name] for name in VAR_TAKEN if name in params}
     unknown = sorted(set(params) - set(TAKEN) - set(DROPPED))
     if unknown:
         raise ValueError(f"{key}: config params {unknown} are not taken")
@@ -65,39 +77,43 @@ def generatorConfig(meta: dict):
 def loadGenerator(path, device="cuda") -> torch.nn.Module:
     """A generator checkpoint -> the port's generator on `device`, fp32, eval."""
     device = resolveDevice(device)
-    flat, meta = readExport(Path(path))
+    flat, meta = readExport(Path(path), ("params/", "coder/"))
     key, kwargs = generatorConfig(meta)
-    flat = {k: v for k, v in flat.items() if k.startswith(("params/", "coder/"))}
-    model = GENERATORS[key](**kwargs)
+    with torch.device(device):                  # the default init runs on the card
+        model = STAGE2_MODELS[key](**kwargs)
     model.load_state_dict(fromJaxGeneratorParams(flat), strict=True)
     return model.to(device).eval().requires_grad_(False)
 
 
 def sample(model, classIds: Sequence[int], seed: int = 0, temperature: float = 1.0,
-           topK: int = 0):
+           topK: int = 0, cfg: float = 1.5):
     """Class ids -> (codes small -> large, uint8 NHWC images) on the model's
     device, fp32 with TF32 off, drawn with a `torch.Generator` seeded with
-    `seed`."""
+    `seed`: `GeneratorVAR` with guidance `cfg`, the others at
+    `temperature`."""
     bad = [c for c in classIds if c > model.numClasses]
     if bad:
         raise ValueError(f"class ids {bad} are past the model's {model.numClasses} classes "
                          "(-1 or numClasses picks the null class)")
-    device = model.levelEmbed.device
+    device = next(model.parameters()).device
     generator = torch.Generator(device=device).manual_seed(seed)
     with exactFp32(), torch.inference_mode():
         condition = torch.tensor(list(classIds), dtype=torch.int64, device=device)
-        codes, restored = model.generate(condition, generator, temperature, topK)
+        if isinstance(model, GeneratorVAR):
+            codes, restored = model.generate(condition, generator, cfg=cfg, topK=topK)
+        else:
+            codes, restored = model.generate(condition, generator, temperature, topK)
         images = modelOutputToImage(restored.permute(0, 2, 3, 1).cpu().numpy())
     return codes, images
 
 
 def main(modelPath, classIds: Sequence[int], outputDir, topK: int = 0,
-         temperature: float = 1.0, seed: int = 0, device="cuda") -> List[Path]:
+         temperature: float = 1.0, seed: int = 0, device="cuda", cfg: float = 1.5) -> List[Path]:
     """Sample one image per class id into `outputDir/class{id}_{i}.png`."""
     model = loadGenerator(modelPath, device)
     outputDir = Path(outputDir)
     outputDir.mkdir(parents=True, exist_ok=True)
-    _, images = sample(model, classIds, seed, temperature, topK)
+    _, images = sample(model, classIds, seed, temperature, topK, cfg)
     outputs = []
     for i, (cid, img) in enumerate(zip(classIds, images)):
         out = outputDir / f"class{cid}_{i}.png"
@@ -107,14 +123,16 @@ def main(modelPath, classIds: Sequence[int], outputDir, topK: int = 0,
     return outputs
 
 
-def seededGeneratorState(geometry: dict, seed: int = 0) -> dict:
+def seededGeneratorState(geometry: dict, seed: int = 0,
+                         key: str = "GeneratorV3SelfAttention") -> dict:
     """A generator state dict of numpy-seeded fp32 values, none zero: convs
     and linears at U(+-1/sqrt(fan_in)), norm scales near 1, GDN reparams near
-    their init, cross-attention gates of both signs, the Neon codebook at its
-    init scale. With these, the self-attention reaches the logits (the adaLN
-    gates are not zero) and the Neon decoder's output stays finite."""
+    their init, cross-attention gates of both signs, VAR's attention scales
+    near its init's log 4, the Neon codebook at its init scale. With these,
+    the self-attention reaches the logits (the adaLN gates are not zero) and
+    the Neon decoder's output stays finite. `key` names the generator."""
     with torch.device("meta"):
-        shapes = {k: tuple(v.shape) for k, v in GeneratorV3SelfAttention(**geometry)
+        shapes = {k: tuple(v.shape) for k, v in STAGE2_MODELS[key](**geometry)
                   .state_dict().items()}
     rng = np.random.default_rng(seed)
     state = {}
@@ -133,6 +151,8 @@ def seededGeneratorState(geometry: dict, seed: int = 0) -> dict:
         elif "._freqEMA." in key:
             value = rng.uniform(0.1, 1, shape)
             value /= value.sum(-1, keepdims=True)
+        elif name == "scaleLogit":
+            value = np.log(4.0) + rng.uniform(-0.1, 0.1, shape)
         elif name == "gate":
             value = rng.uniform(0.3, 1.0, shape) * rng.choice([-1, 1], shape)
         elif name == "_codebook":
@@ -143,12 +163,18 @@ def seededGeneratorState(geometry: dict, seed: int = 0) -> dict:
     return state
 
 
-def writeSeededGenerator(path, geometry: dict = GEN_STAGE2_NEON_A, seed: int = 0) -> Path:
-    """A `GeneratorV3SelfAttention` checkpoint of seeded weights
-    (`seededGeneratorState`) in the JAX package's format, for runs that have
-    no trained checkpoint."""
-    flat = toJaxGeneratorParams(seededGeneratorState(geometry, seed), halvingOf(geometry["size"]),
-                                geometry["depth"])
-    config = {"model": {"key": "GeneratorV3SelfAttention", "params": dict(geometry)}}
+def writeSeededGenerator(path, geometry: dict = GEN_STAGE2_NEON_A, seed: int = 0,
+                         key: str = "GeneratorV3SelfAttention") -> Path:
+    """A generator checkpoint of seeded weights (`seededGeneratorState`) in
+    the JAX package's format, for runs that have no trained checkpoint;
+    `key` is `GeneratorV3SelfAttention` or `GeneratorVAR`."""
+    state = seededGeneratorState(geometry, seed, key)
+    halving = halvingOf(geometry["size"])
+    if key == "GeneratorVAR":
+        flat = toJaxGeneratorParams(state, halving, geometry.get("depth", 24), var=True,
+                                    attnL2Norm=geometry.get("attnL2Norm", True))
+    else:
+        flat = toJaxGeneratorParams(state, halving, geometry["depth"])
+    config = {"model": {"key": key, "params": dict(geometry)}}
     return writeExport(path, flat, {"config": config, "version": mcquic_tpu_torch.__version__,
                                     "seed": seed})

@@ -17,7 +17,7 @@ call: kernel K1 on CUDA. The training forward (`UMGMQuantizer.forward`,
 `quantizer.py:149-178`) computes logits, samples hard Gumbel-softmax codes
 with the frequency-biased drop, decodes the soft samples through the heads,
 and, in training mode, moves `freqEMA` toward this batch's code counts (ema
-0.9). Its uniforms come from a `draw` function (`ops/vq.py::draws`), called
+0.9; the global batch's under data parallelism, `emaUpdates`). Its uniforms come from a `draw` function (`ops/vq.py::draws`), called
 per level for the drop, then for the Gumbel noise, in the order the JAX
 package draws them.
 """
@@ -26,6 +26,7 @@ from typing import Callable, List, Mapping, Sequence, Tuple
 import torch
 from torch import nn
 
+from mcquic_tpu_torch import parallel
 from mcquic_tpu_torch.nn import (AttentionBlock, ResidualBlock, ResidualBlockShuffle,
                                  ResidualBlockWithStride, conv1x1)
 from mcquic_tpu_torch.nn.functional import EPS, gumbelSoftmax, lowerBound
@@ -51,14 +52,23 @@ def sample(x: torch.Tensor, codebook: torch.Tensor, temperature: torch.Tensor,
 
 
 @torch.no_grad()
-def emaUpdate(freqEMA: torch.Tensor, codes: torch.Tensor, ema: float = EMA):
-    """freqEMA [m, k] <- (1 - ema) * this batch's normalized counts of codes
-    [n, m, h, w] + ema * freqEMA, in place (`_emaCounts` / `_emaUpdate`,
-    `quantizer.py:71-78`)."""
-    m = freqEMA.shape[0]
-    index = codes.transpose(0, 1).reshape(m, -1).long()
-    counts = torch.zeros_like(freqEMA).scatter_add_(1, index, torch.ones_like(index, dtype=freqEMA.dtype))
-    freqEMA.copy_((1 - ema) * (counts / counts.sum(-1, keepdim=True)) + ema * freqEMA)
+def emaUpdates(frequencies: Sequence[torch.Tensor], codes: Sequence[torch.Tensor],
+               ema: float = EMA):
+    """Each freqEMA [m, k] <- (1 - ema) * the global batch's normalized
+    counts of its codes [n, m, h, w] + ema * freqEMA, in place (`_emaCounts`
+    / `_emaUpdate`, `quantizer.py:71-78`). Under data parallelism the counts
+    are summed over the ranks (one collective for every level) before they
+    are normalized, as the JAX package sums the one-hot counts over the
+    batch-sharded global batch; every rank then holds the same tables."""
+    counts = []
+    for freqEMA, code in zip(frequencies, codes):
+        m = freqEMA.shape[0]
+        index = code.transpose(0, 1).reshape(m, -1).long()
+        counts.append(torch.zeros_like(freqEMA).scatter_add_(
+            1, index, torch.ones_like(index, dtype=freqEMA.dtype)))
+    parallel.allReduceSum_(counts)
+    for freqEMA, count in zip(frequencies, counts):
+        freqEMA.copy_((1 - ema) * (count / count.sum(-1, keepdim=True)) + ema * freqEMA)
 
 
 class _CodebookQuantizer(nn.Module):
@@ -171,8 +181,7 @@ class UMGMQuantizer(nn.Module):
                 q = q + level._sideHead(formerLevel)
             formerLevel = level._restoreHead(q)
         if self.training:
-            for freq, code in zip(self._entropyCoder._freqEMA, codes):
-                emaUpdate(freq, code)
+            emaUpdates(self.frequencies(), codes)
         return formerLevel, codes, logits
 
 
@@ -327,6 +336,5 @@ class ResidualBackwardQuantizer(nn.Module):
         for level, quantized in enumerate(quantizeds):
             formerLevel = self._decoders[L - 1 - level](formerLevel + quantized)
         if self.training:
-            for freq, code in zip(self._entropyCoder._freqEMA, codes):
-                emaUpdate(freq, code, self.EMA)
+            emaUpdates(self.frequencies(), codes, self.EMA)
         return formerLevel, codes, logits

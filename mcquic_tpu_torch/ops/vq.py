@@ -22,6 +22,7 @@ from typing import Callable, Tuple
 
 import torch
 
+from mcquic_tpu_torch import parallel
 from mcquic_tpu_torch.nn.functional import EPS
 
 CHUNK = 1024
@@ -122,8 +123,12 @@ Draw = Callable[[Tuple[int, ...]], torch.Tensor]
 
 
 def draws(generator: torch.Generator) -> Draw:
-    """shape -> fp32 uniforms in [0, 1) on the generator's device, drawn from it."""
-    return lambda shape: torch.rand(shape, generator=generator, device=generator.device)
+    """shape -> fp32 uniforms in [0, 1) on the generator's device, drawn from
+    it. Every shape the quantizers draw leads with the batch, so under data
+    parallelism each rank draws the global batch's and keeps its own rows
+    (`parallel.shardedRows`)."""
+    return parallel.shardedRows(
+        lambda shape: torch.rand(shape, generator=generator, device=generator.device))
 
 
 def vqLogits(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:

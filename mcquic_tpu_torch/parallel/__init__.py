@@ -1,0 +1,162 @@
+"""Data-parallel training across processes (counterpart of
+`mcquic_tpu/parallel/__init__.py` and of `mcquic_tpu/train/cli.py:33-51`,
+`_maybeInitDistributed`).
+
+One process drives one card. The processes find each other through the JAX
+package's variables:
+  * MCQUIC_COORDINATOR, `host:port` of rank 0's rendezvous;
+  * MCQUIC_NUM_PROCESSES, the world size;
+  * MCQUIC_PROCESS_ID, this process's rank.
+`initDistributed` reads them and starts `torch.distributed` over TCP: NCCL
+when the training device is CUDA, gloo on the CPU. With none of them set
+nothing starts and every helper below is a no-op, so a run on one process
+is the run it was before. `MCQUIC_MULTIHOST=auto` (the JAX package's
+Cloud-TPU metadata path) is refused.
+
+What the JAX package gets from one SPMD program under `jit`, the port does
+by hand (`train/state.py`): each rank runs the step on its slice of the
+global batch, the gradients and the logged metrics are averaged across
+ranks in one flat buffer, and the quantizers' code counts are summed before
+they are normalized (`models/quantizer.py::emaUpdates`). Every rank seeds
+the same generator and draws the batch-axis random values at the global
+batch (`shardedRows`), so world w at batch n computes what one process
+computes at batch w * n, up to the order of the sums.
+
+The JAX package's ZeRO sharding of the optimizer state (`zeroShardings`)
+and its tensor-parallel specs (`generatorShardings`) are not ported
+(ROADMAP A2).
+"""
+import logging
+import os
+from typing import List, Sequence
+
+import torch
+import torch.distributed as dist
+
+logger = logging.getLogger("mcquic_tpu_torch.parallel")
+
+VARIABLES = ("MCQUIC_COORDINATOR", "MCQUIC_NUM_PROCESSES", "MCQUIC_PROCESS_ID")
+
+__all__ = ["VARIABLES", "initDistributed", "destroy", "initialized", "rank", "world", "isMain",
+           "localDevice", "barrier", "allReduceSum_", "allReduceMean_", "broadcastObject",
+           "shardedRows"]
+
+
+def initDistributed(device="cuda", backend=None) -> bool:
+    """Start the process group from MCQUIC_COORDINATOR, MCQUIC_NUM_PROCESSES
+    and MCQUIC_PROCESS_ID; True when it started. `backend` defaults to NCCL
+    for a CUDA `device` and gloo otherwise. On CUDA, rank r drives
+    `cuda:{r % torch.cuda.device_count()}`."""
+    if os.environ.get("MCQUIC_MULTIHOST", "").lower() == "auto":
+        raise NotImplementedError(
+            "MCQUIC_MULTIHOST=auto is the JAX package's Cloud-TPU metadata path; this package "
+            "starts from " + ", ".join(VARIABLES) + " (host:port of rank 0, the number of "
+            "processes, this process's rank)")
+    coordinator = os.environ.get("MCQUIC_COORDINATOR")
+    if not coordinator:
+        return False
+    missing = [name for name in VARIABLES[1:] if name not in os.environ]
+    if missing:
+        raise ValueError(f"MCQUIC_COORDINATOR is set but {', '.join(missing)} is not")
+    worldSize = int(os.environ["MCQUIC_NUM_PROCESSES"])
+    rankId = int(os.environ["MCQUIC_PROCESS_ID"])
+    if not 0 <= rankId < worldSize:
+        raise ValueError(f"MCQUIC_PROCESS_ID {rankId} is outside [0, {worldSize})")
+    device = torch.device(device)
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+    if device.type == "cuda":
+        torch.cuda.set_device(rankId % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator}", world_size=worldSize,
+                            rank=rankId)
+    logger.info("rank %d of %d joined %s over %s", rankId, worldSize, coordinator, backend)
+    return True
+
+
+def destroy():
+    """Leave the process group, where one was started."""
+    if initialized():
+        dist.destroy_process_group()
+
+
+def initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def rank() -> int:
+    return dist.get_rank() if initialized() else 0
+
+
+def world() -> int:
+    return dist.get_world_size() if initialized() else 1
+
+
+def isMain() -> bool:
+    return rank() == 0
+
+
+def localDevice(device: torch.device) -> torch.device:
+    """The card this rank drives: `cuda:{rank % cards}` for a CUDA device
+    without an index inside a process group, `device` otherwise."""
+    if device.type == "cuda" and device.index is None and initialized():
+        return torch.device("cuda", rank() % torch.cuda.device_count())
+    return device
+
+
+def barrier():
+    if initialized():
+        dist.barrier()
+
+
+def allReduceSum_(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Sum each tensor over the ranks, in place, through one flat buffer per
+    dtype (one collective each, at world 1 too). A no-op without a process
+    group."""
+    tensors = list(tensors)
+    if not initialized() or not tensors:
+        return tensors
+    byType = {}
+    for t in tensors:
+        byType.setdefault(t.dtype, []).append(t)
+    for group in byType.values():
+        flat = torch.cat([t.reshape(-1) for t in group])
+        dist.all_reduce(flat)
+        offset = 0
+        for t in group:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+    return tensors
+
+
+def allReduceMean_(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The mean over the ranks of each tensor, in place (`allReduceSum_`,
+    then a division by the world size). A no-op without a process group."""
+    tensors = allReduceSum_(tensors)
+    if world() > 1 and tensors:
+        torch._foreach_div_(tensors, float(world()))
+    return tensors
+
+
+def broadcastObject(obj):
+    """Rank 0's `obj` on every rank (picklable; a path, a number)."""
+    if not initialized():
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def shardedRows(draw):
+    """A draw function (shape -> tensor) for values whose leading axis is
+    the batch: it draws world x the rows and keeps this rank's slice
+    [rank * n, (rank + 1) * n), so every rank's generator stays in step and
+    the ranks' slices together are one process's draw at the global batch."""
+    if world() == 1:
+        return draw
+    r, w = rank(), world()
+
+    def sharded(shape):
+        n = shape[0]
+        return draw((w * n, *shape[1:]))[r * n:(r + 1) * n]
+
+    return sharded

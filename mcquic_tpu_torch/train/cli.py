@@ -6,18 +6,27 @@ train.
     pyramid) trains on `trainSet`, tar shards (a glob, `.tar` or `.tar.gz`)
     or a folder of PNG and JPEG images, validates on `valSet` where it
     exists, and writes the deploy model beside the checkpoints.
-  * Stage 2 (`gen`, `-G`) trains `GeneratorV3SelfAttention` or its NoAda
-    variant over the frozen tokenizer of `loadFrom`, on class folders of
-    PNG or JPEG images or wnid-keyed tar shards
+  * Stage 2 (`gen`, `-G`) trains `GeneratorV3SelfAttention`, its NoAda
+    variant or `GeneratorVAR` over the frozen tokenizer of `loadFrom`, on
+    class folders of PNG or JPEG images or wnid-keyed tar shards
     (`data/imagenet_classes.py::getGenLoader`, 256x256 crops); it
-    returns the checkpoint, which `generate` samples from. `GeneratorVAR` is
-    not ported (ROADMAP A7).
+    returns the checkpoint, which `generate` samples from.
 A config's `externalLib` (user files that extend the JAX package's
 registries) is refused: this package has no registries to extend.
+
+Several processes train one model data-parallel when MCQUIC_COORDINATOR
+(`host:port`), MCQUIC_NUM_PROCESSES and MCQUIC_PROCESS_ID are set, one
+process per card (`parallel.initDistributed`, as `mcquic_tpu/train/cli.py:54`
+starts `jax.distributed`). `batchSize` is per process, so the global batch
+is `batchSize` x the number of processes (`mcquic_tpu/train/cli.py:79-80`);
+each process reads its share of the tar shards or class files
+(`hostId`, `hostCount`), and only rank 0 writes the checkpoints and the
+deploy model.
 """
 import logging
 from pathlib import Path
 
+from mcquic_tpu_torch import parallel
 from mcquic_tpu_torch.config import Config
 from mcquic_tpu_torch.data import getTrainLoader, getValLoader
 from mcquic_tpu_torch.train.trainer import Trainer
@@ -31,19 +40,30 @@ GEN_CROP = 256                   # `mcquic_tpu/train/cli.py:88-90`
 def main(configPath, gen: bool = False, device="cuda") -> Path:
     """Train; returns the deploy model's path (stage 1) or the checkpoint's
     (stage 2)."""
-    config = Config.load(str(configPath))
+    parallel.initDistributed(device)
+    try:
+        config = Config.load(str(configPath))
+        train = config.Train
+        if train.ExternalLib:
+            raise NotImplementedError(f"externalLib {train.ExternalLib} is not supported by this "
+                                      "package")
+        if gen:
+            return trainGenerator(config, device)
+        if config.Model.Key in STAGE2:
+            raise ValueError(f"{config.Model.Key} is a stage-2 model: train it with -G/--gen")
+        return trainStage1(config, device)
+    finally:
+        parallel.destroy()
+
+
+def trainStage1(config: Config, device="cuda") -> Path:
     train = config.Train
-    if train.ExternalLib:
-        raise NotImplementedError(f"externalLib {train.ExternalLib} is not supported by this package")
-    if gen:
-        return trainGenerator(config, device)
-    if config.Model.Key in STAGE2:
-        raise ValueError(f"{config.Model.Key} is a stage-2 model: train it with -G/--gen")
     trainer = Trainer(config, device=device)
     try:
         if trainer.tryResume():
             logger.info("auto-resumed training from %s", train.SaveDir)
-        loaderFn = getTrainLoader(train.TrainSet, train.BatchSize, cropSize=trainer.inputSize)
+        loaderFn = getTrainLoader(train.TrainSet, train.BatchSize, cropSize=trainer.inputSize,
+                                  hostId=parallel.rank(), hostCount=parallel.world())
         valLoader = None
         if train.ValSet and Path(train.ValSet).exists():
             valLoader = getValLoader(train.ValSet)
@@ -52,10 +72,11 @@ def main(configPath, gen: bool = False, device="cuda") -> Path:
         trainer.train(loaderFn, valLoader=valLoader)
     finally:
         trainer.close()
-    export = exportModel(Path(train.SaveDir) / "export.npz", trainer.variables(),
-                         config.serialize(), qp="train")
-    logger.info("exported the deploy model to %s", export)
-    return export
+    export = Path(train.SaveDir) / "export.npz"
+    if parallel.isMain():
+        export = exportModel(export, trainer.variables(), config.serialize(), qp="train")
+        logger.info("exported the deploy model to %s", export)
+    return parallel.broadcastObject(export)
 
 
 def trainGenerator(config: Config, device="cuda") -> Path:
@@ -63,7 +84,8 @@ def trainGenerator(config: Config, device="cuda") -> Path:
     from mcquic_tpu_torch.train.genTrainer import GenTrainer, checkGenerator
     train = config.Train
     checkGenerator(config.Model.Key, config.Model.Params)
-    loaderFn = getGenLoader(train.TrainSet, train.BatchSize, cropSize=GEN_CROP)
+    loaderFn = getGenLoader(train.TrainSet, train.BatchSize, cropSize=GEN_CROP,
+                            hostId=parallel.rank(), hostCount=parallel.world())
     trainer = GenTrainer(config, device=device)
     try:
         if trainer.tryResume():

@@ -1,23 +1,36 @@
-"""Stage-2 training of the class-conditional generator on one card
-(counterpart of `mcquic_tpu/train/genTrainer.py`, reference
-`mcquic/train/genTrainer.py`):
+"""Stage-2 training of the class-conditional generator on one card or
+data-parallel over several processes (counterpart of
+`mcquic_tpu/train/genTrainer.py`, reference `mcquic/train/genTrainer.py`):
   * the step (`makeGenTrainStep`): the teacher-forced pass of
-    `GeneratorV3SelfAttention.forward` through the frozen Neon tokenizer,
-    the gradient's global norm clipped at 2.0, a non-finite step skipped
-    whole, the metrics `loss`, `gradNorm`, `skipped` and `ceLvNN`;
+    `GeneratorV3SelfAttention.forward` (or its NoAda variant) or of
+    `GeneratorVAR.forward` through the frozen Neon tokenizer, the gradient's
+    global norm clipped at 2.0, a non-finite step skipped whole, the metrics
+    `loss`, `gradNorm`, `skipped` and `ceLvNN`;
   * the frozen tokenizer: the `compressor.*` parameters have
     `requires_grad=False` and stay out of the optimizer (`optax.masked` in
     the JAX package, `_trainableMask`), so they stay bit-identical;
   * `loadFrom` in the model's params: a stage-1 checkpoint or export (the
     port's or the JAX package's, bf16 leaves upcast) becomes the tokenizer;
   * saves every valFreq // 10 steps (at most MCQUIC_SAVE_FREQ), the hooks,
-    auto-resume from the rotated `latest/`, and LAMB's growth warning.
+    auto-resume from the rotated `latest/`, and LAMB's growth warning;
+  * under data parallelism (`parallel`), each rank's slice of the global
+    batch, the gradients and metrics averaged over the ranks
+    (`train/state.py::averageOverRanks`), and rank 0 alone holding the save
+    directory and logging, as in the stage-1 trainer; the learning rate at
+    the global batch (`Train.scaledOptim`).
 
-The training pass runs in fp32 with TF32 off, with uint8 batches augmented
+The training pass runs in fp32 with TF32 off and cuDNN's deterministic
+algorithms, with uint8 batches augmented
 on the card by the generator's transform (`data/augment.py`, `gen=True`:
 the gamma and the jitter, no flips), its draws from a generator seeded with
-SEED + 1. The transformer attends through the plain attention, K3 having no
-backward; the frozen encode runs K1 once per level.
+SEED + 1, as is `GeneratorVAR`'s condition drop (drawn at the global batch,
+`ops/vq.py::draws`). The transformer attends through the plain attention,
+K3 having no backward; the frozen encode runs K1 once per level.
+
+The JAX package's `GenTrainer` applies the model without a "gumbel" rng, so
+`GeneratorVAR`'s condition drop (`make_rng("gumbel")`) has no key there and
+its stage-2 step does not run for VAR; the port's step is held to the JAX
+package's model (`tests/test_torch_generator_var.py`).
 
 The checkpoint is the JAX `GenTrainer`'s layout (`genTrainer.py:237-246`):
 `step`, `params/...` and `coder/...` of the whole model under the flax names
@@ -38,17 +51,20 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
+from mcquic_tpu_torch import parallel
 from mcquic_tpu_torch.config import Config
 from mcquic_tpu_torch.data.augment import augmentDraws, trainingTransform
 from mcquic_tpu_torch.models.compressor import initialize, truncatedNormal
 from mcquic_tpu_torch.models.generator import GENERATORS
+from mcquic_tpu_torch.models.generator_var import STAGE2_MODELS, GeneratorVAR
+from mcquic_tpu_torch.ops.vq import draws
 from mcquic_tpu_torch.train.hooks import HookType, getAllHooks
 from mcquic_tpu_torch.train.lrSchedulers import getSchedule
 from mcquic_tpu_torch.train.optim import getOptimizer
 from mcquic_tpu_torch.train.saver import OptaxLayout, Saver, restoreGenerator
-from mcquic_tpu_torch.train.state import globalNorm
+from mcquic_tpu_torch.train.state import averageOverRanks, globalNorm
 from mcquic_tpu_torch.utils import exactFp32, resolveDevice
-from mcquic_tpu_torch.utils.convert import (_applyMap, generatorMap, halvingOf, neonMap,
+from mcquic_tpu_torch.utils.convert import (_applyMap, generatorMapOf, halvingOf, neonMap,
                                             readExport, toJaxGeneratorParams)
 
 logger = logging.getLogger("mcquic_tpu_torch.train.gen")
@@ -57,17 +73,20 @@ SEED = 3407
 
 
 def makeGenTrainStep(model, optimizer, clipNorm: float = 2.0):
-    """(images [n, 3, H, W] in [-1, 1], labels [n]) -> metrics; updates the
-    model's trainable parameters and the optimizer in place."""
+    """(images [n, 3, H, W] in [-1, 1], labels [n], draw) -> metrics;
+    updates the model's trainable parameters and the optimizer in place.
+    `draw` (shape -> uniforms) is `GeneratorVAR`'s condition drop; the other
+    generators draw nothing and take None."""
     params = optimizer.params
 
-    def step(images: torch.Tensor, labels: torch.Tensor) -> dict:
+    def step(images: torch.Tensor, labels: torch.Tensor, draw=None) -> dict:
         model.train()
         for p in params:
             p.grad = None
-        _, loss, _, _, perLevel = model(images, labels)
+        _, loss, _, _, perLevel = model(images, labels) if draw is None else \
+            model(images, labels, draw)
         loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        grads, (loss, *perLevel) = averageOverRanks(params, [loss, *perLevel])
         gnorm = globalNorm(grads).detach()
         ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
         if ok:
@@ -77,18 +96,18 @@ def makeGenTrainStep(model, optimizer, clipNorm: float = 2.0):
                 optimizer.step(grads)
         for p in params:
             p.grad = None
-        return {"loss": loss.detach(), "gradNorm": gnorm, "skipped": 0.0 if ok else 1.0,
-                **{f"ceLv{i:02d}": ce.detach() for i, ce in enumerate(perLevel)}}
+        return {"loss": loss, "gradNorm": gnorm, "skipped": 0.0 if ok else 1.0,
+                **{f"ceLv{i:02d}": ce for i, ce in enumerate(perLevel)}}
 
     return step
 
 
 def checkGenerator(key: str, params: dict):
-    """Refuses what the port cannot train: `GeneratorVAR` (ROADMAP A7) and
-    any other key, text conditioning, GroupNorm."""
-    if key not in GENERATORS:
+    """Refuses what the port cannot train: a key other than the three
+    generators, text conditioning, GroupNorm."""
+    if key not in STAGE2_MODELS:
         raise NotImplementedError(f"generator `{key}` does not train in this package (ported: "
-                                  f"{sorted(GENERATORS)}; GeneratorVAR is ROADMAP A7)")
+                                  f"{sorted(STAGE2_MODELS)})")
     for name in ("textConditioned", "denseNorm"):
         if params.get(name):
             raise NotImplementedError(f"{key} with {name}=True is not ported")
@@ -98,13 +117,14 @@ def constructGenerator(key: str, params: dict):
     """The generator of a config, dropping params its class does not take
     (`genTrainer.py:79-94`)."""
     checkGenerator(key, params)
-    # both classes take GeneratorV3SelfAttention's arguments
-    known = set(inspect.signature(GENERATORS["GeneratorV3SelfAttention"].__init__).parameters)
+    # the NoAda class takes GeneratorV3SelfAttention's arguments
+    cls = GeneratorVAR if key == "GeneratorVAR" else GENERATORS["GeneratorV3SelfAttention"]
+    known = set(inspect.signature(cls.__init__).parameters)
     known.discard("self")
     dropped = sorted(set(params) - known - {"loadFrom"})
     if dropped:
         logger.info("ignoring config params not taken by %s: %s", key, dropped)
-    return GENERATORS[key](**{k: v for k, v in params.items() if k in known})
+    return STAGE2_MODELS[key](**{k: v for k, v in params.items() if k in known})
 
 
 def loadCompressorParams(ckptPath) -> dict:
@@ -114,12 +134,12 @@ def loadCompressorParams(ckptPath) -> dict:
     its import is ROADMAP's tooling item."""
     path = Path(ckptPath)
     try:
-        flat, _ = readExport(path)
+        flat, _ = readExport(path, ("params/", "coder/"))
     except Exception as err:
         raise ValueError(f"loadFrom {path} is not a readable npz export or checkpoint ({err!r}); "
                          "a reference torch checkpoint must be converted first (ROADMAP A9, "
                          "reference-checkpoint import)") from err
-    return {k: v for k, v in flat.items() if k.startswith(("params/", "coder/"))}
+    return flat
 
 
 @torch.no_grad()
@@ -131,7 +151,10 @@ def initializeGenerator(model, generator: torch.Generator):
     except the zero-initialized adaLN and condition embeddings and the
     final linear (0.02 of the tables' std); biases, gates zero; norms one;
     the scaffold convs U(+-1/sqrt(fan_in)). The tokenizer is drawn as a
-    stage-1 Neon (`initialize`); `loadFrom` replaces it."""
+    stage-1 Neon (`initialize`); `loadFrom` replaces it. A `GeneratorVAR`
+    takes `initializeVar`."""
+    if isinstance(model, GeneratorVAR):
+        return initializeVar(model, generator)
     hs = model.hiddenSize
     std = math.sqrt(2 / (5 * hs))
     zeroDense = ("adaLN.weight", "capEmbed.weight", "finalAdaLN.weight")
@@ -163,11 +186,43 @@ def initializeGenerator(model, generator: torch.Generator):
     return model
 
 
+@torch.no_grad()
+def initializeVar(model: GeneratorVAR, generator: torch.Generator):
+    """`GeneratorVAR`'s training start with the JAX package's initializers'
+    distributions (`models/generator_var.py:143-171`): the class, start,
+    position and level tables truncated normal with std sqrt(1 / (3 C));
+    the blocks' and the head's adaLN kernels zero; the other dense kernels
+    lecun-normal, biases zero; the attention scales log 4. The tokenizer is
+    drawn as a stage-1 Neon (`initialize`); `loadFrom` replaces it."""
+    std = math.sqrt(1 / model.embedDim / 3)
+    for key, p in model.named_parameters():
+        if key.startswith("compressor."):
+            continue
+        shape = tuple(p.shape)
+        name = key.split(".")[-1]
+        if key in ("classEmb", "posStart", "pos1LC", "lvlEmbed"):
+            value = truncatedNormal(shape, generator, p) * std
+        elif key.endswith("adaLN.weight") or key == "headAda.weight" or name == "bias":
+            value = torch.zeros_like(p)
+        elif name == "scaleLogit":
+            value = torch.full_like(p, math.log(4.0))
+        elif name == "weight":
+            value = truncatedNormal(shape, generator, p) * (math.sqrt(1 / shape[1])
+                                                             / 0.87962566103423978)
+        else:
+            raise KeyError(key)
+        p.copy_(value.to(p.dtype))
+    initialize(model.compressor, generator)
+    return model
+
+
 class GenTrainer:
     def __init__(self, config: Config, model=None, device="cuda", seed: int = SEED):
         self._config = config
         train = config.Train
-        self._device = resolveDevice(device)
+        self._device = parallel.localDevice(resolveDevice(device))
+        self._world = parallel.world()
+        self._main = parallel.isMain()
         params = dict(config.Model.Params)
         loadFrom = params.pop("loadFrom", None)
         if model is None:
@@ -178,12 +233,16 @@ class GenTrainer:
         self._model = model.to(self._device).train()
         self._model.compressor.requires_grad_(False)
         self._names = [n for n, p in self._model.named_parameters() if p.requires_grad]
-        self._geometry = {"halving": halvingOf(model.size), "depth": model.depth,
-                          "useAda": model.transformer.useAda,
-                          "qkNorm": model.transformer.blocks[0].attention.qkNorm}
-        self._layout = OptaxLayout(generatorMap(**self._geometry), self._names)
+        if isinstance(model, GeneratorVAR):
+            self._geometry = {"var": True, "halving": halvingOf(model.size),
+                              "depth": model.depth, "attnL2Norm": model.attnL2Norm}
+        else:
+            self._geometry = {"halving": halvingOf(model.size), "depth": model.depth,
+                              "useAda": model.transformer.useAda,
+                              "qkNorm": model.transformer.blocks[0].attention.qkNorm}
+        self._layout = OptaxLayout(generatorMapOf(self._geometry), self._names)
 
-        optimCfg = train.scaledOptim(1)
+        optimCfg = train.scaledOptim(self._world)
         self._baseLr = optimCfg.Params.get("lr", 1e-4)
         self._schedule = getSchedule(train.Schdr.Key, self._baseLr, train.Schdr.Params)
         # LAMB's trust ratio grows small-init layers at most ~e^(lr * steps)
@@ -200,8 +259,9 @@ class GenTrainer:
         self._stepFn = makeGenTrainStep(self._model, self._optimizer)
         self._step = 0
         self._generator = torch.Generator(device=self._device).manual_seed(seed + 1)
-        self._saver = Saver(train.SaveDir) if train.SaveDir else None
-        self._resumePath = self._saver.PreviousCkpt if self._saver else None
+        self._saver = Saver(train.SaveDir) if train.SaveDir and self._main else None
+        self._resumePath = parallel.broadcastObject(
+            self._saver.PreviousCkpt if self._saver else None)
         self._hooks = getAllHooks(train.Hooks)
 
     @staticmethod
@@ -249,12 +309,13 @@ class GenTrainer:
         x = self.upload(images if images.dtype == np.uint8
                         else images.astype(np.float32, copy=False))
         y = self.upload(np.asarray(labels, np.int64))
-        with exactFp32():
+        with exactFp32(deterministic=True):
             if x.dtype == torch.uint8:
                 x = trainingTransform(x, augmentDraws(self._generator, x.shape[0]), gen=True)
             else:
                 x = x.permute(0, 3, 1, 2)
-            metrics = self._stepFn(x, y)
+            metrics = self._stepFn(x, y, draws(self._generator)
+                                   if isinstance(self._model, GeneratorVAR) else None)
         self._step += 1
         return metrics
 
@@ -281,7 +342,7 @@ class GenTrainer:
         if path is None or not Path(path).exists():
             return False
         flat, _ = Saver.load(path)
-        self._model.load_state_dict(_applyMap(generatorMap(**self._geometry), {
+        self._model.load_state_dict(_applyMap(generatorMapOf(self._geometry), {
             k: v for k, v in flat.items() if k.startswith(("params/", "coder/"))}), strict=True)
         self._layout.load(self._optimizer, self._model.state_dict(), flat)
         self._step = int(flat["step"])
@@ -321,15 +382,17 @@ class GenTrainer:
                         badLogs = 0
                         m["stepsPerSec"] = 100 / (time.time() - lastLog)
                         lastLog = time.time()
-                        logger.info("step %d: %s", step, m)
-                        if onStep is not None:
-                            onStep(step, m)
+                        if self._main:
+                            logger.info("step %d: %s", step, m)
+                            if onStep is not None:
+                                onStep(step, m)
                     if step % saveFreq == 0:
                         self.save()
                     if step >= total:
                         break
                 self._runHooks("epochFinish", step)
             self.save()
+            parallel.barrier()
             self._runHooks("afterRun", step)
         finally:
             self.close()

@@ -6,6 +6,8 @@ the earlier `latest/` directories, renamed by time stamp when a new Saver
 opens the directory, at most `maxItems` of them. One live Saver owns a
 directory: an exclusive `flock` on `.lock`, which the kernel drops with the
 process, keeps two trainers from rotating and writing each other's files.
+Under data parallelism only rank 0 holds a save directory; a Saver on
+another rank is refused.
 
 A checkpoint is a flat npz of '/'-joined keys, the format of the JAX
 package's `saveTree`, so `mcquic_tpu.train.saver.loadTree` reads the port's
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 import mcquic_tpu_torch
+from mcquic_tpu_torch import parallel
 from mcquic_tpu_torch.train.optim import Adam
 from mcquic_tpu_torch.utils.convert import _applyMap, _invertMap, readExport, writeExport
 
@@ -41,6 +44,9 @@ class Saver:
     _heldMutex = threading.Lock()
 
     def __init__(self, saveDir, maxItems: int = 25):
+        if not parallel.isMain():
+            raise RuntimeError(f"rank {parallel.rank()} asked for the save directory {saveDir}; "
+                               "only rank 0 writes checkpoints")
         self._root = Path(saveDir)
         self._maxItems = maxItems
         self._previous: Optional[Path] = None

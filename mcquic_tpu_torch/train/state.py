@@ -9,11 +9,18 @@ gradients scaled to a norm of at most 4.0, and the optimizer's update. A
 step whose loss or gradient norm is not finite is skipped whole: the
 parameters, the optimizer's state and `freqEMA` stay as they were. The
 metrics carry the JAX step's keys.
+
+Under data parallelism (`parallel`) each rank runs the step on its slice of
+the global batch: right after the backward the gradients and the four loss
+terms are averaged over the ranks in one flat buffer (`averageOverRanks`),
+and the norm, the clip, the non-finite decision and the update follow from
+those averages, so every rank takes the same step, or skips it.
 """
 from typing import Callable, List, Optional
 
 import torch
 
+from mcquic_tpu_torch import parallel
 from mcquic_tpu_torch.models.quantizer import ResidualBackwardQuantizer
 from mcquic_tpu_torch.ops.vq import Draw, reassignCodebook
 
@@ -25,6 +32,16 @@ def trainableParameters(model: torch.nn.Module) -> List[torch.Tensor]:
 def globalNorm(tensors: List[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element (`optax.global_norm`)."""
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+def averageOverRanks(params: List[torch.Tensor], logged: List[torch.Tensor]):
+    """The gradients of `params` (zeros where a parameter has none) and
+    detached copies of the `logged` scalars, each averaged over the ranks in
+    one collective per dtype (`parallel.allReduceMean_`)."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    logged = [t.detach().clone() for t in logged]
+    parallel.allReduceMean_(grads + logged)
+    return grads, logged
 
 
 def makeTrainStep(model, optimizer, distortionFn: Callable, lpipsFn: Optional[Callable] = None,
@@ -47,7 +64,8 @@ def makeTrainStep(model, optimizer, distortionFn: Callable, lpipsFn: Optional[Ca
         lpips = lpipsFn(xHat, batch) if lpipsFn is not None else torch.zeros_like(mse)
         loss = distortionWeight * distortion + mseWeight * mse + lpipsWeight * lpips
         loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        grads, (loss, distortion, mse, lpips) = averageOverRanks(params,
+                                                                 [loss, distortion, mse, lpips])
         gnorm = globalNorm(grads).detach()
         ok = bool(torch.isfinite(loss) & torch.isfinite(gnorm))
         with torch.no_grad():
@@ -60,8 +78,8 @@ def makeTrainStep(model, optimizer, distortionFn: Callable, lpipsFn: Optional[Ca
                     f.copy_(s)
         for p in params:
             p.grad = None
-        return {"loss": loss.detach(), "distortion": distortion.detach(), "mse": mse.detach(),
-                "lpips": lpips.detach(), "gradNorm": gnorm, "skipped": 0.0 if ok else 1.0}
+        return {"loss": loss, "distortion": distortion, "mse": mse, "lpips": lpips,
+                "gradNorm": gnorm, "skipped": 0.0 if ok else 1.0}
 
     return step
 

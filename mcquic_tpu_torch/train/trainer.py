@@ -1,5 +1,5 @@
 """Stage-1 training of the v1 Compressor or the Neon tokenizer on one card
-(counterpart of `mcquic_tpu/train/trainer.py`, reference
+or data-parallel over several processes (counterpart of `mcquic_tpu/train/trainer.py`, reference
 `mcquic/train/trainer.py`):
   * the step of `train/state.py`: loss 0.5 distortion + 0.5 mse + 2 lpips,
     the gradient's global norm clipped at 4.0, a non-finite step skipped
@@ -13,14 +13,23 @@
     value, or a saveDir that holds only a JAX run's `orbax/` is refused
     (`checkpointBackend`);
   * the learning rate of the world rule (`config.py::Train.scaledOptim`)
-    at one card.
+    at the global batch, `batchSize` x the number of processes.
+
+Under data parallelism (`parallel`; `train/cli.py` starts it from the JAX
+package's variables) each rank drives its own card and trains on its own
+slice of the data, and the step averages the gradients (`train/state.py`).
+Every rank resumes from the same checkpoint and runs the CodebookReassign
+hook (the same generator and the same summed code counts give the same
+codebooks). Only rank 0 holds the save directory (its lock, the rotation
+of `latest/`, every save, the save on SIGTERM), validates and keeps
+`best.ckpt.npz`, and logs; the other ranks wait for it at a barrier.
 
 A config whose model carries a `size` pyramid trains Neon, whatever its key
 says (`resolveStage1Model`); its input edge is `size[0] * 16` unless
 `cropSize` is set, the v1 Compressor's 512.
 
-Training runs in fp32 with TF32 off (`utils.exactFp32`), the numerics of
-the codec's paths. The initial weights come from a CPU generator seeded
+Training runs in fp32 with TF32 off and cuDNN's deterministic algorithms
+(`utils.exactFp32`), the numerics of the codec's paths. The initial weights come from a CPU generator seeded
 with SEED (`models/compressor.py::initialize`), so one seed gives one start
 on every device; the sampling and augmentation draw from a generator on the
 training device seeded with SEED + 1.
@@ -52,6 +61,7 @@ import numpy as np
 import torch
 
 import mcquic_tpu_torch
+from mcquic_tpu_torch import parallel
 from mcquic_tpu_torch.config import Config
 from mcquic_tpu_torch.data.augment import augmentDraws, trainingTransform
 from mcquic_tpu_torch.loss import MsSSIM, PSNR
@@ -121,16 +131,19 @@ class Trainer:
                  seed: int = SEED, lpipsFn=None):
         self._config = config
         train = config.Train
-        self._device = resolveDevice(device)
+        self._device = parallel.localDevice(resolveDevice(device))
+        self._world = parallel.world()
+        self._main = parallel.isMain()
         if model is None:
             _, params = resolveStage1Model(config)
             model = initialize(buildModel(params), torch.Generator().manual_seed(seed))
         self._geometry = geometryOf(model)
         self._model = model.to(self._device).train()
+        self._dtype = next(self._model.parameters()).dtype      # fp32; fp64 in the tests
         edge = train.CropSize or (int(model.size[0]) * 16 if isinstance(model, Neon) else 512)
         self._inputShape = tuple(inputShape or (edge, edge))
 
-        optimCfg = train.scaledOptim(1)
+        optimCfg = train.scaledOptim(self._world)
         self._baseLr = optimCfg.Params.get("lr", 1e-4)
         self._schedule = getSchedule(train.Schdr.Key, self._baseLr, train.Schdr.Params)
         self._names = [name for name, p in self._model.named_parameters() if p.requires_grad]
@@ -149,10 +162,12 @@ class Trainer:
         self._step = 0
         self._generator = torch.Generator(device=self._device).manual_seed(seed + 1)
 
-        # the Saver rotates the previous `latest/` away; resume reads it there
+        # rank 0's Saver rotates the previous `latest/` away; every rank
+        # resumes from where it went
         checkpointBackend(train.SaveDir)
-        self._saver = Saver(train.SaveDir) if train.SaveDir else None
-        self._resumePath = self._saver.PreviousCkpt if self._saver else None
+        self._saver = Saver(train.SaveDir) if train.SaveDir and self._main else None
+        self._resumePath = parallel.broadcastObject(
+            self._saver.PreviousCkpt if self._saver else None)
         self._bestDistortion = float("-inf")
         self._lastValExtras = {"pairs": [], "codes": None}
         self._hooks = getAllHooks(train.Hooks)
@@ -232,12 +247,12 @@ class Trainer:
         float NHWC in [-1, 1] taken as it is."""
         batch = np.asarray(batch)
         x = self.upload(batch if batch.dtype == np.uint8 else batch.astype(np.float32, copy=False))
-        with exactFp32():
+        with exactFp32(deterministic=True):
             if x.dtype == torch.uint8:
                 x = trainingTransform(x, augmentDraws(self._generator, x.shape[0]))
             else:
                 x = x.permute(0, 3, 1, 2)
-            metrics = self._stepFn(x, draws(self._generator))
+            metrics = self._stepFn(x.to(self._dtype), draws(self._generator))
         self._step += 1
         return metrics
 
@@ -291,20 +306,24 @@ class Trainer:
                         badLogs = 0
                         m["lr"] = float(self._schedule(step))
                         m["stepsPerSec"] = 100 / (time.time() - lastLog)
-                        if step % 1000 == 0:
-                            m["codeUsage"] = self.codeUsage()
                         lastLog = time.time()
-                        onStep(step, m)
+                        if self._main:
+                            if step % 1000 == 0:
+                                m["codeUsage"] = self.codeUsage()
+                            onStep(step, m)
                     self._runHooks("stepFinish", step)
                     if step % saveFreq == 0:
                         self.save()
                     if valLoader is not None and step % valFreq == 0:
-                        self._validateAndKeepBest(valLoader, step, onStep, metricsLogger)
+                        if self._main:
+                            self._validateAndKeepBest(valLoader, step, onStep, metricsLogger)
+                        parallel.barrier()
                     if step >= total:
                         break
                 epoch += 1
                 self._runHooks("epochFinish", step)
             self.save()
+            parallel.barrier()
             self._runHooks("afterRun", step)
         finally:
             if previousHandler is not None:

@@ -21,8 +21,12 @@ def resolveDevice(device="cuda") -> torch.device:
 
 
 @contextlib.contextmanager
-def exactFp32():
+def exactFp32(deterministic: bool = False):
     """fp32 convolutions and matmuls with TF32 off, for the duration of a call.
+    With `deterministic`, cuDNN times and runs only its deterministic
+    algorithms: the trainers' steps, so that a run repeats bit for bit in
+    one process (`chip_smoke.py` phase 12 holds the NCCL run to the one
+    without a process group).
 
     cuDNN runs fp32 convolutions in TF32 by default, which flips near-tie
     codes against the reference. cuDNN also times its candidate algorithms
@@ -37,7 +41,7 @@ def exactFp32():
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         with torch.backends.cudnn.flags(enabled=True, benchmark=True,
-                                        deterministic=False, allow_tf32=False):
+                                        deterministic=deterministic, allow_tf32=False):
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmulTf32

@@ -300,6 +300,30 @@ def generatorMap(halving: Sequence[bool], depth: int, useAda: bool = True,
     return mp
 
 
+def varMap(halving: Sequence[bool], depth: int, attnL2Norm: bool = True) -> _Map:
+    """`GeneratorVAR` (`mcquic_tpu/models/generator_var.py`): the flax tree
+    with the frozen Neon under `compressor`, the blocks as `blocks_{i}`; its
+    LayerNorms have no parameters."""
+    mp = neonMap(halving, t="compressor.", f=("params", "compressor"),
+                 coder=("coder", "compressor"))
+    p = ("params",)
+    mp.dense("wordEmbed", (*p, "wordEmbed"))
+    for name in ("classEmb", "posStart", "pos1LC", "lvlEmbed"):
+        mp.add(name, (*p, name))
+    for b in range(depth):
+        tb, fb = f"blocks.{b}", (*p, f"blocks_{b}")
+        mp.dense(f"{tb}.adaLN", (*fb, "adaLN"))
+        mp.dense(f"{tb}.attn.qkv", (*fb, "attn", "qkv"))
+        if attnL2Norm:
+            mp.add(f"{tb}.attn.scaleLogit", (*fb, "attn", "scaleLogit"))
+        mp.dense(f"{tb}.attn.proj", (*fb, "attn", "proj"))
+        mp.dense(f"{tb}.fc1", (*fb, "fc1"))
+        mp.dense(f"{tb}.fc2", (*fb, "fc2"))
+    mp.dense("headAda", (*p, "headAda"))
+    mp.dense("head", (*p, "head"))
+    return mp
+
+
 def _applyMap(mp: _Map, flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """Every torch key of the map from `flat`; missing or unused keys raise."""
     missing = [fk for fk, _ in mp.entries.values() if fk not in flat]
@@ -312,21 +336,34 @@ def _applyMap(mp: _Map, flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 
 def generatorGeometry(flat: Dict[str, np.ndarray]) -> dict:
-    """What the name map needs, read off a generator's flat params:
-    halving per level, depth, adaLN and qk-norm."""
-    L = flat["params/levelEmbed"].shape[0]
+    """What the name map needs, read off a generator's flat params: halving
+    per level and depth, then adaLN and qk-norm (`GeneratorV3SelfAttention`)
+    or the l2 qk-norm (`GeneratorVAR`, `var` True)."""
+    var = "params/pos1LC" in flat
+    L = flat["params/lvlEmbed" if var else "params/levelEmbed"].shape[0]
     enc = "params/compressor/_quantizer/_encoders_{}/ResidualBlockWithStride_0/Conv_0/Conv_0/kernel"
+    halving = [enc.format(i) in flat for i in range(L)]
+    if var:
+        blocks = {key.split("/")[1] for key in flat if key.startswith("params/blocks_")}
+        return {"var": True, "halving": halving, "depth": len(blocks),
+                "attnL2Norm": "params/blocks_0/attn/scaleLogit" in flat}
     blocks = {key.split("/")[2] for key in flat if key.startswith("params/transformer/block")}
-    return {"halving": [enc.format(i) in flat for i in range(L)], "depth": len(blocks),
+    return {"halving": halving, "depth": len(blocks),
             "useAda": "params/transformer/finalAdaLN/kernel" in flat,
             "qkNorm": "params/transformer/block0/attention/qNorm/scale" in flat}
 
 
+def generatorMapOf(geometry: dict) -> _Map:
+    """The name map of a generator geometry (`generatorGeometry`)."""
+    geometry = dict(geometry)
+    return varMap(**geometry) if geometry.pop("var", False) else generatorMap(**geometry)
+
+
 def fromJaxGeneratorParams(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """A generator's flattened flax variables (`params/...`, `coder/...`) ->
-    the port's `GeneratorV3SelfAttention` state dict. Missing or unused keys
-    raise."""
-    return _applyMap(generatorMap(**generatorGeometry(flat)), flat)
+    the port's `GeneratorV3SelfAttention` or `GeneratorVAR` state dict.
+    Missing or unused keys raise."""
+    return _applyMap(generatorMapOf(generatorGeometry(flat)), flat)
 
 
 def _invertMap(mp: _Map, stateDict: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -345,12 +382,14 @@ def _invertMap(mp: _Map, stateDict: Dict[str, torch.Tensor]) -> Dict[str, np.nda
 
 
 def toJaxGeneratorParams(stateDict: Dict[str, torch.Tensor], halving: Sequence[bool],
-                         depth: int, useAda: bool = True,
-                         qkNorm: bool = True) -> Dict[str, np.ndarray]:
+                         depth: int, useAda: bool = True, qkNorm: bool = True,
+                         var: bool = False, attnL2Norm: bool = True) -> Dict[str, np.ndarray]:
     """The inverse of `fromJaxGeneratorParams`: the port's generator state
     dict -> flat flax variables, for writing a checkpoint in the JAX
-    package's format (`writeExport`)."""
-    return _invertMap(generatorMap(halving, depth, useAda, qkNorm), stateDict)
+    package's format (`writeExport`); `var` for a `GeneratorVAR`."""
+    mp = varMap(halving, depth, attnL2Norm) if var else generatorMap(halving, depth, useAda,
+                                                                      qkNorm)
+    return _invertMap(mp, stateDict)
 
 
 def toJaxParams(stateDict: Dict[str, torch.Tensor], geometry: dict) -> Dict[str, np.ndarray]:
@@ -377,12 +416,17 @@ def float32ToBf16(x: np.ndarray) -> np.ndarray:
     return ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16).astype(np.uint16)
 
 
-def readExport(path) -> Tuple[Dict[str, np.ndarray], dict]:
-    """An exported model file -> (flat fp32 arrays, sidecar metadata)."""
+def readExport(path, prefixes: Tuple[str, ...] = ()) -> Tuple[Dict[str, np.ndarray], dict]:
+    """An exported model file -> (flat fp32 arrays, sidecar metadata). With
+    `prefixes`, only the arrays whose keys start with one of them are read
+    (a trainer checkpoint's `params/` and `coder/`, not its optimizer
+    state)."""
     path = Path(path)
     flat = {}
     with np.load(str(path), allow_pickle=False) as z:
         for key in z.files:
+            if prefixes and not key.startswith(prefixes):
+                continue
             if key.endswith(BF16_SUFFIX):
                 flat[key[:-len(BF16_SUFFIX)]] = bf16ToFloat32(z[key])
             else:

@@ -95,8 +95,11 @@ def test_seeded_sampling_repeats_and_depends_on_the_seed(checkpoint):
 
 
 def test_config_keys_the_port_lacks_are_refused():
-    with pytest.raises(NotImplementedError, match="GeneratorVAR"):
-        generatorConfig({"config": tinyConfig("GeneratorVAR")})
+    with pytest.raises(NotImplementedError, match="GeneratorV2"):
+        generatorConfig({"config": tinyConfig("GeneratorV2")})
+    # GeneratorVAR is ported; like the JAX package's loader, it drops what it does not take
+    key, kwargs = generatorConfig({"config": tinyConfig("GeneratorVAR")})
+    assert key == "GeneratorVAR" and "hiddenSize" not in kwargs and kwargs["k"] == 16
     with pytest.raises(NotImplementedError, match="textConditioned"):
         generatorConfig({"config": tinyConfig(textConditioned=True)})
     with pytest.raises(NotImplementedError, match="denseNorm"):

@@ -11,7 +11,9 @@ sampling through `python -m mcquic_tpu_torch generate --device cpu`, and
 Neon (`train`) and of a tiny generator over it (`train -G`), and the
 `dataset` command (JPEG encoder, tar shards) followed by a 2-step run that
 reads its shards (JPEG decoder, shard loader), the codec compressing one of
-the JPEGs.
+the JPEGs; and the train CLI as two data-parallel processes under
+MCQUIC_COORDINATOR, MCQUIC_NUM_PROCESSES and MCQUIC_PROCESS_ID (gloo on the
+CPU), each reading its own tar shard, one export between them.
 """
 import ast
 import subprocess
@@ -241,3 +243,57 @@ def test_port_never_uses_the_torch_extension_builder():
     needle = "torch.utils." + "cpp_extension"
     users = [str(p.relative_to(ROOT)) for p in _portFiles() if needle in p.read_text()]
     assert not users, users
+
+
+def test_ddp_train_cli_runs_without_the_jax_package_and_its_dependencies(tmp_path):
+    """`train -D --device cpu CONFIG` as two processes under the three
+    variables, on two tar shards: rank r reads shard r only (its debug log
+    names it), both exit 0 and print the one export rank 0 wrote, and the
+    checkpoint is at the config's last step. `parallel` and
+    `models.generator_var` are among the modules the guard imported."""
+    import os
+    import socket
+    from test_torch_train_cli import _jpegShard, tinyConfig
+    photo = readPng(ROOT / "assets" / "photo_768x512.png")
+    (tmp_path / "shards").mkdir()
+    for s in range(2):
+        _jpegShard(tmp_path / "shards" / f"mcquic_DATA_{s:05d}.tar.gz",
+                   [(f"{2 * s + i:09d}.jpg", photo[i * 120:i * 120 + 256, s * 300:s * 300 + 300])
+                    for i in range(2)])
+    config = tinyConfig(tmp_path)
+    config.write_text(config.read_text().replace(f"trainSet: {tmp_path / 'pngs'}",
+                                                 f"trainSet: {tmp_path / 'shards'}/*.tar.gz"))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    script = GUARD.format(blocked=BLOCKED, root=str(ROOT),
+                          runs=[["train", "-D", str(config), "--device", "cpu"]])
+    procs = [subprocess.Popen([sys.executable, "-c", script], cwd=tmp_path, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              env=dict(os.environ, OMP_NUM_THREADS="1",
+                                       MCQUIC_COORDINATOR=f"localhost:{port}",
+                                       MCQUIC_NUM_PROCESSES="2", MCQUIC_PROCESS_ID=str(r)))
+             for r in range(2)]
+    outputs = []
+    for proc in procs:
+        try:
+            outputs.append(proc.communicate(timeout=300))
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        assert proc.returncode == 0, outputs[-1][1][-4000:]
+    exports = list((tmp_path / "saved").glob("export_*.mcquic.npz"))
+    assert len(exports) == 1
+    for r, (out, err) in enumerate(outputs):
+        assert "round trip ok" in out and str(exports[0]) in out
+        assert f"rank {r} of 2 joined" in err
+        reads = [line for line in err.splitlines() if "host" in line and "shards:" in line]
+        assert reads and all(f"host {r} of 2 reads 1 of 2 shards: ['mcquic_DATA_{r:05d}.tar.gz']"
+                             in line for line in reads), reads
+    from mcquic_tpu_torch.utils.convert import readExport
+    flat, _ = readExport(tmp_path / "saved" / "latest" / "saved.ckpt.npz")
+    assert int(flat["step"]) == 2
+    import pkgutil
+    import mcquic_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(mcquic_tpu_torch.__path__, "mcquic_tpu_torch.")}
+    assert {"mcquic_tpu_torch.parallel", "mcquic_tpu_torch.models.generator_var"} <= names

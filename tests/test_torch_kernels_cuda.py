@@ -448,6 +448,26 @@ def test_k3_matches_plain_under_the_block_causal_mask(cuda, lengths):
             assert (got - want).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("Tq,Tk", [(1, 1), (1, 2), (4, 6), (4, 10), (16, 26), (16, 42),
+                                   (64, 106), (64, 170), (256, 426)])
+def test_k3_matches_plain_at_var_head_dim_96(cuda, Tq, Tk):
+    """GeneratorVAR's sampling at its default width (embedDim 1536, 16 heads,
+    head dim 96) and CFG batch 8: every level's queries against the prefix
+    of a [8, 426, 16, 96] KV cache, q and k l2-normalized (q scaled by 4),
+    scale 1.0, no mask."""
+    gen = torch.Generator(device=cuda).manual_seed(Tq + Tk)
+    q = torch.randn((8, Tq, 16, 96), device=cuda, generator=gen)
+    q = 4 * q / q.norm(dim=-1, keepdim=True)
+    cache = torch.randn((2, 8, 426, 16, 96), device=cuda, generator=gen)
+    k = cache[0, :, :Tk] / cache[0, :, :Tk].norm(dim=-1, keepdim=True)
+    v = cache[1, :, :Tk]
+    with torch.no_grad():
+        got = flashAttention(q, k, v, None, 1.0)
+        want = flashAttentionPlain(q, k, v, None, 1.0)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
 @pytest.mark.parametrize("B,H,Tq,Tk,D", [(4, 8, 256, 426, 64), (4, 8, 64, 170, 32),
                                          (4, 8, 64, 106, 128), (4, 8, 16, 42, 64),
                                          (4, 8, 16, 26, 64), (4, 8, 1, 1, 32), (4, 8, 1, 77, 128),

@@ -188,3 +188,82 @@ def test_tar_shards_skip_what_is_corrupt_and_name_what_is_unsupported(tmp_path):
             tf.addfile(info, io.BytesIO(data))
     with pytest.raises(UnsupportedPng, match=r"b.tar:6.png: unsupported PNG"):
         list(TarShards(str(tmp_path / "b.tar")))
+
+
+# ------------------------------------------------------------ split by host
+
+@pytest.mark.parametrize("hostCount", [2, 3])
+def test_tar_shards_split_by_host_as_jax(jaxShards, hostCount):
+    """Host h of n reads shards[h::n], as the JAX package's `TarShards`: the
+    hosts' shard lists are disjoint, their union is every shard, and each
+    host's samples equal the JAX package's for that host."""
+    from mcquic_tpu.data.dataset import TarShards as JaxTarShards
+    pattern = str(jaxShards / "*.tar.gz")
+    splits = [TarShards(pattern, seed=4, hostId=h, hostCount=hostCount) for h in range(hostCount)]
+    names = [s._shards for s in splits]
+    assert sorted(sum(names, [])) == sorted(str(p) for p in jaxShards.glob("*.tar.gz"))
+    assert len(set(sum(names, []))) == sum(len(n) for n in names)
+    for h, ours in enumerate(splits):
+        theirs = JaxTarShards(pattern, hostId=h, hostCount=hostCount, seed=4)
+        assert ours._shards == theirs._shards
+        for x, y in zip(list(ours), list(theirs)):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_train_loader_splits_shards_but_reads_a_folder_whole_on_every_host(jaxShards, tmp_path):
+    """`getTrainLoader` hands hostId / hostCount to the shards only: on
+    shards each host's batches equal the JAX loader's for that host, and the
+    hosts' samples add up to all 7; on a folder every host reads the whole
+    folder with the same seed, as the JAX loader does."""
+    from mcquic_tpu.data import getTrainLoader as jaxGetTrainLoader
+    pattern = str(jaxShards / "*.tar.gz")
+    total = 0
+    for h in range(2):
+        ours = getTrainLoader(pattern, 1, cropSize=48, seed=3, hostId=h, hostCount=2)()
+        theirs = jaxGetTrainLoader(pattern, 1, cropSize=48, seed=3, hostId=h, hostCount=2)()
+        a, b = list(ours), list(theirs)
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _close(x, y, f"host {h}")
+        total += len(a)
+    assert total == 7
+    for i in range(3):
+        writePng(tmp_path / f"{i}.png", PHOTO[i * 60:i * 60 + 200, i * 100:i * 100 + 260])
+    whole = list(getTrainLoader(tmp_path, 1, cropSize=48, seed=1)())
+    for h in range(2):
+        host = list(getTrainLoader(tmp_path, 1, cropSize=48, seed=1, hostId=h, hostCount=2)())
+        theirs = list(jaxGetTrainLoader(str(tmp_path), 1, cropSize=48, seed=1, hostId=h,
+                                        hostCount=2)())
+        assert len(host) == len(whole) == len(theirs) == 3
+        for x, y, z in zip(host, whole, theirs):
+            np.testing.assert_array_equal(x, y)
+            _close(x, z, f"folder, host {h}")
+
+
+def test_gen_loader_splits_shards_and_class_files_by_host_as_jax(genShards, tmp_path):
+    """`getGenLoader` on wnid-keyed shards and on class folders: each host's
+    batches equal the JAX loader's for that host (labels exact), the hosts'
+    samples add up to all of them, and a host with no shard is refused as
+    the JAX loader refuses it."""
+    from mcquic_tpu.data import imagenet_classes as jaxClasses
+    for c, wnid in enumerate(WNIDS):
+        (tmp_path / wnid).mkdir()
+        for i in range(2 + c):
+            crop = PHOTO[c * 100 + i * 30:c * 100 + i * 30 + 160, i * 90:i * 90 + 200]
+            (tmp_path / wnid / f"{wnid}_{i}.JPEG").write_bytes(_jpeg(crop))
+    for source, count in ((str(genShards / "*.tar"), 10), (tmp_path, 9)):
+        total = 0
+        for h in range(2):
+            a = list(getGenLoader(source, 1, cropSize=64, seed=2, hostId=h, hostCount=2)())
+            b = list(jaxClasses.getGenLoader(str(source), 1, cropSize=64, seed=2, hostId=h,
+                                             hostCount=2)())
+            assert len(a) == len(b) > 0
+            for (x, lx), (y, ly) in zip(a, b):
+                np.testing.assert_array_equal(lx, ly)
+                _close(x, y, f"{source} host {h}")
+            total += len(a)
+        assert total == count
+    with pytest.raises(FileNotFoundError, match="No shards for host 2 in"):
+        getGenLoader(str(genShards / "*.tar"), 1, hostId=2, hostCount=3)
+    with pytest.raises(FileNotFoundError, match="No shards for host 2 in"):
+        jaxClasses.getGenLoader(str(genShards / "*.tar"), 1, hostId=2, hostCount=3)

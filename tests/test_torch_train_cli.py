@@ -210,7 +210,7 @@ def _jpegShard(path: Path, members):
 
 
 def test_train_cli_refuses_what_the_port_cannot_train(tmp_path, v2):
-    """GeneratorVAR (ROADMAP A7) and a stage-2 config without -G are refused.
+    """A generator the port lacks and a stage-2 config without -G are refused.
     Tar shards are read: stage 1 trains 2 steps from a `*.tar.gz` glob of
     `{key}.jpg` members (the JAX writer's layout) and stage 2 (`-G`) from
     wnid-keyed `{wnid}_{n}.jpg` shards over the tiny Neon. A training folder
@@ -225,12 +225,14 @@ def test_train_cli_refuses_what_the_port_cannot_train(tmp_path, v2):
     var = tmp_path / "var.yaml"
     var.write_text(text.replace("{key: Compressor, params: {channel: 8, m: 2, k: [16, 8]}}",
                                 "{key: GeneratorVAR, params: {channel: 8, k: 16, size: [2, 1, 1]}}"))
+    unknown = tmp_path / "unknown.yaml"
+    unknown.write_text(var.read_text().replace("GeneratorVAR", "GeneratorV2"))
     from mcquic_tpu_torch.train.cli import main
     from mcquic_tpu_torch.train.genTrainer import constructGenerator
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        main(var, gen=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        constructGenerator("GeneratorVAR", {})
+    with pytest.raises(NotImplementedError, match="GeneratorV2"):
+        main(unknown, gen=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="GeneratorV2"):
+        constructGenerator("GeneratorV2", {})
     with pytest.raises(ValueError, match="-G/--gen"):
         main(var, device="cpu")
 

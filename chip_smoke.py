@@ -122,12 +122,16 @@ ends:
      NCCL's version printed); (b) two ranks (`chip_smoke.py --ddp-worker`,
      gloo, which reduces CUDA tensors) sharing the card at full width, rd_qp2
      and gen_stage2_neonA at batch 4 each against one process at batch 8 on
-     the same 8 images, DDP_STEPS steps: the first step's loss and gradient
-     norm within TRAIN_CPU_RTOL, the ranks' parameter checksums equal after
-     every step, rank 0's validation K1 3 and K2 1 per image (rank 1 none),
-     K1 9 per generator step on each rank; steps/s and peak per rank (two
-     ranks on one card measure no scaling); (c) NCCL at world 2 on the one
-     card, its outcome printed verbatim;
+     the same 8 images, DDP_STEPS steps, the optimizer state sharded across
+     the ranks (ZeRO): the first step's loss and gradient norm within
+     TRAIN_CPU_RTOL, the ranks' parameter checksums equal after every step,
+     each rank's optimizer state the one process's less half the sharded
+     parameters' slots, K1 equal to its plain version on the codebooks after
+     every sharded step (its norm cache must see the step's writes), rank 0's
+     validation K1 3 and K2 1 per image (rank 1 none), K1 9 per generator
+     step on each rank; steps/s and peak per rank (two ranks on one card
+     measure no scaling); (c) NCCL at world 2 on the one card, its outcome
+     printed verbatim;
  13. GeneratorVAR at the JAX package's defaults (depth 24, width 1536, 16
      heads, about 1.0 B transformer parameters) over the neonA tokenizer,
      seeded: `generate --cfg 1.5` writes 4 PNGs; in process K3 is held to its
@@ -137,11 +141,23 @@ ends:
      256, Tk 426, D 96) beside SDPA; the first VAR training step at depth 2
      equals the CPU's (TRAIN_CPU_RTOL); `train -G` on a VAR config at batch 8
      through the CLI's `main` takes VAR_TRAIN_STEPS steps (K1 9 per step,
-     none skipped) and its checkpoint samples (K3 216).
+     none skipped) and its checkpoint samples (K3 216); the Inception Score
+     of the four generated images through `validate/inception.py` with a
+     seeded torchvision-layout InceptionV3 on the card, the classifier's ms
+     and its logits against the CPU's (INCEPTION_CPU_RTOL);
+ 14. a reference trainer checkpoint at the qp-2 geometry (seeded, under the
+     reference names) through `python -m mcquic_tpu_torch.utils.convert`:
+     the export's arrays equal the seeded model's, and it compresses and
+     restores the photo through K1 (3) and K2 (1).
      Phases 9-11 run fewer steps than before these phases (TRAIN_STEPS,
      NEON_TRAIN_STEPS, GEN_TRAIN_STEPS) to keep the run inside its limit.
 
-`chip_smoke.py --ddp-worker ...` is one rank of phase 12, started by it.
+`python3 chip_smoke.py --multi-card` needs two cards or more (at most four
+are used): after the environment (with `nvidia-smi topo -m` and NCCL's
+version) and the build, it runs phase 12 (b)'s cases with a card per rank
+over NCCL, and VAR-d24's `train -G` at batch 8 per rank against one card
+(`multiCard`). `chip_smoke.py --ddp-worker ...` is one
+rank of phase 12 or of `--multi-card`, started by it.
 
 Any failure ends the run with a non-zero exit and no result line. The last
 two lines are the kernel table as JSON and
@@ -189,14 +205,14 @@ TRAIN_CPU_RTOL = 1e-3            # first step, card vs CPU, loss and grad norm (
                                  # cuDNN and the CPU sum in other orders)
 NEON_V2_60K_CONFIG = ROOT / "configs" / "rd5" / "neon_v2_60k.yaml"
 GEN_NEON_A_CONFIG = ROOT / "configs" / "rd5" / "gen_stage2_neonA.yaml"
-NEON_TRAIN_STEPS = 6             # cut from 30: a save every step at valFreq < 20
-NEON_REASSIGN_AT = 3             # CodebookReassign's freq, cut from 3000 so that one runs
+NEON_TRAIN_STEPS = 2             # cut from 30, then 6 (room for phase 14): a save every step
+NEON_REASSIGN_AT = 1             # CodebookReassign's freq, cut from 3000 so that one runs
 LPIPS_CPU_RTOL = 1e-4            # the first Neon step's LPIPS, card vs CPU
 REMAT_RTOL = 1e-5                # the first Neon step's gradients, remat vs plain, on the card
 PROXY_STEPS = 3
 GEN_WNIDS = ["n01440764", "n02099601"]
-GEN_TRAIN_STEPS = 10             # through the CLI, cut from 10000 (and from 30 here)
-GEN_TIMED_STEPS = 8              # in process, counted step by step
+GEN_TRAIN_STEPS = 5              # through the CLI, cut from 10000 (and from 30, then 10, here)
+GEN_TIMED_STEPS = 5              # in process, counted step by step (cut from 8)
 GEN_SAMPLE_CLASSES = [1, 207]
 TILE = 256
 JPEG_FIXTURE = ROOT / "tests" / "golden" / "torch_jpeg"
@@ -214,6 +230,7 @@ NCCL_TIMEOUT = 90                # seconds for NCCL at world 2 on one card to su
 VAR_D24 = dict(channel=256, k=1024, size=[16, 8, 8, 4, 4, 2, 2, 1, 1], depth=24, embedDim=1536,
                nHeads=16, numClasses=1000)   # GeneratorVAR's defaults over the neonA tokenizer
 VAR_TRAIN_STEPS = 3              # train -G on the VAR config
+INCEPTION_CPU_RTOL = 1e-3        # phase 13: InceptionV3's logits, card vs CPU, of the largest
 TILE_BATCH_MAX_DIFF = 1          # uint8 levels: cuDNN picks algorithms by batch size, so the same
                                  # codes decoded one by one and as a batch of 6 round differently
 
@@ -1266,11 +1283,23 @@ def ddpCase(torch, np, case: str, config: Path, device: str = "cuda") -> dict:
             raise AssertionError(f"{trainSet} holds no batch of {DDP_GLOBAL_BATCH}")
         batches += epoch
     batches = batches[:DDP_STEPS]
+    optimizer = trainer.optimizer
     out = {"rank": rank, "world": world, "metrics": [], "checksums": [], "seconds": [], "K1": [],
-           "val": None}
+           "val": None, "state_bytes": optimizer.stateBytes(),
+           "sharded_bytes": sum(t.numel() * t.element_size() for ts in optimizer.state.values()
+                                for t, axis in zip(ts, optimizer.axes) if axis is not None),
+           "k1_after_zero_steps": 0}
     trainStep = trainer.trainStep
+    # K1 keeps each codebook's norms by tensor and version: warmed before a
+    # sharded step, it must see the step's writes (this rank's slice, then
+    # the all-gathered slices) on the stage-1 codebooks
+    checkK1 = case != "gen" and world > 1
+    k1Gen = torch.Generator(device=trainer.model._quantizer.codebook(0).device) if checkK1 else None
 
     def step(*args):
+        if checkK1:
+            k1MatchesPlain(torch, trainer.model, k1Gen.manual_seed(len(out["seconds"])),
+                           f"rank {rank} before step {len(out['seconds']) + 1}")
         vqNearest.launches = 0
         torch.cuda.synchronize()
         start = time.perf_counter()
@@ -1282,6 +1311,10 @@ def ddpCase(torch, np, case: str, config: Path, device: str = "cuda") -> dict:
         out["K1"].append(vqNearest.launches)
         out["metrics"].append({k: float(v) for k, v in metrics.items()})
         out["checksums"].append(paramChecksum(torch, tensors))
+        if checkK1:
+            k1MatchesPlain(torch, trainer.model, k1Gen.manual_seed(len(out["seconds"])),
+                           f"rank {rank} after ZeRO step {len(out['seconds'])}")
+            out["k1_after_zero_steps"] += 1
         return metrics
 
     trainer.trainStep = step
@@ -1310,13 +1343,14 @@ def ddpCase(torch, np, case: str, config: Path, device: str = "cuda") -> dict:
 
 
 def ddpWorker(argv) -> int:
-    """`chip_smoke.py --ddp-worker CASE RANK WORLD PORT OUT [CONFIG]`: one
-    rank of phase 12, started by it. CASE rd_qp2 or gen: gloo between the
-    ranks (which share one card), `ddpCase`, its result as JSON in OUT.
-    CASE nccl: NCCL at world WORLD on the one card, one all-reduce; what
-    happened, verbatim, in OUT."""
+    """`chip_smoke.py --ddp-worker CASE BACKEND RANK WORLD PORT OUT [CONFIG]`:
+    one rank of phase 12 or of `--multi-card`, started by it. CASE rd_qp2 or
+    gen: `ddpCase` over BACKEND (gloo between ranks that share one card,
+    NCCL with a card each), its result as JSON in OUT. CASE var: `varCase`,
+    the train CLI's `main` joining the group itself (NCCL). CASE nccl: NCCL
+    at world WORLD, one all-reduce; what happened, verbatim, in OUT."""
     import os
-    case, rank, world, port, out = argv[:5]
+    case, backend, rank, world, port, out = argv[:6]
     os.environ.update(MCQUIC_COORDINATOR=f"localhost:{port}", MCQUIC_NUM_PROCESSES=world,
                       MCQUIC_PROCESS_ID=rank)
     sys.path.insert(0, str(ROOT))
@@ -1336,24 +1370,33 @@ def ddpWorker(argv) -> int:
             parallel.destroy()
         Path(out).write_text(json.dumps(result))
         return 0
-    parallel.initDistributed("cuda", backend="gloo")
-    try:
-        result = ddpCase(torch, np, case, Path(argv[5]))
-    finally:
-        parallel.destroy()
+    if case == "var":
+        result = varCase(torch, Path(argv[6]))
+    else:
+        parallel.initDistributed("cuda", backend=backend)
+        try:
+            result = ddpCase(torch, np, case, Path(argv[6]))
+        finally:
+            parallel.destroy()
     Path(out).write_text(json.dumps(result))
     return 0
 
 
-def startRanks(case: str, world: int, tmp: Path, config=None) -> list:
+def startRanks(case: str, world: int, tmp: Path, config=None, backend: str = "gloo") -> list:
+    """`world` ranks of `case`, each with its share of the host's cores for
+    torch's threads (the VAR ranks draw a billion parameters on the host)."""
+    import os
     import socket
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
+    env = dict(os.environ, OMP_NUM_THREADS=str(max((os.cpu_count() or world) // world, 1)))
     return [(subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--ddp-worker", case,
-                               str(r), str(world), str(port), str(tmp / f"{case}_rank{r}.json")]
+                               backend, str(r), str(world), str(port),
+                               str(tmp / f"{case}_rank{r}.json")]
                               + ([str(config)] if config else []),
-                              cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True),
              tmp / f"{case}_rank{r}.json") for r in range(world)]
 
 
@@ -1376,6 +1419,86 @@ def joinRanks(ranks, timeout: float) -> list:
     if errors:
         raise RuntimeError(f"phase-12 ranks failed: {errors}")
     return [json.loads(path.read_text()) for _, path in ranks]
+
+
+def ddpConfigs(tmp: Path, case: str, base: dict, world: int, trainSet, val: Path) -> dict:
+    """The configs of a data-parallel case, {1: one process at
+    DDP_GLOBAL_BATCH, world: batch DDP_GLOBAL_BATCH / world per rank}: rd_qp2
+    validates at its last step and saves every step at world > 1, the
+    generator neither."""
+    extra = {"valFreq": DDP_STEPS, "valSet": str(val)} if case == "rd_qp2" else {"valFreq": 1000}
+    configs = {}
+    for w in (1, world):
+        train = dict(base["train"], totalStep=DDP_STEPS, batchSize=DDP_GLOBAL_BATCH // w,
+                     trainSet=str(trainSet), hooks=[],
+                     saveDir=str(tmp / f"ddp_{case}") if w > 1 and case == "rd_qp2" else "",
+                     **extra)
+        configs[w] = writeConfig(tmp / f"ddp_{case}_{w}.yaml", dict(base, train=train))
+    return configs
+
+
+def ddpCompare(torch, np, tmp: Path, smi: str, case: str, configs: dict, backend: str,
+               how: str, note: str) -> dict:
+    """The ranks of `configs` (its larger world, over `backend`) against one
+    process at the global batch, DDP_STEPS steps each. Gates: the first
+    step's loss and gradient norm within TRAIN_CPU_RTOL, the ranks'
+    parameter checksums equal after every step, no step skipped, the
+    optimizer state sharded (each rank holds 1/world of the sharded
+    parameters' slots, the rest whole), K1 on the stage-1 codebooks equal to
+    its plain version after every sharded step, rank 0's validation K1 3 and
+    K2 1 per image and none elsewhere (rd_qp2), K1 per level in every
+    generator step."""
+    world = max(configs)
+    start = time.perf_counter()
+    ranks = joinRanks(startRanks(case, world, tmp, configs[world], backend), DDP_TIMEOUT)
+    ranksS = time.perf_counter() - start
+    one = ddpCase(torch, np, case, configs[1])
+    first = ranks[0]["metrics"][0]
+    for r in ranks:
+        print(f"  {case} rank {r['rank']}: step seconds {[round(t, 3) for t in r['seconds']]}, "
+              f"parameter checksums {r['checksums']}", flush=True)
+    gaps = {key: relativeGap(first[key], one["metrics"][0][key]) for key in ("loss", "gradNorm")}
+    sameRanks = all(r["checksums"] == ranks[0]["checksums"] for r in ranks)
+    steady = [statistics.median(r["seconds"][1:]) for r in ranks]
+    sharded = ranks[0]["sharded_bytes"]
+    bytesOk = sharded > 0 and all(r["sharded_bytes"] == sharded and r["state_bytes"]
+                                  == one["state_bytes"] - sharded * (world - 1) for r in ranks)
+    print(f"  {case}, {world} ranks x batch {DDP_GLOBAL_BATCH // world} {how} ({ranksS:.1f} s, "
+          f"processes included) against 1 process x batch {DDP_GLOBAL_BATCH}: first step loss "
+          f"{first['loss']:.8f} against {one['metrics'][0]['loss']:.8f}, grad norm "
+          f"{first['gradNorm']:.8f} against {one['metrics'][0]['gradNorm']:.8f} (gaps "
+          f"{gaps['loss']:.2e}, {gaps['gradNorm']:.2e}; tolerance {TRAIN_CPU_RTOL:g}); the ranks' "
+          f"parameter checksums equal after every step: {sameRanks}; optimizer state per rank "
+          f"{[r['state_bytes'] for r in ranks]} bytes against one process's "
+          f"{one['state_bytes']} (the sharded parameters' slots {sharded * world} bytes, "
+          f"{sharded} per rank); K1 equal to its plain version after "
+          f"{[r['k1_after_zero_steps'] for r in ranks]} sharded steps; K1 per step "
+          f"{[r['K1'] for r in ranks]}, rank 0's validation {ranks[0]['val']}, the others' "
+          f"{[r['val'] for r in ranks[1:]]}; per rank {[f'{1 / t:.3f}' for t in steady]} "
+          f"steps/s, peak of the steps {[round(r['peak_gib'], 2) for r in ranks]} GiB; one "
+          f"process {1 / statistics.median(one['seconds'][1:]):.3f} steps/s, peak "
+          f"{one['peak_gib']:.2f} GiB. {note} ({smi})", flush=True)
+    if max(gaps.values()) > TRAIN_CPU_RTOL or not sameRanks or any(
+            m["skipped"] for r in ranks for m in r["metrics"]):
+        raise AssertionError(f"{case} at world {world}: {gaps}, ranks equal {sameRanks}")
+    if not bytesOk:
+        raise AssertionError(f"{case} at world {world}: the optimizer state is not sharded: "
+                             f"{[(r['state_bytes'], r['sharded_bytes']) for r in ranks]} against "
+                             f"{one['state_bytes']}")
+    if case == "rd_qp2" and (ranks[0]["val"] != {"K1": 3, "K2": 1}
+                             or any(r["val"] for r in ranks[1:])
+                             or any(r["k1_after_zero_steps"] != DDP_STEPS for r in ranks)):
+        raise AssertionError(f"the validation ran off rank 0 or missed its kernels, or K1 was "
+                             f"not checked after every sharded step: "
+                             f"{[(r['val'], r['k1_after_zero_steps']) for r in ranks]}")
+    if case == "gen" and any(k != len(NEON_V2_60K["size"]) for r in ranks for k in r["K1"]):
+        raise AssertionError(f"a rank's generator step did not launch K1 per level: "
+                             f"{[r['K1'] for r in ranks]}")
+    return {"ranks_steps_per_s": [1 / t for t in steady],
+            "ranks_peak_gib": [r["peak_gib"] for r in ranks], "gaps": gaps,
+            "checksums_equal": sameRanks, "K1": ranks[0]["K1"], "val": ranks[0]["val"],
+            "state_bytes": [r["state_bytes"] for r in ranks], "one_state_bytes": one["state_bytes"],
+            "one_steps_per_s": 1 / statistics.median(one["seconds"][1:])}
 
 
 def ddp12(torch, np, tmp: Path, smi: str, shards: str, val: Path, classes: Path,
@@ -1444,61 +1567,63 @@ def ddp12(torch, np, tmp: Path, smi: str, shards: str, val: Path, classes: Path,
     results = {}
     gen = Config.load(str(GEN_NEON_A_CONFIG)).serialize()
     gen["model"]["params"]["loadFrom"] = str(neonCheckpoint)
-    for case, base, extra in (("rd_qp2", data, {"valFreq": DDP_STEPS, "valSet": str(val)}),
-                              ("gen", gen, {"valFreq": 1000})):
-        configs = {}
-        for world in (1, 2):
-            train = dict(base["train"], totalStep=DDP_STEPS, batchSize=DDP_GLOBAL_BATCH // world,
-                         trainSet=shards if case == "rd_qp2" else str(classes), hooks=[],
-                         saveDir=str(tmp / f"ddp_{case}") if world == 2 and case == "rd_qp2"
-                         else "", **extra)
-            configs[world] = writeConfig(tmp / f"ddp_{case}_{world}.yaml", dict(base, train=train))
-        start = time.perf_counter()
-        ranks = joinRanks(startRanks(case, 2, tmp, configs[2]), DDP_TIMEOUT)
-        ranksS = time.perf_counter() - start
-        one = ddpCase(torch, np, case, configs[1])
-        first = ranks[0]["metrics"][0]
-        for r in ranks:
-            print(f"  (b) {case} rank {r['rank']}: step seconds "
-                  f"{[round(t, 3) for t in r['seconds']]}", flush=True)
-        gaps = {key: relativeGap(first[key], one["metrics"][0][key]) for key in ("loss", "gradNorm")}
-        sameRanks = ranks[0]["checksums"] == ranks[1]["checksums"]
-        steady = [statistics.median(r["seconds"][1:]) for r in ranks]
-        print(f"  (b) {case}, 2 ranks x batch {DDP_GLOBAL_BATCH // 2} over gloo on the one card "
-              f"({ranksS:.1f} s, processes included) against 1 process x batch {DDP_GLOBAL_BATCH}: "
-              f"first step loss {first['loss']:.8f} against {one['metrics'][0]['loss']:.8f}, grad "
-              f"norm {first['gradNorm']:.8f} against {one['metrics'][0]['gradNorm']:.8f} (gaps "
-              f"{gaps['loss']:.2e}, {gaps['gradNorm']:.2e}; tolerance {TRAIN_CPU_RTOL:g}); the "
-              f"ranks' parameter checksums equal after every step: {sameRanks}; K1 per step "
-              f"{[r['K1'] for r in ranks]}, rank 0's validation {ranks[0]['val']}, rank 1's "
-              f"{ranks[1]['val']}; per rank {[f'{1 / t:.3f}' for t in steady]} steps/s, peak of "
-              f"the steps {[round(r['peak_gib'], 2) for r in ranks]} GiB; one process "
-              f"{1 / statistics.median(one['seconds'][1:]):.3f} steps/s, peak "
-              f"{one['peak_gib']:.2f} GiB. Two ranks sharing one card measure no scaling ({smi})",
-              flush=True)
-        if max(gaps.values()) > TRAIN_CPU_RTOL or not sameRanks or any(
-                m["skipped"] for r in ranks for m in r["metrics"]):
-            raise AssertionError(f"phase 12 (b) {case}: {gaps}, ranks equal {sameRanks}")
-        if case == "rd_qp2" and (ranks[0]["val"] != {"K1": 3, "K2": 1} or ranks[1]["val"]):
-            raise AssertionError(f"the validation ran off rank 0 or missed its kernels: "
-                                 f"{[r['val'] for r in ranks]}")
-        if case == "gen" and any(k != len(NEON_V2_60K["size"]) for r in ranks for k in r["K1"]):
-            raise AssertionError(f"a rank's generator step did not launch K1 per level: "
-                                 f"{[r['K1'] for r in ranks]}")
-        results[case] = {"ranks_steps_per_s": [1 / t for t in steady],
-                         "ranks_peak_gib": [r["peak_gib"] for r in ranks],
-                         "gaps": gaps, "K1": ranks[0]["K1"], "val": ranks[0]["val"]}
+    for case, base in (("rd_qp2", data), ("gen", gen)):
+        configs = ddpConfigs(tmp, case, base, 2, shards if case == "rd_qp2" else classes, val)
+        results[case] = ddpCompare(torch, np, tmp, smi, case, configs, "gloo",
+                                   "over gloo on the one card",
+                                   "Two ranks sharing one card measure no scaling")
 
     # (c) NCCL at world 2 on the one card: the outcome, verbatim
     start = time.perf_counter()
     try:
-        outcome = joinRanks(startRanks("nccl", 2, tmp), NCCL_TIMEOUT)
+        outcome = joinRanks(startRanks("nccl", 2, tmp, backend="nccl"), NCCL_TIMEOUT)
     except RuntimeError as err:
         outcome = [str(err)]
     print(f"  (c) NCCL at world 2 on the one card ({time.perf_counter() - start:.1f} s): "
           f"{outcome}", flush=True)
     results["nccl_world2"] = outcome
     return results
+
+
+def inceptionScore(torch, np, tmp: Path, restored, smi: str) -> dict:
+    """The Inception Score of the generated images ([B, 3, H, W] in [-1, 1]
+    on the card) through `validate/inception.py`'s handler on the card, with
+    a seeded torchvision-layout InceptionV3 found through
+    MCQUIC_INCEPTION_WEIGHTS; the classifier's ms at this batch (CUDA-event
+    median of single calls) and its logits on the card against the CPU's on
+    the same resized images (INCEPTION_CPU_RTOL of the largest)."""
+    import os
+    from mcquic_tpu_torch.data.transforms import modelOutputToImage
+    from mcquic_tpu_torch.validate.inception import InceptionScoreHandler, resizeBilinear
+    from mcquic_tpu_torch.validate.inception_v3 import (classifierOf, inceptionFromStateDict,
+                                                       seededStateDict)
+    images = modelOutputToImage(restored.permute(0, 2, 3, 1).float().cpu().numpy())
+    path = tmp / "inception_v3.pth"
+    torch.save(seededStateDict(), path)
+    os.environ["MCQUIC_INCEPTION_WEIGHTS"] = str(path)
+    try:
+        handler = InceptionScoreHandler("cuda", splits=1)
+    finally:
+        del os.environ["MCQUIC_INCEPTION_WEIGHTS"]
+    start = time.perf_counter()
+    handler(restored=images)
+    score = handler.result()
+    handlerMs = (time.perf_counter() - start) * 1e3
+    resized = resizeBilinear(torch.from_numpy(images).cuda())
+    weights = torch.load(path, map_location="cpu")
+    card = classifierOf(inceptionFromStateDict(weights, "cuda"))
+    ms = medianMs(torch, lambda: card(resized))
+    cardLogits = card(resized).cpu()
+    cpuLogits = classifierOf(inceptionFromStateDict(weights, "cpu"))(resized.cpu())
+    gap = float((cardLogits - cpuLogits).abs().max() / cpuLogits.abs().max())
+    print(f"  Inception Score of the {len(images)} generated {images.shape[1]}x{images.shape[2]} "
+          f"images (seeded InceptionV3, one split): {score:.6f}; the handler's first call "
+          f"{handlerMs:.1f} ms (resize, cuDNN's autotuning); the classifier at batch "
+          f"{len(images)}, 299x299: {ms:.3f} ms; logits on the card against the CPU's: max gap "
+          f"{gap:.2e} of the largest (tolerance {INCEPTION_CPU_RTOL:g}) ({smi})", flush=True)
+    if not (np.isfinite(score) and score >= 1.0 and gap <= INCEPTION_CPU_RTOL):
+        raise AssertionError(f"the Inception Score on the card: {score}, logits gap {gap}")
+    return {"score": score, "ms": ms, "logits_gap": gap}
 
 
 def var13(torch, np, tmp: Path, smi: str, neonCheckpoint: Path, classes: Path, k3: dict) -> dict:
@@ -1583,6 +1708,8 @@ def var13(torch, np, tmp: Path, smi: str, neonCheckpoint: Path, classes: Path, k
           flush=True)
     if launches != depth * levels or len(calls) != depth * levels or not finite:
         raise AssertionError(f"VAR generate: {launches} K3 launches, {len(calls)} calls")
+
+    inception = inceptionScore(torch, np, tmp, restored, smi)
 
     # K3 at VAR's last level, timed beside its plain version and SDPA
     q, k, v, _, scale = calls[-1]
@@ -1738,7 +1865,266 @@ def var13(torch, np, tmp: Path, smi: str, neonCheckpoint: Path, classes: Path, k
     return {"generate_ms": statistics.median(timesMs), "generate_busy_ms": genBusy,
             "generate_idle": genIdle, "K3_per_generate": launches, "err": worst, "k3": k3Var,
             "steps_per_s": 1 / steady, "busy_ms": stepBusy[0], "peak_gib": peak,
-            "K1_per_step": levels}
+            "K1_per_step": levels, "inception": inception}
+
+
+def tooling14(torch, np, tmp: Path, img, smi: str) -> dict:
+    """Phase 14: a reference trainer checkpoint at the qp-2 geometry (a
+    seeded state dict under the reference names, `module._compressor.`
+    prefixed) through `python -m mcquic_tpu_torch.utils.convert`; the
+    export's arrays must equal the seeded model's under the flax names, and
+    it compresses and restores the photo on the card through K1 (3 per
+    compress) and K2 (1 per restore)."""
+    from mcquic_tpu_torch.container import File
+    from mcquic_tpu_torch.demo import loadModel
+    from mcquic_tpu_torch.models.compressor import seededModel
+    from mcquic_tpu_torch.ops.subpixel_cuda import conv3x3SubpixelThin
+    from mcquic_tpu_torch.ops.vq_cuda import vqNearest
+    from mcquic_tpu_torch.utils.convert import readExport, toJaxParams
+    channel, m, k = 128, 2, [8192, 2048, 512]
+    geometry = {"channel": channel, "m": m, "k": k}
+    stateDict = seededModel(geometry, seed=5).state_dict()
+    reference = tmp / "reference.ckpt"
+    torch.save({"trainer": {"_model": {"module._compressor." + key: value
+                                       for key, value in stateDict.items()}}}, reference)
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mcquic_tpu_torch.utils.convert", str(reference),
+                           str(tmp / "converted.npz"), "--channel", str(channel), "--m", str(m),
+                           "--k", ",".join(map(str, k)), "--qp", "2"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=CLI_TIMEOUT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the convert CLI exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    convertS = time.perf_counter() - start
+    export = Path(proc.stdout.strip().splitlines()[-1])
+    flat, meta = readExport(export)
+    want = toJaxParams(stateDict, geometry)
+    differ = sorted(key for key in want if key not in flat or not np.array_equal(flat[key],
+                                                                                  want[key]))
+    engine = loadModel(local=export, device="cuda")
+    vqNearest.launches = conv3x3SubpixelThin.launches = 0
+    file = engine.compressImage(img)
+    k1 = vqNearest.launches
+    restored = engine.decompressImage(File.deserialize(file.serialize()))
+    k2 = conv3x3SubpixelThin.launches
+    print(f"  reference checkpoint at the qp-2 geometry ({reference.stat().st_size / 1e6:.1f} MB) "
+          f"-> {export.name} through the convert CLI in {convertS:.1f} s (process included): "
+          f"{len(flat)} arrays, {len(differ)} differ from the seeded model's {differ[:3]}, config "
+          f"{meta['config']['model']}, qp {meta['qp']}; the photo at {file.BPP:.4f} bpp, PSNR "
+          f"{psnr(img, restored):.2f} dB (seeded weights), K1 {k1} per compress, K2 {k2} per "
+          f"restore ({smi})", flush=True)
+    if differ or len(flat) != len(want) or k1 != len(k) or k2 != 1 or restored.shape != img.shape:
+        raise AssertionError("the converted reference checkpoint did not load or run as it should")
+    return {"K1": k1, "K2": k2}
+
+
+def varCase(torch, config: Path) -> dict:
+    """`train -G` on a VAR config through the CLI's `main` (which joins the
+    process group where the three variables are set): each step's seconds,
+    loss and skip, each save's seconds (the optimizer's shards gathered into
+    rank 0's host memory, then written), the peak after the first step and
+    the optimizer state's bytes on this rank."""
+    from mcquic_tpu_torch.train import cli as trainCli
+    from mcquic_tpu_torch.train.genTrainer import GenTrainer
+    steps, saves, info = [], [], {}
+    trainStep, save = GenTrainer.trainStep, GenTrainer.save
+
+    def countedStep(self, imgs, lbls):
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        metrics = trainStep(self, imgs, lbls)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - begin, float(metrics["loss"]),
+                      float(metrics["skipped"])))
+        if len(steps) == 1:
+            torch.cuda.reset_peak_memory_stats()
+            info["state_bytes"] = self.optimizer.stateBytes()
+        return metrics
+
+    def timedSave(self):
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        save(self)
+        saves.append(time.perf_counter() - begin)
+
+    GenTrainer.trainStep, GenTrainer.save = countedStep, timedSave
+    try:
+        checkpoint = trainCli.main(config, gen=True, device="cuda")
+    finally:
+        GenTrainer.trainStep, GenTrainer.save = trainStep, save
+    return {"steps": steps, "saves": saves, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "state_bytes": info["state_bytes"],
+            "checkpoint_bytes": checkpoint.stat().st_size if checkpoint.exists() else 0}
+
+
+def multiCard() -> int:
+    """`python3 chip_smoke.py --multi-card`: the environment and build phases,
+    then data parallelism with a card per rank over NCCL, on every visible
+    card (at least 2, at most 4 used):
+      M1. the topology (`nvidia-smi topo -m`), NCCL's version, every card;
+      M2. rd_qp2 and gen_stage2_neonA at batch DDP_GLOBAL_BATCH / world per
+          rank against one process at DDP_GLOBAL_BATCH on card 0, gated as
+          phase 12 (b) (`ddpCompare`): the first step's gaps, the checksums,
+          the sharded optimizer state, K1 after every sharded step;
+      M3. VAR-d24 through `train -G`'s `main` at batch 8 per rank for
+          VAR_TRAIN_STEPS steps against one process at batch 8: steps/s per
+          rank, images/s in all against one card's, the peak per rank, the
+          optimizer state per rank and the save of the gathered checkpoint.
+    The data are crops of the photo; the tokenizer is a seeded Neon export at
+    neon_v2_60k's geometry. The last line is the `{"ok": true, ...}` JSON
+    with the count of cards."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs CUDA cards.",
+              file=sys.stderr)
+        return 2
+    if not (ROOT / "mcquic_tpu_torch" / "__init__.py").is_file() or not PHOTO.is_file():
+        print(f"chip_smoke: {ROOT} is not a checkout of the repository "
+              "(mcquic_tpu_torch/ or assets/ missing).", file=sys.stderr)
+        return 2
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"chip_smoke --multi-card: {cards} card visible; this mode needs at least 2.",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    from mcquic_tpu_torch.config import Config
+    from mcquic_tpu_torch.data.png import readPng
+    from mcquic_tpu_torch.demo import writeSeededExport
+    from mcquic_tpu_torch.utils.build import findNvcc
+
+    kind = torch.cuda.get_device_name(0)
+    world = min(cards, 4)
+    with Phase("M1 environment"):
+        nccl = torch.cuda.nccl.version()
+        print(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
+              f"CUDA {torch.version.cuda}, numpy {np.__version__}, NCCL "
+              f"{'.'.join(map(str, nccl)) if isinstance(nccl, tuple) else nccl}", flush=True)
+        smiLines = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                   "--format=csv,noheader"], capture_output=True, text=True,
+                                  timeout=20, check=True).stdout.strip().splitlines()
+        for i in range(cards):
+            print(f"  card {i}: {torch.cuda.get_device_name(i)}, "
+                  f"{torch.cuda.get_device_properties(i).multi_processor_count} SMs; "
+                  f"{smiLines[i] if i < len(smiLines) else 'not in nvidia-smi'}", flush=True)
+        smi = smiLines[0]
+        topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True,
+                              timeout=20).stdout.rstrip()
+        print("  nvidia-smi topo -m:\n" + "\n".join("    " + line for line in topo.splitlines()),
+              flush=True)
+        nvcc = findNvcc()
+        print(f"  nvcc {nvcc}: " + subprocess.run([nvcc, "--version"], capture_output=True,
+                                                  text=True, timeout=60, check=True)
+              .stdout.strip().splitlines()[-1], flush=True)
+    with Phase("M2 build"):
+        buildAll()
+
+    results = {"cards": cards, "world": world, "topology": topo, "smi": smiLines}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        img = readPng(PHOTO)
+        with Phase("M3 data"):
+            cropFolder(tmp / "crops", img, 16)
+            cropFolder(tmp / "val", img, 1, size=256, seed=3)
+            for j, wnid in enumerate(GEN_WNIDS):
+                (tmp / "classes").mkdir(exist_ok=True)
+                cropFolder(tmp / "classes" / wnid, img, 5 * world, seed=j + 1, jpeg=True)
+            neon = writeSeededExport(tmp / "neon.npz", "Neon", dict(NEON_V2_60K), seed=0)
+            print(f"  {len(list((tmp / 'crops').iterdir()))} PNG crops, "
+                  f"{sum(1 for _ in (tmp / 'classes').rglob('*.JPEG'))} JPEG crops under "
+                  f"{GEN_WNIDS}, a seeded Neon export at neon_v2_60k's geometry", flush=True)
+        rd = Config.load(str(RD_QP2)).serialize()
+        gen = Config.load(str(GEN_NEON_A_CONFIG)).serialize()
+        gen["model"]["params"]["loadFrom"] = str(neon)
+        with Phase(f"M4 world {world} over NCCL"):
+            for case, base, trainSet in (("rd_qp2", rd, tmp / "crops"),
+                                         ("gen", gen, tmp / "classes")):
+                configs = ddpConfigs(tmp, case, base, world, trainSet, tmp / "val")
+                results[case] = ddpCompare(torch, np, tmp, smi, case, configs, "nccl",
+                                           "over NCCL, a card each", "One process runs on card 0")
+        with Phase(f"M5 VAR-d24 at world {world}"):
+            results["var"] = varWorld(torch, np, tmp, smi, neon, world)
+    print(json.dumps({"multi_card": results}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": cards}}),
+          flush=True)
+    return 0
+
+
+def varWorld(torch, np, tmp: Path, smi: str, neon: Path, world: int) -> dict:
+    """M5: VAR-d24 at batch 8 per rank over `world` cards against one process
+    at batch 8 on card 0, each through `train -G`'s `main` (`varCase`)."""
+    from mcquic_tpu_torch.config import Config
+    bs = Config.load(str(GEN_NEON_A_CONFIG)).serialize()["train"]["batchSize"]
+    configs = {}
+    for w in (1, world):
+        train = dict(Config.load(str(GEN_NEON_A_CONFIG)).serialize()["train"],
+                     totalStep=VAR_TRAIN_STEPS, valFreq=1000, batchSize=bs,
+                     trainSet=str(tmp / "classes"), valSet=str(tmp / "classes"),
+                     saveDir=str(tmp / f"var_{w}"))
+        configs[w] = writeConfig(tmp / f"var_{w}.yaml", {
+            "model": {"key": "GeneratorVAR", "params": dict(VAR_D24, loadFrom=str(neon))},
+            "train": train})
+    start = time.perf_counter()
+    ranks = joinRanks(startRanks("var", world, tmp, configs[world], "nccl"), DDP_TIMEOUT)
+    ranksS = time.perf_counter() - start
+    for path in (tmp / f"var_{world}").rglob("*.npz"):
+        path.unlink()
+    one = varCase(torch, configs[1])
+    steady = [statistics.median(s[0] for s in r["steps"][1:]) for r in ranks]
+    oneSteady = statistics.median(s[0] for s in one["steps"][1:])
+    imagesPerS = world * bs / max(steady)
+    print(f"  VAR-d24 train -G, {world} ranks x batch {bs} over NCCL ({ranksS:.1f} s, processes, "
+          f"builds and the save included): step seconds by rank "
+          f"{[[round(s[0], 3) for s in r['steps']] for r in ranks]}; per rank "
+          f"{[f'{1 / t:.3f}' for t in steady]} steps/s; {imagesPerS:.2f} images/s in all against "
+          f"one process's {bs / oneSteady:.2f} at batch {bs} on card 0 "
+          f"({imagesPerS * oneSteady / bs:.2f}x); peak after the first step per rank "
+          f"{[round(r['peak_gib'], 2) for r in ranks]} GiB against {one['peak_gib']:.2f}; "
+          f"optimizer state per rank {[r['state_bytes'] for r in ranks]} bytes against "
+          f"{one['state_bytes']}; the gathered checkpoint's save {ranks[0]['saves']} s "
+          f"({ranks[0]['checkpoint_bytes'] / 1e9:.2f} GB), one process's {one['saves']} s "
+          f"({smi})", flush=True)
+    losses = [s[1] for r in ranks for s in r["steps"]] + [s[1] for s in one["steps"]]
+    if (any(len(r["steps"]) != VAR_TRAIN_STEPS for r in ranks) or not all(np.isfinite(losses))
+            or any(s[2] for r in ranks for s in r["steps"])
+            or any(r["state_bytes"] >= one["state_bytes"] for r in ranks)):
+        raise AssertionError(f"VAR-d24 at world {world}: {ranks}")
+    return {"ranks_steps_per_s": [1 / t for t in steady], "images_per_s": imagesPerS,
+            "one_images_per_s": bs / oneSteady, "ranks_peak_gib": [r["peak_gib"] for r in ranks],
+            "one_peak_gib": one["peak_gib"], "state_bytes": [r["state_bytes"] for r in ranks],
+            "one_state_bytes": one["state_bytes"], "save_s": ranks[0]["saves"],
+            "checkpoint_bytes": ranks[0]["checkpoint_bytes"], "one_save_s": one["saves"]}
+
+
+def buildAll():
+    """Build K1, K1b, K2 and K3 (nvcc) and the rANS runtime and the JPEG codec
+    (g++), all started together; print ptxas's registers and spills of every
+    kernel."""
+    from mcquic_tpu_torch.coding import rans
+    from mcquic_tpu_torch.data import jpeg
+    from mcquic_tpu_torch.ops import attention_cuda, subpixel_cuda, vq_cuda, vq_grouped_cuda
+    from mcquic_tpu_torch.utils.build import buildLog
+
+    def timed(name, fn):
+        start = time.perf_counter()
+        fn()
+        return name, time.perf_counter() - start
+    with ThreadPoolExecutor(6) as pool:
+        jobs = [pool.submit(timed, name, fn) for name, fn in
+                (("K1 vq_encode.cu (nvcc)", vq_cuda.build),
+                 ("K1b vq_grouped.cu (nvcc)", vq_grouped_cuda.build),
+                 ("K2 thin_head.cu (nvcc)", subpixel_cuda.build),
+                 ("K3 flash_attention.cu (nvcc)", attention_cuda.build),
+                 ("rANS mcquic_rans.cpp (g++)", rans.build),
+                 ("JPEG jpeg.cpp (g++)", jpeg.build))]
+        for job in jobs:
+            name, seconds = job.result()
+            print(f"  built {name} in {seconds:.2f} s", flush=True)
+    for stem in ("vq_encode", "vq_grouped", "thin_head", "flash_attention"):
+        for line in buildLog(stem).splitlines():
+            if "entry function" in line or "spill" in line or "Used" in line:
+                print(f"  ptxas {stem}: {line.strip()}", flush=True)
 
 
 def jpegCheck(np, photo, smi: str) -> dict:
@@ -1793,6 +2179,7 @@ def jpegCheck(np, photo, smi: str) -> dict:
 
 
 def main() -> int:
+    started = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card.",
@@ -1805,7 +2192,6 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
-    from mcquic_tpu_torch.coding import rans
     from mcquic_tpu_torch.container import File
     from mcquic_tpu_torch.data import jpeg
     from mcquic_tpu_torch.data.png import readPng, writePng
@@ -1820,7 +2206,6 @@ def main() -> int:
     from mcquic_tpu_torch.data.transforms import imageToModelInput, modelOutputToImage
     from mcquic_tpu_torch.generate import GEN_STAGE2_NEON_A, loadGenerator, writeSeededGenerator
     from mcquic_tpu_torch.models.generator import GeneratorV3SelfAttention, blockCausalMask
-    from mcquic_tpu_torch.ops import attention_cuda, subpixel_cuda, vq_cuda, vq_grouped_cuda
     from mcquic_tpu_torch.ops.attention import flashAttentionPlain
     from mcquic_tpu_torch.ops.attention_cuda import attentionPlan, flashAttention
     from mcquic_tpu_torch.ops.subpixel_cuda import conv3x3SubpixelPlain, conv3x3SubpixelThin
@@ -1828,7 +2213,7 @@ def main() -> int:
     from mcquic_tpu_torch.ops.vq_cuda import k1Plan, vqNearest
     from mcquic_tpu_torch.ops.vq_grouped_cuda import vqNearestGrouped
     from mcquic_tpu_torch.utils import exactFp32
-    from mcquic_tpu_torch.utils.build import buildLog, findNvcc
+    from mcquic_tpu_torch.utils.build import findNvcc
     from mcquic_tpu_torch.utils.convert import readExport
     from mcquic_tpu_torch.validate.validator import Validator
 
@@ -1851,25 +2236,7 @@ def main() -> int:
         print(f"  nvcc {nvcc}: {version}", flush=True)
 
     with Phase("2 build"):
-        def timed(name, fn):
-            start = time.perf_counter()
-            fn()
-            return name, time.perf_counter() - start
-        with ThreadPoolExecutor(6) as pool:
-            jobs = [pool.submit(timed, name, fn) for name, fn in
-                    (("K1 vq_encode.cu (nvcc)", vq_cuda.build),
-                     ("K1b vq_grouped.cu (nvcc)", vq_grouped_cuda.build),
-                     ("K2 thin_head.cu (nvcc)", subpixel_cuda.build),
-                     ("K3 flash_attention.cu (nvcc)", attention_cuda.build),
-                     ("rANS mcquic_rans.cpp (g++)", rans.build),
-                     ("JPEG jpeg.cpp (g++)", jpeg.build))]
-            for job in jobs:
-                name, seconds = job.result()
-                print(f"  built {name} in {seconds:.2f} s", flush=True)
-        for stem in ("vq_encode", "vq_grouped", "thin_head", "flash_attention"):
-            for line in buildLog(stem).splitlines():
-                if "entry function" in line or "spill" in line or "Used" in line:
-                    print(f"  ptxas {stem}: {line.strip()}", flush=True)
+        buildAll()
         codec = jpegCheck(np, readPng(PHOTO), smi)
 
     gen = torch.Generator(device=device).manual_seed(0)
@@ -2633,6 +3000,9 @@ def main() -> int:
         with Phase("13 GeneratorVAR"):
             varTrace = var13(torch, np, tmp / "p13", smi, neonTrace["checkpoint"],
                              tmp / "p10" / "classes", k3)
+        with Phase("14 reference checkpoint"):
+            (tmp / "p14").mkdir()
+            toolTrace = tooling14(torch, np, tmp / "p14", img, smi)
 
     kernels = [
         {"name": "vq_nearest", "route": "cuda", "source": "mcquic_tpu_torch/csrc/vq_encode.cu",
@@ -2649,6 +3019,7 @@ def main() -> int:
          "ddp_gen_launches_per_rank_step": ddpTrace["gen"]["K1"],
          "ddp_validation_launches_per_image": ddpTrace["rd_qp2"]["val"]["K1"],
          "var_train_launches_per_step": varTrace["K1_per_step"],
+         "converted_reference_launches_per_compress": toolTrace["K1"],
          "neon_device_ms": neonK1["device_ms"], "neon_ms": neonK1["ms"],
          "neon_library_device_ms": neonK1["library_device_ms"],
          "qp12_device_ms": qp12K1["device_ms"],
@@ -2667,6 +3038,7 @@ def main() -> int:
          "library_host_us": k2["library_host_us"], "batch_device_ms": k2Batch["device_ms"],
          "train_validation_launches_per_image": trainTrace["K2"],
          "ddp_validation_launches_per_image": ddpTrace["rd_qp2"]["val"]["K2"],
+         "converted_reference_launches_per_restore": toolTrace["K2"],
          "batch_library_device_ms": k2Batch["library_device_ms"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "mcquic_tpu_torch/csrc/flash_attention.cu",
@@ -2684,6 +3056,7 @@ def main() -> int:
          "var_library_ms": varTrace["k3"]["library_ms"],
          "var_library_device_ms": varTrace["k3"]["library_device_ms"]},
     ]
+    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -2693,4 +3066,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-worker"]:
         sys.exit(ddpWorker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--multi-card"]:
+        sys.exit(multiCard())
     sys.exit(main())

@@ -17,15 +17,29 @@ import logging
 import mcquic_tpu_torch
 
 
+def loggingOptions(p: argparse.ArgumentParser):
+    """-D and -q, as every command of the JAX package's CLI has them."""
+    p.add_argument("-D", "--debug", action="store_true", help="verbose logging")
+    p.add_argument("-q", "--quiet", action="store_true", help="warnings and errors only")
+
+
+def setLogging(args):
+    """The root logger's level for -D (DEBUG) or -q (WARNING), else INFO."""
+    level = logging.DEBUG if args.debug else (logging.WARNING if args.quiet else logging.INFO)
+    logging.getLogger().setLevel(level)
+
+
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m mcquic_tpu_torch",
         description=f"mcquic_tpu_torch {mcquic_tpu_torch.__version__}: compress IMAGE (PNG or "
                     "JPEG) -> .mcq, or restore .MCQ -> PNG. `generate -h` samples from a "
                     "generator, `train -h` trains, `dataset -h` writes training shards.")
+    loggingOptions(p)
     p.add_argument("-qp", type=int, choices=range(0, 14), default=None, metavar="{0..13}",
                    help="quantization parameter (zoo slot); a .mcq records its own")
     p.add_argument("--local", default=None, help="use a local exported model instead of the zoo")
+    p.add_argument("--mse", action="store_true", help="use the MSE-optimized zoo models")
     p.add_argument("--crop", action="store_true",
                    help="center-crop the input to multiples of 128 first")
     p.add_argument("--tile", type=int, default=0,
@@ -44,6 +58,7 @@ def validateParser() -> argparse.ArgumentParser:
         description="Evaluate MODEL (an exported model, or a trainer checkpoint with its json "
                     "sidecar) on the PNG and JPEG images under IMAGES: MS-SSIM, PSNR, bpp and ideal bpp; "
                     "optionally export it; then time it under the reference's speed protocol.")
+    loggingOptions(p)
     p.add_argument("-e", "--export", default=None,
                    help="write a deploy model here (renamed with its sha256 prefix)")
     p.add_argument("--bf16", action="store_true",
@@ -59,6 +74,7 @@ def generateParser() -> argparse.ArgumentParser:
         prog="python -m mcquic_tpu_torch generate",
         description="Sample one image per ImageNet class id from a stage-2 generator "
                     "checkpoint (npz + json sidecar) into OUTPUT/class{id}_{i}.png.")
+    loggingOptions(p)
     p.add_argument("-c", "--classes", required=True,
                    help="comma-separated ImageNet class ids to sample")
     p.add_argument("--cfg", type=float, default=1.5,
@@ -83,8 +99,7 @@ def trainParser() -> argparse.ArgumentParser:
                     "trainSet, valSet, saveDir, ...). Resumes from saveDir/latest where a "
                     "checkpoint is and writes checkpoints there; prints the deploy model's path "
                     "(stage 1, written into saveDir) or the checkpoint's (stage 2).")
-    p.add_argument("-D", "--debug", action="store_true", help="verbose logging")
-    p.add_argument("-q", "--quiet", action="store_true", help="warnings and errors only")
+    loggingOptions(p)
     p.add_argument("-r", "--resume", action="store_true",
                    help="resume from saveDir/latest (always done where a checkpoint is)")
     p.add_argument("-G", "--gen", action="store_true", help="train the stage-2 generation model")
@@ -99,8 +114,7 @@ def datasetParser() -> argparse.ArgumentParser:
         description="Write the images under IMAGES that pass the filter (at least 512 x 512, "
                     "textured) into tar shards of quality-95 JPEGs, "
                     "OUTPUT/mcquic_DATA_%05d.tar.gz, and OUTPUT/metadata.json.")
-    p.add_argument("-D", "--debug", action="store_true", help="verbose logging")
-    p.add_argument("-q", "--quiet", action="store_true", help="warnings and errors only")
+    loggingOptions(p)
     p.add_argument("-j", "--jobs", type=int, default=1, help="parallel shard writers")
     p.add_argument("-G", "--gen", action="store_true",
                    help="write a caption member per image (image-text dataset for generation)")
@@ -115,6 +129,7 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     if argv[:1] == ["generate"]:
         args = generateParser().parse_args(argv[1:])
+        setLogging(args)
         from mcquic_tpu_torch.generate import main as generate
         for path in generate(args.modelPath, [int(c) for c in args.classes.split(",")],
                              args.output, topK=args.top_k, temperature=args.temperature,
@@ -123,15 +138,13 @@ def main(argv=None) -> int:
         return 0
     if argv[:1] == ["train"]:
         args = trainParser().parse_args(argv[1:])
-        level = logging.DEBUG if args.debug else (logging.WARNING if args.quiet else logging.INFO)
-        logging.getLogger().setLevel(level)
+        setLogging(args)
         from mcquic_tpu_torch.train.cli import main as train
         print(train(args.configPath, gen=args.gen, device=args.device))
         return 0
     if argv[:1] == ["dataset"]:
         args = datasetParser().parse_args(argv[1:])
-        level = logging.DEBUG if args.debug else (logging.WARNING if args.quiet else logging.INFO)
-        logging.getLogger().setLevel(level)
+        setLogging(args)
         from pathlib import Path
         if not Path(args.images).is_dir():
             datasetParser().error(f"IMAGES {args.images!r} is not a directory")
@@ -140,16 +153,18 @@ def main(argv=None) -> int:
         return 0
     if argv[:1] == ["validate"]:
         args = validateParser().parse_args(argv[1:])
+        setLogging(args)
         from mcquic_tpu_torch.validate.cli import main as validate
         validate(args.modelPath, args.images, args.export, bf16=args.bf16, device=args.device)
         return 0
     p = parser()
     args = p.parse_args(argv)
+    setLogging(args)
     if args.local is None and args.qp is None and not args.input.lower().endswith(".mcq"):
         p.error("compressing needs -qp or --local")
     if args.tile < 0:
         p.error("--tile must be >= 0")
     from mcquic_tpu_torch.demo import main as run
     print(run(args.input, args.output, qp=args.qp, local=args.local, device=args.device,
-              crop=args.crop, tile=args.tile))
+              crop=args.crop, tile=args.tile, mse=args.mse))
     return 0

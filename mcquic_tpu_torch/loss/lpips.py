@@ -159,7 +159,7 @@ def proxyModule(seed: int = PROXY_SEED) -> LPIPS:
     return module
 
 
-def makeDefaultLpipsFn(device="cpu"):
+def makeDefaultLpipsFn(device):
     """The LPIPS term from the bundled lin heads and a VGG16 backbone found
     by `findVggWeights`, on `device`; with no backbone, the proxy under
     MCQUIC_LPIPS_PROXY=1, else None after one loud warning."""

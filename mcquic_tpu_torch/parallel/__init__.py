@@ -22,13 +22,18 @@ the same generator and draws the batch-axis random values at the global
 batch (`shardedRows`), so world w at batch n computes what one process
 computes at batch w * n, up to the order of the sums.
 
-The JAX package's ZeRO sharding of the optimizer state (`zeroShardings`)
-and its tensor-parallel specs (`generatorShardings`) are not ported
-(ROADMAP A2).
+The optimizer's state is sharded across the ranks as the JAX trainers
+shard theirs (`zeroShardings`, ZeRO): `zeroSpec` picks each parameter's
+sharded axis by the JAX package's rule, from its shape and the world size
+alone, so every rank agrees on it without a word; the optimizer keeps its
+moments for its rank's slice only, updates that slice of the parameter and
+all-gathers the slices (`allGather_`, `train/optim.py`). The gradients are
+still all-reduced whole. The tensor-parallel specs (`generatorShardings`)
+are not ported: both JAX trainers build their mesh at `modelParallel=1`.
 """
 import logging
 import os
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -38,8 +43,8 @@ logger = logging.getLogger("mcquic_tpu_torch.parallel")
 VARIABLES = ("MCQUIC_COORDINATOR", "MCQUIC_NUM_PROCESSES", "MCQUIC_PROCESS_ID")
 
 __all__ = ["VARIABLES", "initDistributed", "destroy", "initialized", "rank", "world", "isMain",
-           "localDevice", "barrier", "allReduceSum_", "allReduceMean_", "broadcastObject",
-           "shardedRows"]
+           "localDevice", "barrier", "allReduceSum_", "allReduceMean_", "anyRank",
+           "broadcastObject", "shardedRows", "zeroSpec", "shardOf", "allGather_"]
 
 
 def initDistributed(device="cuda", backend=None) -> bool:
@@ -137,6 +142,16 @@ def allReduceMean_(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return tensors
 
 
+def anyRank(flag: bool, device) -> bool:
+    """True on every rank when `flag` is true on any (one all-reduce of a
+    scalar on `device`); `flag` itself without a process group."""
+    if not initialized():
+        return flag
+    value = torch.tensor([1.0 if flag else 0.0], device=device)
+    allReduceSum_([value])
+    return bool(value.item() > 0)
+
+
 def broadcastObject(obj):
     """Rank 0's `obj` on every rank (picklable; a path, a number)."""
     if not initialized():
@@ -160,3 +175,53 @@ def shardedRows(draw):
         return draw((w * n, *shape[1:]))[r * n:(r + 1) * n]
 
     return sharded
+
+
+def zeroSpec(shape: Sequence[int], world: int) -> Optional[int]:
+    """The axis along which a leaf of `shape` is sharded over `world` ranks,
+    or None to replicate it: the rule of the JAX package's
+    `_zeroSpecForLeaf` (`mcquic_tpu/parallel/__init__.py:44-56`), the
+    largest axis whose size is a multiple of the world size and at least
+    the world size, a tie going to the later axis. Scalars and leaves with
+    no such axis are replicated. It reads the shape and the world size
+    only, so every rank derives the same spec (two ranks that disagreed
+    would wait on each other's collectives forever)."""
+    candidates = [(dim, axis) for axis, dim in enumerate(shape)
+                  if dim % world == 0 and dim >= world]
+    return max(candidates)[1] if shape and candidates else None
+
+
+def shardOf(t: torch.Tensor, axis: Optional[int], rankId: int = None) -> torch.Tensor:
+    """Rank `rankId`'s slice (this rank's by default) of `t` along `axis`,
+    a view; `t` itself where `axis` is None."""
+    if axis is None:
+        return t
+    size = t.shape[axis] // world()
+    return t.narrow(axis, (rank() if rankId is None else rankId) * size, size)
+
+
+def allGather_(tensors: Sequence[torch.Tensor], axes: Sequence[Optional[int]]):
+    """Complete each tensor from its shards, in place: every rank holds its
+    own slice along `axes[i]` (`shardOf`), and afterwards every slice of
+    every rank. One flat buffer per dtype, one collective each; tensors
+    whose axis is None are left as they are. A no-op without a process
+    group."""
+    if not initialized():
+        return
+    byType = {}
+    for t, axis in zip(tensors, axes):
+        if axis is not None:
+            byType.setdefault(t.dtype, []).append((t, axis))
+    for group in byType.values():
+        flat = torch.cat([shardOf(t, axis).reshape(-1) for t, axis in group])
+        gathered = torch.empty(world() * flat.numel(), dtype=flat.dtype, device=flat.device)
+        parts = list(gathered.chunk(world()))
+        dist.all_gather(parts, flat)
+        del flat
+        for r, part in enumerate(parts):
+            offset = 0
+            for t, axis in group:
+                shard = shardOf(t, axis, r)
+                if r != rank():
+                    shard.copy_(part[offset:offset + shard.numel()].view(shard.shape))
+                offset += shard.numel()

@@ -10,7 +10,8 @@ data-parallel over several processes (counterpart of
     `requires_grad=False` and stay out of the optimizer (`optax.masked` in
     the JAX package, `_trainableMask`), so they stay bit-identical;
   * `loadFrom` in the model's params: a stage-1 checkpoint or export (the
-    port's or the JAX package's, bf16 leaves upcast) becomes the tokenizer;
+    port's or the JAX package's, bf16 leaves upcast), or a reference torch
+    stage-1 checkpoint, becomes the tokenizer;
   * saves every valFreq // 10 steps (at most MCQUIC_SAVE_FREQ), the hooks,
     auto-resume from the rotated `latest/`, and LAMB's growth warning;
   * under data parallelism (`parallel`), each rank's slice of the global
@@ -64,7 +65,8 @@ from mcquic_tpu_torch.train.optim import getOptimizer
 from mcquic_tpu_torch.train.saver import OptaxLayout, Saver, restoreGenerator
 from mcquic_tpu_torch.train.state import averageOverRanks, globalNorm
 from mcquic_tpu_torch.utils import exactFp32, resolveDevice
-from mcquic_tpu_torch.utils.convert import (_applyMap, generatorMapOf, halvingOf, neonMap,
+from mcquic_tpu_torch.utils.convert import (_applyMap, convertReference, generatorMapOf,
+                                            halvingOf, loadTorchStateDict, modelGeometry, neonMap,
                                             readExport, toJaxGeneratorParams)
 
 logger = logging.getLogger("mcquic_tpu_torch.train.gen")
@@ -127,18 +129,32 @@ def constructGenerator(key: str, params: dict):
     return STAGE2_MODELS[key](**{k: v for k, v in params.items() if k in known})
 
 
-def loadCompressorParams(ckptPath) -> dict:
+def loadCompressorParams(ckptPath, modelParams: dict = None) -> dict:
     """A stage-1 checkpoint or export (npz + json sidecar, the port's or the
     JAX package's; bf16 leaves upcast to fp32) -> its flat `params/...` and
-    `coder/...` arrays. A reference (PyTorch) trainer checkpoint is refused:
-    its import is ROADMAP's tooling item."""
+    `coder/...` arrays. A reference (PyTorch) trainer checkpoint is
+    converted as `mcquic_tpu/train/genTrainer.py:97-129` converts it: its
+    `module._compressor.` prefix stripped (`utils/convert.py::loadTorchStateDict`)
+    and the Neon of the generator config's `channel`, `k` and `size`
+    (`modelParams`) loaded from it, so `loadFrom: <reference stage-1 ckpt>`
+    works as it stands."""
     path = Path(ckptPath)
     try:
         flat, _ = readExport(path, ("params/", "coder/"))
-    except Exception as err:
-        raise ValueError(f"loadFrom {path} is not a readable npz export or checkpoint ({err!r}); "
-                         "a reference torch checkpoint must be converted first (ROADMAP A9, "
-                         "reference-checkpoint import)") from err
+        return flat
+    except Exception as npzErr:
+        try:
+            stateDict = loadTorchStateDict(path)
+        except Exception as torchErr:
+            raise ValueError(f"loadFrom {path} is neither a readable npz export ({npzErr!r}) nor "
+                             f"a torch checkpoint ({torchErr!r})") from npzErr
+    if not modelParams or not {"channel", "k", "size"} <= set(modelParams):
+        raise ValueError("loadFrom points at a torch checkpoint; converting it needs the "
+                         "generator config's channel/k/size to rebuild the Neon geometry")
+    flat = convertReference(stateDict, modelGeometry({"config": {"model": {"params": {
+        key: modelParams[key] for key in ("channel", "k", "size", "denseNorm")
+        if key in modelParams}}}}))
+    logger.info("converted reference torch stage-1 checkpoint %s", path)
     return flat
 
 
@@ -229,7 +245,7 @@ class GenTrainer:
             model = initializeGenerator(constructGenerator(config.Model.Key, params),
                                         torch.Generator().manual_seed(seed))
             if loadFrom:
-                self.loadCompressor(model, loadFrom)
+                self.loadCompressor(model, loadFrom, params)
         self._model = model.to(self._device).train()
         self._model.compressor.requires_grad_(False)
         self._names = [n for n, p in self._model.named_parameters() if p.requires_grad]
@@ -256,6 +272,8 @@ class GenTrainer:
                 float(np.exp(self._baseLr * train.TotalStep)))
         self._optimizer = getOptimizer(optimCfg.Key, self._schedule, optimCfg.Params,
                                        [p for p in self._model.parameters() if p.requires_grad])
+        logger.debug("optimizer state on rank %d of %d: %d bytes", parallel.rank(), self._world,
+                     self._optimizer.stateBytes())
         self._stepFn = makeGenTrainStep(self._model, self._optimizer)
         self._step = 0
         self._generator = torch.Generator(device=self._device).manual_seed(seed + 1)
@@ -265,9 +283,10 @@ class GenTrainer:
         self._hooks = getAllHooks(train.Hooks)
 
     @staticmethod
-    def loadCompressor(model, path):
-        """The frozen tokenizer's weights from a stage-1 checkpoint or export."""
-        flat = loadCompressorParams(path)
+    def loadCompressor(model, path, modelParams: dict = None):
+        """The frozen tokenizer's weights from a stage-1 checkpoint or export,
+        or a reference torch checkpoint of the geometry in `modelParams`."""
+        flat = loadCompressorParams(path, modelParams)
         model.compressor.load_state_dict(_applyMap(neonMap(halvingOf(model.size)), flat),
                                          strict=True)
         logger.info("loaded the frozen compressor from %s", path)
@@ -320,15 +339,24 @@ class GenTrainer:
         return metrics
 
     # ------------------------------------------------------------ checkpoint
-    def checkpoint(self) -> dict:
-        return {"step": np.asarray(self._step, np.int32), **self.variables(),
-                **self._layout.leaves(self._optimizer, self._model.state_dict()),
+    def checkpoint(self) -> Optional[dict]:
+        """Every rank calls it (the optimizer's shards are gathered); rank 0
+        gets the checkpoint, the other ranks None."""
+        optState = self._layout.leaves(self._optimizer, self._model.state_dict())
+        if optState is None:
+            return None
+        return {"step": np.asarray(self._step, np.int32), **self.variables(), **optState,
                 "rng": np.asarray([0, (SEED + self._step) & 0xFFFFFFFF], np.uint32),
                 "torch/rng": self._generator.get_state().numpy()}
 
     def save(self):
+        """Every rank takes part (`checkpoint`) where the config names a
+        saveDir; rank 0 writes."""
+        if not self._config.Train.SaveDir:
+            return
+        flat = self.checkpoint()
         if self._saver is not None:
-            self._saver.save(self.checkpoint(), {"config": self._config.serialize()})
+            self._saver.save(flat, {"config": self._config.serialize()})
 
     def close(self):
         """Release the save directory's lock."""

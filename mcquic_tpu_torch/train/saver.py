@@ -166,28 +166,45 @@ class OptaxLayout:
     is the model's name map (`utils/convert.py::_Map`); `names` are the
     optimizer's parameters' state-dict keys, in its order. A flax leaf that
     stacks several torch parameters (Neon's temperatures) is one moment
-    leaf; frozen parameters have none (`optax.masked`)."""
+    leaf; frozen parameters have none (`optax.masked`).
+
+    The leaves are global arrays whatever the world size, as the JAX
+    package's are: a sharded optimizer's slots are gathered parameter by
+    parameter into rank 0's host memory (one parameter's slot on the card
+    at a time), and a load keeps each rank's slice of the global leaves,
+    so a checkpoint written at one world size resumes at any other."""
 
     def __init__(self, mp, names):
         self.mp, self.names = mp, list(names)
         self.keys = sorted({mp.entries[n][0] for n in self.names}, key=_flaxOrder)
 
-    def leaves(self, optimizer, stateDict: dict) -> Dict[str, np.ndarray]:
-        def moments(tensors):
-            flat = _invertMap(self.mp, {**stateDict, **dict(zip(self.names, tensors))})
+    def leaves(self, optimizer, stateDict: dict) -> Optional[Dict[str, np.ndarray]]:
+        """The leaves on rank 0, None on the other ranks. Every rank calls
+        it: the slots' shards are gathered collectively."""
+        main = parallel.isMain()
+
+        def moments(slot):
+            tensors = {}
+            for i, name in enumerate(self.names):
+                whole = optimizer.wholeSlot(slot, i)
+                if main:
+                    tensors[name] = whole.detach().cpu()
+            if not main:
+                return []
+            flat = _invertMap(self.mp, {**stateDict, **tensors})
             return [flat[k].astype(np.float32) for k in self.keys]
 
         count = np.asarray(optimizer.count, np.int32)
-        state = optimizer.state
         if isinstance(optimizer, Adam):
-            out = [count, *moments(state["mu"]), *moments(state["nu"]), count]
+            out = [count, *moments("mu"), *moments("nu"), count]
         else:
-            out = [*(moments(state["trace"]) if "trace" in state else []), count]
-        return {f"optState/{i:05d}": leaf for i, leaf in enumerate(out)}
+            out = [*(moments("trace") if "trace" in optimizer.state else []), count]
+        return {f"optState/{i:05d}": leaf for i, leaf in enumerate(out)} if main else None
 
     def load(self, optimizer, stateDict: dict, flat: dict):
         """The inverse of `leaves`, from the port's or the JAX package's
-        checkpoint (`flat`); refuses a checkpoint of another layout."""
+        checkpoint (`flat`), each rank keeping its slice; refuses a
+        checkpoint of another layout."""
         leaves = [flat[k] for k in sorted(k for k in flat if k.startswith("optState/"))]
         slots, n = list(optimizer.state), len(self.keys)
         adam = isinstance(optimizer, Adam)
@@ -199,8 +216,8 @@ class OptaxLayout:
         for s, slot in enumerate(slots):
             tensors = _applyMap(self.mp, {**variables, **dict(zip(self.keys, body[s * n:(s + 1) * n]))})
             with torch.no_grad():
-                for name, t in zip(self.names, optimizer.state[slot]):
-                    t.copy_(tensors[name])
+                for i, (name, t) in enumerate(zip(self.names, optimizer.state[slot])):
+                    t.copy_(optimizer.local(tensors[name], i))
         optimizer.count = int(leaves[-1])
 
 

@@ -150,6 +150,8 @@ class Trainer:
         self._optimizer = getOptimizer(optimCfg.Key, self._schedule, optimCfg.Params,
                                        trainableParameters(self._model))
         self._layout = OptaxLayout(modelMap(self._geometry), self._names)
+        logger.debug("optimizer state on rank %d of %d: %d bytes", parallel.rank(), self._world,
+                     self._optimizer.stateBytes())
         if train.Target not in DISTORTIONS:
             raise KeyError(f"unknown target {train.Target!r}; known: {sorted(DISTORTIONS)}")
         if lpipsFn is None:
@@ -218,17 +220,26 @@ class Trainer:
         logger.info("Resumed from %s at step %d", path, self._step)
         return True
 
-    def checkpoint(self) -> dict:
+    def checkpoint(self) -> Optional[dict]:
         """The JAX layout; `rng` is a key the JAX package resumes with, the
-        port resumes its own generator from `torch/rng`."""
-        return {"step": np.asarray(self._step, np.int32), **self.variables(),
-                **self._layout.leaves(self._optimizer, self._model.state_dict()),
+        port resumes its own generator from `torch/rng`. Every rank calls
+        it (the optimizer's shards are gathered); rank 0 gets the
+        checkpoint, the other ranks None."""
+        optState = self._layout.leaves(self._optimizer, self._model.state_dict())
+        if optState is None:
+            return None
+        return {"step": np.asarray(self._step, np.int32), **self.variables(), **optState,
                 "rng": np.asarray([0, (SEED + 1 + self._step) & 0xFFFFFFFF], np.uint32),
                 "torch/rng": self._generator.get_state().numpy()}
 
     def save(self):
+        """Every rank takes part (`checkpoint`) where the config names a
+        saveDir; rank 0 writes."""
+        if not self._config.Train.SaveDir:
+            return
+        flat = self.checkpoint()
         if self._saver is not None:
-            self._saver.save(self.checkpoint(), {"config": self._config.serialize()})
+            self._saver.save(flat, {"config": self._config.serialize()})
 
     def close(self):
         """Release the save directory's lock."""
@@ -271,7 +282,15 @@ class Trainer:
         if onStep is None:
             onStep = metricsLogger.log
 
+        stopRequested = []
+
         def onSigterm(signum, frame):
+            if self._world > 1:
+                # the save gathers the optimizer's shards from every rank, so
+                # the ranks agree to stop at the end of a step (`anyRank`)
+                logger.warning("SIGTERM: saving checkpoint at the end of this step")
+                stopRequested.append(signum)
+                return
             logger.warning("SIGTERM: saving checkpoint before exit")
             self.save()
             raise SystemExit(143)
@@ -292,6 +311,9 @@ class Trainer:
                     self._runHooks("stepStart", step)
                     metrics = self.trainStep(batch)
                     step = self._step
+                    if self._world > 1 and parallel.anyRank(bool(stopRequested), self._device):
+                        self.save()
+                        raise SystemExit(143)
                     if step % 100 == 0:
                         m = {k: float(v) for k, v in metrics.items()}
                         if not math.isfinite(m["loss"]):

@@ -17,9 +17,18 @@ Transforms:
 
 Zoo files (`train/saver.py` format) are npz archives of the flattened flax
 tree, '/'-joined, where bf16 leaves are stored as their uint16 bits under
-`key@bf16`, with a json sidecar holding `{config, version, qp}`.
+`key@bf16`, with a json sidecar holding `{config, version, qp}`. Their hash
+table is `models_hash.json` beside the package, or the file
+MCQUIC_MODELS_HASH_FILE names.
+
+A reference McQuic (PyTorch) checkpoint converts into such a file
+(`python -m mcquic_tpu_torch.utils.convert`, counterpart of
+`mcquic_tpu/utils/convert.py:267-363`): since the port's modules carry the
+reference names, the model of the geometry is built, the checkpoint's state
+dict loaded into it strictly, and its state dict mapped onto the flax names.
 """
 import json
+import os
 from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
@@ -474,7 +483,10 @@ def exportModel(path, flat: Dict[str, np.ndarray], config: dict, qp: str = "-1",
 
 
 def modelsHash() -> Dict[str, str]:
-    return json.loads(HASH_FILE.read_text())
+    """The zoo's hash table (slot -> sha256 prefix): MCQUIC_MODELS_HASH_FILE,
+    else the package's `models_hash.json`; empty where the file is missing."""
+    path = Path(os.environ.get("MCQUIC_MODELS_HASH_FILE", HASH_FILE))
+    return json.loads(path.read_text()) if path.exists() else {}
 
 
 def zooSlot(path) -> str:
@@ -539,3 +551,109 @@ def loadZoo(path, verify: bool = True) -> Tuple[Dict[str, torch.Tensor], dict]:
     flat, meta = readExport(path)
     flat = {k: v for k, v in flat.items() if k.startswith(("params/", "coder/"))}
     return stateDictOf(flat, modelGeometry(meta)), meta
+
+
+def stripTrainerPrefix(stateDict: dict, prefix: str = "module._compressor.") -> dict:
+    """A reference trainer checkpoint's model keys without their
+    `module._compressor.` prefix; other keys and the LPIPS module's are
+    dropped (`mcquic_tpu/utils/convert.py:283-289`)."""
+    return {key[len(prefix):]: value for key, value in stateDict.items()
+            if key.startswith(prefix) and "_lpips" not in key}
+
+
+def loadTorchStateDict(path) -> Dict[str, torch.Tensor]:
+    """A reference torch checkpoint -> its model's state dict. Accepts a raw
+    state dict, a reference trainer checkpoint (`{'trainer': {'_model':
+    ...}}`, prefix stripped by `stripTrainerPrefix`) and an exported
+    `{'model': ...}` (`mcquic_tpu/utils/convert.py:267-280`). The file is
+    unpickled (`weights_only=False`, as the JAX package reads it): load only
+    checkpoints you trust."""
+    raw = torch.load(str(path), map_location="cpu", weights_only=False)
+    if isinstance(raw, dict) and "trainer" in raw:
+        stateDict = stripTrainerPrefix(raw["trainer"]["_model"])
+    elif isinstance(raw, dict) and "model" in raw:
+        stateDict = raw["model"]
+    else:
+        stateDict = raw
+    return {k: torch.as_tensor(v) for k, v in stateDict.items()}
+
+
+def convertReference(stateDict: Dict[str, torch.Tensor], geometry: dict) -> Dict[str, np.ndarray]:
+    """A reference state dict -> the flat flax variables of the stage-1 model
+    of `geometry` (`modelGeometry`'s form): the model is built and loads the
+    dict strictly, each of its keys required with its shape; keys it does
+    not have are left out, as the JAX converter leaves them."""
+    from mcquic_tpu_torch.models.compressor import buildModel
+    model = buildModel(geometry)
+    wanted = model.state_dict()
+    model.load_state_dict({k: v for k, v in stateDict.items() if k in wanted}, strict=True)
+    return toJaxParams(model.state_dict(), geometry)
+
+
+def main(argv=None):
+    """Convert a reference torch checkpoint into an exported model.
+
+    v1 geometry:   python -m mcquic_tpu_torch.utils.convert ref.ckpt out.npz \
+                       --channel 128 --m 2 --k 8192,2048,512 --qp 2
+    Neon geometry: ... --channel 256 --k 4096 --size 16,8,8,... (single k)
+    Or read geometry from a training yaml: ... --config cfg.yaml
+    """
+    import argparse
+    from mcquic_tpu_torch.config import Config
+
+    parser = argparse.ArgumentParser(prog="python -m mcquic_tpu_torch.utils.convert",
+                                     description=main.__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("ckpt")
+    parser.add_argument("out")
+    parser.add_argument("--config", type=str, default=None,
+                        help="training yaml to read model geometry from")
+    parser.add_argument("--channel", type=int, default=None)
+    parser.add_argument("--m", type=int, default=None)
+    parser.add_argument("--k", type=str, default=None, help="comma-separated")
+    parser.add_argument("--size", type=str, default=None,
+                        help="comma-separated Neon scale pyramid")
+    parser.add_argument("--denseNorm", action="store_true")
+    parser.add_argument("--qp", type=str, default="-1")
+    args = parser.parse_args(argv)
+
+    if args.config:
+        params = dict(Config.load(args.config).Model.Params)
+        channel, kParam = params.get("channel"), params.get("k")
+        size = list(params.get("size") or []) or None
+        m = params.get("m", 1)
+        # legacy configs carry a uniform list m (e.g. neon.yaml m: [1]*5)
+        if isinstance(m, (list, tuple)):
+            if len(set(m)) != 1:
+                parser.error(f"per-level m {m} is not supported (must be uniform)")
+            m = m[0]
+        m = int(m)
+        denseNorm = bool(params.get("denseNorm", False))
+    else:
+        channel = args.channel
+        kParam = [int(x) for x in args.k.split(",")] if args.k else None
+        size = [int(x) for x in args.size.split(",")] if args.size else None
+        m = args.m
+        denseNorm = args.denseNorm
+    # the geometry is checked before the (possibly multi-GB) checkpoint loads
+    if channel is None or kParam is None:
+        parser.error("provide --config or --channel/--k")
+    channel = int(channel)
+    if not size and m is None:
+        parser.error("--m is required for v1 geometry")
+    # Neon where a pyramid is given (the reference's stage-1 semantics)
+    geometry = modelGeometry({"config": {"model": {"params": {
+        "channel": channel, "k": kParam, "denseNorm": denseNorm,
+        **({"size": size} if size else {"m": int(m)})}}}})
+
+    flat = convertReference(loadTorchStateDict(args.ckpt), geometry)
+    modelCfg = ({"key": "Neon", "params": {**geometry, "denseNorm": denseNorm}} if size
+                else {"key": "Compressor", "params": geometry})
+    config = Config.deserialize({"model": modelCfg}).serialize()
+    final = exportModel(args.out, flat, config, qp=args.qp)
+    print(final)
+    return final
+
+
+if __name__ == "__main__":
+    main()

@@ -36,7 +36,7 @@ class Handler:
 class MsSSIMHandler(Handler):
     """MS-SSIM on the uint8 range (reference handlers.py MsSSIM)."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device):
         super().__init__()
         self._device = device
 
@@ -50,7 +50,7 @@ class MsSSIMHandler(Handler):
 class PSNRHandler(Handler):
     """PSNR in dB on the uint8 range (reference handlers.py PSNR)."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device):
         super().__init__()
         self._device = device
 

@@ -23,8 +23,8 @@ the tiny stage-2 generator over a tiny Neon, in fp64:
     after 2 steps equal one process's at the global batch of 4 on the same
     4 images per step from the same seed, within the tolerances stated at
     RTOL (sums taken in another order);
-  * the ranks' parameters and optimizer state are bit-identical to each
-    other;
+  * the ranks' parameters and optimizer state (its shards gathered,
+    `Optimizer.wholeSlot`) are bit-identical to each other;
   * only rank 0 held the save directory (its lock file names rank 0's
     process), validated and wrote `latest/`, and its checkpoint resumes in a
     one-process trainer.
@@ -182,9 +182,10 @@ def runCase(case: str, config: Path, out: Path):
     else:
         trainer.train(loaderFn)
     arrays = {f"state/{k}": v.detach().numpy() for k, v in trainer.model.state_dict().items()}
-    for slot, tensors in trainer.optimizer.state.items():
-        for i, t in enumerate(tensors):
-            arrays[f"opt/{slot}/{i:04d}"] = t.detach().numpy()
+    optimizer = trainer.optimizer               # each rank holds its shards: gather them
+    for slot in optimizer.state:
+        for i in range(len(optimizer.params)):
+            arrays[f"opt/{slot}/{i:04d}"] = optimizer.wholeSlot(slot, i).detach().numpy()
     np.savez(out, **arrays)
     out.with_suffix(".json").write_text(json.dumps({
         "pid": os.getpid(), "saver": trainer._saver is not None, "metrics": metrics,

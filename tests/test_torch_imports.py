@@ -297,3 +297,56 @@ def test_ddp_train_cli_runs_without_the_jax_package_and_its_dependencies(tmp_pat
     import mcquic_tpu_torch
     names = {m.name for m in pkgutil.walk_packages(mcquic_tpu_torch.__path__, "mcquic_tpu_torch.")}
     assert {"mcquic_tpu_torch.parallel", "mcquic_tpu_torch.models.generator_var"} <= names
+
+
+def test_tooling_runs_without_the_jax_package_and_its_dependencies(tmp_path):
+    """In the guarded process: `-qp 3 --mse` fetched from a `file://` mirror
+    into an empty MCQUIC_CACHE compresses a crop; `python -m
+    mcquic_tpu_torch.utils.convert` converts a reference-shaped checkpoint;
+    the Inception classifier and score run on seeded torchvision-layout
+    weights from MCQUIC_INCEPTION_WEIGHTS."""
+    import hashlib
+    import json
+    import os
+    import shutil
+    import torch
+    from test_torch_convert import TINY_V1, referenceCheckpoint
+    from mcquic_tpu_torch.validate.inception_v3 import seededStateDict
+    image = readPng(ROOT / "assets" / "photo_768x512.png")[:64, :64]
+    writePng(tmp_path / "in.png", image)
+    digest = hashlib.sha256(TINY.read_bytes()).hexdigest()[:8]
+    mirror = tmp_path / "mirror"
+    mirror.mkdir()
+    shutil.copy(TINY, mirror / f"qp_3_mse_{digest}.mcquic.npz")
+    shutil.copy(TINY.with_suffix(".json"), mirror / f"qp_3_mse_{digest}.mcquic.json")
+    (tmp_path / "hashes.json").write_text(json.dumps({"qp_3_mse": digest}))
+    ckpt = referenceCheckpoint(tmp_path / "ref.ckpt", TINY_V1, "trainer")
+    torch.save(seededStateDict(), tmp_path / "inception_v3.pth")
+    extra = textwrap.dedent(f'''
+        sys.argv = ["convert", {str(ckpt)!r}, {str(tmp_path / "out.npz")!r}, "--channel", "8",
+                    "--m", "2", "--k", "16,8", "--qp", "2"]
+        runpy.run_module("mcquic_tpu_torch.utils.convert", run_name="__main__", alter_sys=True)
+        import numpy as np
+        from mcquic_tpu_torch.validate.inception import InceptionScoreHandler
+        handler = InceptionScoreHandler("cpu", splits=1)
+        handler(restored=np.random.default_rng(0).integers(0, 256, (2, 64, 64, 3), np.uint8))
+        print("inception score", handler.result(), flush=True)
+        leaked = sorted(n for n in sys.modules if blocked(n))
+        assert not leaked, leaked
+    ''')
+    script = GUARD.format(blocked=BLOCKED, root=str(ROOT), runs=[
+        ["-q", "--device", "cpu", "-qp", "3", "--mse", str(tmp_path / "in.png"),
+         str(tmp_path / "out.mcq")]]) + extra
+    env = dict(os.environ, MCQUIC_MODELS_URL=mirror.as_uri(), MCQUIC_CACHE=str(tmp_path / "cache"),
+               MCQUIC_MODELS_HASH_FILE=str(tmp_path / "hashes.json"),
+               MCQUIC_INCEPTION_WEIGHTS=str(tmp_path / "inception_v3.pth"))
+    proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, capture_output=True,
+                          text=True, timeout=300, env=env)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "round trip ok" in proc.stdout and "inception score" in proc.stdout
+    assert (tmp_path / "out.mcq").stat().st_size > 0
+    assert (tmp_path / "cache" / "zoo" / f"qp_3_mse_{digest}.mcquic.npz").exists()
+    exports = list(tmp_path.glob("out_*.mcquic.npz"))
+    assert len(exports) == 1 and str(exports[0]) in proc.stdout
+    score = float(proc.stdout.split("inception score")[1].split()[0])
+    assert np.isfinite(score) and score >= 1.0

@@ -95,7 +95,7 @@ def test_backbone_from_the_environment(tmp_path, monkeypatch):
     monkeypatch.setenv("MCQUIC_VGG16_WEIGHTS", str(path))
     monkeypatch.delenv("MCQUIC_LPIPS_PROXY", raising=False)
     assert lpips.findVggWeights() == str(path)
-    fn = lpips.makeDefaultLpipsFn()
+    fn = lpips.makeDefaultLpipsFn("cpu")
     x = torch.rand(1, 3, 32, 32) * 2 - 1
     assert float(fn(x, x)) == 0.0
     assert float(fn(x.flip(3), x)) > 0
@@ -108,12 +108,12 @@ def test_no_backbone_gives_none_and_one_warning_and_the_proxy_a_finite_term(tmp_
     monkeypatch.delenv("MCQUIC_LPIPS_PROXY", raising=False)
     monkeypatch.setattr(lpips, "_warnedOnce", False)
     with caplog.at_level("WARNING", logger="mcquic_tpu_torch.lpips"):
-        assert lpips.makeDefaultLpipsFn() is None
-        assert lpips.makeDefaultLpipsFn() is None
+        assert lpips.makeDefaultLpipsFn("cpu") is None
+        assert lpips.makeDefaultLpipsFn("cpu") is None
     assert sum("LPIPS DISABLED" in r.getMessage() for r in caplog.records) == 1
     assert capsys.readouterr().out.count("LPIPS DISABLED") == 1
     monkeypatch.setenv("MCQUIC_LPIPS_PROXY", "1")
-    fn = lpips.makeDefaultLpipsFn()
+    fn = lpips.makeDefaultLpipsFn("cpu")
     assert "LPIPS PROXY ACTIVE" in capsys.readouterr().out
     x = torch.rand(2, 3, 32, 32) * 2 - 1
     y = (x + 0.3 * torch.randn_like(x)).clamp(-1, 1).requires_grad_(True)

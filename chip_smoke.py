@@ -12,11 +12,13 @@ ends:
   2. build: kernels K1 (csrc/vq_encode.cu), K1b (csrc/vq_grouped.cu), K2
      (csrc/thin_head.cu) and K3 (csrc/flash_attention.cu) with nvcc, the
      rANS runtime and the JPEG codec (csrc/jpeg.cpp) with g++, all started
-     together; ptxas's registers and spills of every kernel; the JPEG
-     decoder against the fixture tests/golden/torch_jpeg/ (the SHA-256 of
-     PIL's decode of each file; the progressive file must raise
-     UnsupportedJpeg), and the codec's decode and encode rates on the host,
-     in megapixels per second, on the photo at q95;
+     together; ptxas's registers and spills of every kernel; the host
+     decoders against the fixtures tests/golden/torch_jpeg/ (baseline and
+     progressive JPEG, the full-size progressive photo among them) and
+     tests/golden/torch_images/ (the PNG forms and PIL's BMP forms), by the
+     SHA-256 of PIL's decode of each file, and the codec's decode and encode
+     rates on the host, in megapixels per second, on the photo at q95,
+     beside the progressive decoder's on the progressive photo;
   3. kernels against their plain versions on the card, fp32 with TF32 off,
      at the main paths' shapes, with two times each for the kernel, the
      plain version and one library call computing the same function: `ms`,
@@ -40,7 +42,9 @@ ends:
      a PNG holding the port's decode of it, to the same `.mcq` bytes; in
      process the JPEG compresses to those bytes with 3 K1 launches and the
      file restores with 1 K2 launch (phase 2 holds the port's q95 bytes of
-     the photo and its decode of them to PIL's);
+     the photo and its decode of them to PIL's); the same for PIL's
+     progressive JPEG of the photo, whose codes equal those of a PNG of its
+     decode;
   6. generation at the full width and depth of gen_stage2_neonA: a seeded
      checkpoint in the JAX package's format goes through the loader; greedy
      `generate` for four classes with and without the KV cache must give the
@@ -148,7 +152,21 @@ ends:
  14. a reference trainer checkpoint at the qp-2 geometry (seeded, under the
      reference names) through `python -m mcquic_tpu_torch.utils.convert`:
      the export's arrays equal the seeded model's, and it compresses and
-     restores the photo through K1 (3) and K2 (1).
+     restores the photo through K1 (3) and K2 (1);
+ 15. the web demo's handler (`service/stCompressService.py::handleUpload`) on
+     the qp-2 zoo engine: the photo's PNG and the progressive photo give the
+     CLI's `.mcq` bytes of phase 5 (K1 3, K2 1), the photo's `.mcq` restores
+     to the CLI's PNG, an image past MAX_PIXELS is refused; a seeded
+     denseNorm Neon export at neon_v2_60k's geometry through the engine and
+     the `--local` CLI (K1 9 per compress, codes equal to the CPU's on phase
+     8's crop); one step of that model through `Trainer` at batch 1 on the
+     card and on the CPU (TRAIN_CPU_RTOL; the CPU's in a thread); a seeded
+     text-conditioned generator at gen_stage2_neonA's geometry (capDim 512)
+     sampling greedily from seeded caption embeddings (K3 72), its depth-2
+     cut held to the CPU's as in phase 6.
+     The CPU reference steps of phases 10 and 15 run in a thread while the
+     card works (`startCpuStep`), and phase 13's generate CLI runs on through
+     phases 14 and 15 (`finishVarCli`), to keep the run inside its limit.
      Phases 9-11 run fewer steps than before these phases (TRAIN_STEPS,
      NEON_TRAIN_STEPS, GEN_TRAIN_STEPS) to keep the run inside its limit.
 
@@ -216,6 +234,8 @@ GEN_TIMED_STEPS = 5              # in process, counted step by step (cut from 8)
 GEN_SAMPLE_CLASSES = [1, 207]
 TILE = 256
 JPEG_FIXTURE = ROOT / "tests" / "golden" / "torch_jpeg"
+IMAGE_FIXTURE = ROOT / "tests" / "golden" / "torch_images"   # the PNG and BMP forms
+PHOTO_PROGRESSIVE = JPEG_FIXTURE / "photo_progressive.jpg"   # PIL's progressive q90 of the photo
 PHOTO_DIGESTS = JPEG_FIXTURE / "photo.json"   # PIL's q95 of the photo, the JAX writer's shards
 JPEG_RATE_ITERS = 20
 SHARD_CROPS = 16                 # 512x512 crops into the dataset CLI: two batches of 8 per epoch
@@ -379,6 +399,53 @@ def teacherForcedLogits(model, condition, codes, level):
     prefix = seq.shape[1]
     logits = model.transformer(seq, model._mask[:prefix, :prefix], capPooled, capPooled)
     return logits[:, prefix - model.lengths[level]:]
+
+
+def generatorVsCpu(torch, state: dict, geometry: dict, condition, levels: int):
+    """The greedy codes of a `GeneratorV3SelfAttention`'s first GEN_CPU_DEPTH
+    blocks on the card against the CPU plain path, same weights: a differing
+    code must be a near-tie of the CPU's logits (GEN_TIE_ATOL), and the
+    teacher-forced logits of the last level on the card's codes must agree
+    (GEN_LOGITS_ATOL). `condition` lives on the card: class ids, or caption
+    embeddings for a text-conditioned geometry."""
+    from mcquic_tpu_torch.models.generator import GeneratorV3SelfAttention
+    from mcquic_tpu_torch.utils import exactFp32
+    device = torch.device("cuda")
+    batch = condition.shape[0]
+    kept = {key: value for key, value in state.items()
+            if not key.startswith("transformer.blocks.") or int(key.split(".")[2]) < GEN_CPU_DEPTH}
+    small = dict(geometry, depth=GEN_CPU_DEPTH)
+    cardSmall, cpuSmall = GeneratorV3SelfAttention(**small), GeneratorV3SelfAttention(**small)
+    cardSmall.load_state_dict(kept)
+    cpuSmall.load_state_dict(kept)
+    cardSmall, cpuSmall = cardSmall.to(device).eval(), cpuSmall.eval()
+    with exactFp32(), torch.inference_mode():
+        cardCodes = [c.cpu() for c in cardSmall.sampleCodes(condition)]
+        cpuCodes = cpuSmall.sampleCodes(condition.cpu())
+        agree = (sum(int((a == b).sum()) for a, b in zip(cardCodes, cpuCodes))
+                 / sum(a.numel() for a in cardCodes))
+        firstDiff = next((lv for lv, (a, b) in enumerate(zip(cardCodes, cpuCodes))
+                          if not torch.equal(a, b)), None)
+        tie = 0.0
+        if firstDiff is not None:
+            cpuLogits = teacherForcedLogits(cpuSmall, condition.cpu(), cpuCodes, firstDiff)
+            a, b = cardCodes[firstDiff].reshape(batch, -1), cpuCodes[firstDiff].reshape(batch, -1)
+            gap = (cpuLogits.gather(-1, b[..., None].long())
+                   - cpuLogits.gather(-1, a[..., None].long()))
+            tie = gap.abs().max().item()
+        last = levels - 1
+        cardLogits = teacherForcedLogits(cardSmall, condition, [c.to(device) for c in cardCodes],
+                                         last).cpu()
+        cpuLogits = teacherForcedLogits(cpuSmall, condition.cpu(), cardCodes, last)
+        logitsDiff = (cardLogits - cpuLogits).abs().max().item()
+    print(f"  depth {GEN_CPU_DEPTH}, card vs CPU: greedy codes agree on {agree:.4%}"
+          + ("" if firstDiff is None else
+             f", first differing level {firstDiff} (CPU logit gap there {tie:.2e})")
+          + f"; teacher-forced level-{last} logits on the card's codes differ by "
+            f"{logitsDiff:.2e}", flush=True)
+    if tie > GEN_TIE_ATOL or not logitsDiff <= GEN_LOGITS_ATOL:
+        raise AssertionError("the card's generation disagrees with the CPU plain path")
+    return agree
 
 
 def k1MatchesPlain(torch, model, gen, label):
@@ -816,6 +883,50 @@ def recordedDraws(torch, generator):
     return recorded
 
 
+def startCpuStep(torch, step, recorded, draws: int):
+    """Run `step(draw)`, a CPU reference step, in a thread while the card
+    works. It must set no process-wide state: TF32 and cuDNN's flags
+    (`exactFp32`) are global, apply to the card only, and a thread's exit
+    from them would reset them under the card's step. The CPU draws the
+    run's uniforms through `recorded` (`recordedDraws`). Returns (wait,
+    join): `wait()` returns once the CPU has drawn `draws` uniforms, so the
+    card's steps can replay them; `join()` returns the step's result. Both
+    raise the thread's error."""
+    import threading
+    drawn, box, count = threading.Event(), {}, [0]
+    inner = recorded(torch.device("cpu"))
+
+    def draw(shape):
+        u = inner(shape)
+        count[0] += 1
+        if count[0] == draws:
+            drawn.set()
+        return u
+
+    def run():
+        try:
+            box["result"] = step(draw)
+        except BaseException as e:      # raised again on the main thread
+            box["error"] = e
+        finally:
+            drawn.set()
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def wait():
+        drawn.wait()
+        if "error" in box:
+            raise box["error"]
+
+    def join():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box["result"]
+    return wait, join
+
+
 def relativeGap(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-30)
 
@@ -881,48 +992,59 @@ def train10(torch, np, tmp: Path, img, smi: str) -> dict:
     x = trainingTransform(torch.from_numpy(batch), augmentDraws(cpuGen, batch.shape[0]))
     recorded = recordedDraws(torch, cpuGen)
     first, grads, peaks = {}, {}, {}
-    for label, dev, remat, lpips in (("cpu", torch.device("cpu"), True, True),
-                                     ("card", device, True, True),
-                                     ("card, warm-up of the deterministic algorithms", device,
-                                      True, False),
-                                     ("card, remat", device, True, False),
-                                     ("card, no remat", device, False, False)):
+
+    def firstStep(label, dev, remat, lpips, draw):
         copy = Neon(model.channel, model.k, model.size, useRemat=remat)
         copy.load_state_dict(model.state_dict())
         copy = copy.to(dev).train()
         keep = Keep(trainableParameters(copy), trainer._schedule)
         step = makeTrainStep(copy, keep, MsSSIM(), makeDefaultLpipsFn(dev) if lpips else None)
+        start = time.perf_counter()
         if dev.type == "cuda":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-        start = time.perf_counter()
-        with exactFp32(), torch.backends.cudnn.flags(enabled=True, benchmark=True,
-                                                     deterministic=not lpips, allow_tf32=False):
-            metrics = step(x.to(dev), recorded(dev))
-        if dev.type == "cuda":
+            with exactFp32(), torch.backends.cudnn.flags(enabled=True, benchmark=True,
+                                                         deterministic=not lpips, allow_tf32=False):
+                metrics = step(x.to(dev), draw)
             peaks[label] = torch.cuda.max_memory_allocated() / 2 ** 30
+        else:                           # in a thread, with no process-wide flag (`startCpuStep`)
+            metrics = step(x.to(dev), draw)
         first[label] = {k: float(v) for k, v in metrics.items()}
         grads[label] = keep.kept
         print(f"  first step, {label}: loss {first[label]['loss']:.8f}, lpips "
               f"{first[label]['lpips']:.8f}, grad norm {first[label]['gradNorm']:.8f}, "
               f"{time.perf_counter() - start:.1f} s"
-              + (f", peak memory {peaks[label]:.2f} GiB" if label in peaks else ""), flush=True)
+              + (f", peak memory {peaks[label]:.2f} GiB" if label in peaks else "")
+              + (" (in a thread while the card's steps ran)" if dev.type == "cpu" else ""),
+              flush=True)
         del copy, keep, step
+
+    waitDraws, joinCpu = startCpuStep(
+        torch, lambda draw: firstStep("cpu", torch.device("cpu"), True, True, draw), recorded,
+        2 * len(model.size))
+    waitDraws()
+    for label, remat, lpips in (("card", True, True),
+                                ("card, warm-up of the deterministic algorithms", True, False),
+                                ("card, remat", True, False), ("card, no remat", False, False)):
+        firstStep(label, device, remat, lpips, recorded(device))
         torch.cuda.empty_cache()
-    gaps = {key: relativeGap(first["card"][key], first["cpu"][key])
-            for key in ("loss", "gradNorm", "lpips")}
     rematGap = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
                    for a, b in zip(grads["card, remat"], grads["card, no remat"]))
+    print(f"  first step, remat vs plain gradients on the card: {rematGap:.2e} relative, the "
+          f"largest of any tensor's (tolerance {REMAT_RTOL:g}); peak memory of the step with "
+          f"remat {peaks['card, remat']:.2f} GiB, without {peaks['card, no remat']:.2f} GiB "
+          f"({smi})", flush=True)
+    if rematGap > REMAT_RTOL or not first["card"]["lpips"] > 0:
+        raise AssertionError(f"first step: remat {rematGap}, lpips {first['card']['lpips']}")
+    joinCpu()
+    gaps = {key: relativeGap(first["card"][key], first["cpu"][key])
+            for key in ("loss", "gradNorm", "lpips")}
     print(f"  first step card vs CPU: loss {gaps['loss']:.2e}, grad norm {gaps['gradNorm']:.2e} "
           f"relative (tolerance {TRAIN_CPU_RTOL:g}); LPIPS {gaps['lpips']:.2e} (tolerance "
-          f"{LPIPS_CPU_RTOL:g}); remat vs plain gradients {rematGap:.2e} relative, the largest "
-          f"of any tensor's (tolerance {REMAT_RTOL:g}); peak memory of the step with remat "
-          f"{peaks['card, remat']:.2f} GiB, without {peaks['card, no remat']:.2f} GiB ({smi})",
-          flush=True)
+          f"{LPIPS_CPU_RTOL:g}) ({smi})", flush=True)
     if (gaps["loss"] > TRAIN_CPU_RTOL or gaps["gradNorm"] > TRAIN_CPU_RTOL
-            or gaps["lpips"] > LPIPS_CPU_RTOL or rematGap > REMAT_RTOL
-            or not first["card"]["lpips"] > 0):
-        raise AssertionError(f"first step: {gaps}, remat {rematGap}")
+            or gaps["lpips"] > LPIPS_CPU_RTOL):
+        raise AssertionError(f"first step, card vs CPU: {gaps}")
     del grads, x
 
     # the run, through Trainer.train, instrumented
@@ -1101,7 +1223,8 @@ def train11(torch, np, tmp: Path, img, smi: str, neonCheckpoint: Path, lengths) 
                           gen=True)
     y = torch.from_numpy(labels.astype(np.int64))
     first = {}
-    for dev in (torch.device("cpu"), device):
+
+    def firstStep(dev):
         copy = GeneratorV3SelfAttention(**{k: v for k, v in data["model"]["params"].items()
                                            if k != "loadFrom"})
         copy.load_state_dict(model.state_dict())
@@ -1117,6 +1240,9 @@ def train11(torch, np, tmp: Path, img, smi: str, neonCheckpoint: Path, lengths) 
               + ", ".join(f"{first[dev.type][f'ceLv{i:02d}']:.5f}" for i in range(levels))
               + f", {time.perf_counter() - start:.1f} s", flush=True)
         del copy, keep
+
+    for dev in (torch.device("cpu"), device):
+        firstStep(dev)
     gaps = {key: relativeGap(first["cuda"][key], first["cpu"][key]) for key in first["cpu"]
             if key != "skipped"}
     print(f"  first step card vs CPU: largest relative gap {max(gaps.values()):.2e} "
@@ -1639,7 +1765,7 @@ def var13(torch, np, tmp: Path, smi: str, neonCheckpoint: Path, classes: Path, k
     from mcquic_tpu_torch.config import Config
     from mcquic_tpu_torch.data.augment import augmentDraws, trainingTransform
     from mcquic_tpu_torch.data.imagenet_classes import getGenLoader
-    from mcquic_tpu_torch.generate import loadGenerator, writeSeededGenerator
+    from mcquic_tpu_torch.generate import seededGeneratorState
     from mcquic_tpu_torch.models.generator_var import GeneratorVAR
     from mcquic_tpu_torch.ops.attention import flashAttentionPlain
     from mcquic_tpu_torch.ops.attention_cuda import flashAttention
@@ -1652,12 +1778,15 @@ def var13(torch, np, tmp: Path, smi: str, neonCheckpoint: Path, classes: Path, k
 
     device = torch.device("cuda")
     start = time.perf_counter()
-    ckpt = writeSeededGenerator(tmp / "var_d24.ckpt.npz", VAR_D24, seed=0, key="GeneratorVAR")
-    model = loadGenerator(ckpt, device="cuda")
+    # seeded in memory: the checkpoint loader is held by the generate CLI on
+    # the trained checkpoint at the end of the phase
+    with torch.device("cuda"):
+        model = GeneratorVAR(**VAR_D24)
+    model.load_state_dict(seededGeneratorState(VAR_D24, seed=0, key="GeneratorVAR"))
+    model = model.eval().requires_grad_(False)
     params = sum(p.numel() for n, p in model.named_parameters() if not n.startswith("compressor."))
     print(f"  seeded GeneratorVAR {VAR_D24}: {params / 1e9:.3f} B transformer parameters, "
-          f"{ckpt.stat().st_size / 1e9:.2f} GB, written and loaded in "
-          f"{time.perf_counter() - start:.1f} s", flush=True)
+          f"built on the card in {time.perf_counter() - start:.1f} s", flush=True)
     levels, depth = len(model.patchNums), model.depth
     condition = torch.tensor(GEN_CLASSES, device=device)
     noiseGen = torch.Generator().manual_seed(1)
@@ -1848,24 +1977,37 @@ def var13(torch, np, tmp: Path, smi: str, neonCheckpoint: Path, classes: Path, k
         raise AssertionError(f"the VAR training steps: {perStep}")
     torch.cuda.empty_cache()
 
-    # the trained checkpoint samples through the generate CLI
+    # the trained checkpoint samples through the generate CLI, which runs on
+    # through phases 14 and 15 and is finished by `finishVarCli`
     out = tmp / "var_generated"
-    start = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "mcquic_tpu_torch", "generate", "--cfg", "1.5",
-                           "-c", ",".join(map(str, GEN_CLASSES)), str(checkpoint), str(out)],
-                          cwd=ROOT, capture_output=True, text=True, timeout=CLI_TIMEOUT)
-    if proc.returncode != 0:
-        raise RuntimeError(f"generate --cfg exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-    written = sorted(out.glob("*.png"))
-    print(f"  python -m mcquic_tpu_torch generate --cfg 1.5 -c {GEN_CLASSES} on the trained "
-          f"checkpoint: {[p.name for p in written]} in {time.perf_counter() - start:.1f} s "
-          f"(process, load and build included)", flush=True)
-    if len(written) != len(GEN_CLASSES):
-        raise AssertionError("the generate CLI did not write one PNG per class")
+    cli = (subprocess.Popen([sys.executable, "-m", "mcquic_tpu_torch", "generate", "--cfg", "1.5",
+                             "-c", ",".join(map(str, GEN_CLASSES)), str(checkpoint), str(out)],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+           out, time.perf_counter())
     return {"generate_ms": statistics.median(timesMs), "generate_busy_ms": genBusy,
             "generate_idle": genIdle, "K3_per_generate": launches, "err": worst, "k3": k3Var,
             "steps_per_s": 1 / steady, "busy_ms": stepBusy[0], "peak_gib": peak,
-            "K1_per_step": levels, "inception": inception}
+            "K1_per_step": levels, "inception": inception, "cli": cli}
+
+
+def finishVarCli(cli):
+    """Phase 13's generate CLI on VAR-d24's trained checkpoint, started at
+    the end of phase 13: one PNG per class."""
+    proc, out, start = cli
+    try:
+        _, stderr = proc.communicate(timeout=CLI_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise RuntimeError(f"generate --cfg exited {proc.returncode}:\n{stderr[-4000:]}")
+    written = sorted(out.glob("*.png"))
+    print(f"  python -m mcquic_tpu_torch generate --cfg 1.5 -c {GEN_CLASSES} on VAR-d24's trained "
+          f"checkpoint (phase 13): {[p.name for p in written]} in {time.perf_counter() - start:.1f} "
+          f"s (process, load and build included; it ran through phases 14 and 15)", flush=True)
+    if len(written) != len(GEN_CLASSES):
+        raise AssertionError("the generate CLI did not write one PNG per class")
 
 
 def tooling14(torch, np, tmp: Path, img, smi: str) -> dict:
@@ -2097,6 +2239,203 @@ def varWorld(torch, np, tmp: Path, smi: str, neon: Path, world: int) -> dict:
             "checkpoint_bytes": ranks[0]["checkpoint_bytes"], "one_save_s": one["saves"]}
 
 
+def web15(torch, np, tmp: Path, img, smi: str, engine, cliMcq: bytes, cliRestored,
+          progressiveMcq: bytes) -> dict:
+    """Phase 15: (a) the web demo's handler on the qp-2 zoo engine for the
+    photo's PNG, the progressive photo and the photo's `.mcq`, held to the
+    CLI's bytes and restore of phase 5, and its refusal past MAX_PIXELS;
+    (b) a seeded denseNorm Neon export at neon_v2_60k's geometry through the
+    engine and the `--local` CLI, K1 at its nine levels, codes equal to the
+    CPU's on phase 8's crop; (c) one step of that model through `Trainer`
+    at batch 1 on the card and on the CPU (the CPU's in a thread while the
+    card works), held to TRAIN_CPU_RTOL; (d) a seeded text-conditioned
+    generator at gen_stage2_neonA's geometry (capDim 512) sampling greedily
+    from seeded caption embeddings, 72 K3 launches, its depth-2 cut held to
+    the CPU's as phase 6 holds the class generator."""
+    import mcquic_tpu_torch.models.quantizer as quantizerModule
+    from mcquic_tpu_torch.config import Config
+    from mcquic_tpu_torch.data.augment import augmentDraws, trainingTransform
+    from mcquic_tpu_torch.data.png import decodePng, encodePng, writePng
+    from mcquic_tpu_torch.demo import loadModel, writeSeededExport
+    from mcquic_tpu_torch.generate import GEN_STAGE2_NEON_A, seededGeneratorState
+    from mcquic_tpu_torch.models.generator import GeneratorV3SelfAttention
+    from mcquic_tpu_torch.ops.attention_cuda import flashAttention
+    from mcquic_tpu_torch.ops.subpixel_cuda import conv3x3SubpixelThin
+    from mcquic_tpu_torch.ops.vq import latentTokens, vqEncodePlain
+    from mcquic_tpu_torch.ops.vq_cuda import vqNearest
+    from mcquic_tpu_torch.service.stCompressService import MAX_PIXELS, TooLarge, handleUpload
+    from mcquic_tpu_torch.train.trainer import Trainer
+    from mcquic_tpu_torch.utils import exactFp32
+    seconds, trace = {}, {}
+
+    # (c)'s CPU step starts first, in a thread: the card's parts run meanwhile
+    start = time.perf_counter()
+    pngs = tmp / "dense_train"
+    cropFolder(pngs, img, 2)
+    data = Config.load(str(NEON_V2_60K_CONFIG)).serialize()
+    data["model"]["params"]["denseNorm"] = True
+    data["train"].update(totalStep=1, batchSize=1, valFreq=1, trainSet=str(pngs),
+                         valSet=str(pngs), saveDir="", hooks=[])
+    config = Config.deserialize(data)
+    cpuGen = torch.Generator().manual_seed(15)
+    crop256 = np.ascontiguousarray(img[100:356, 300:556])[None]
+    x = trainingTransform(torch.from_numpy(crop256), augmentDraws(cpuGen, 1))
+    recorded = recordedDraws(torch, cpuGen)
+    steps = {}
+
+    def step(label, dev, draw):
+        trainer = Trainer(config, device=dev, lpipsFn=False)
+        first = time.perf_counter()
+        if dev == "cuda":
+            with exactFp32(deterministic=True):
+                metrics = trainer._stepFn(x.to(dev), draw)
+        else:                           # in a thread, with no process-wide flag (`startCpuStep`)
+            metrics = trainer._stepFn(x, draw)
+        steps[label] = ({k: float(v) for k, v in metrics.items()}, time.perf_counter() - first,
+                        trainer.model.denseNorm)
+
+    waitDraws, joinCpu = startCpuStep(torch, lambda draw: step("cpu", "cpu", draw), recorded,
+                                      2 * len(NEON_V2_60K["size"]))
+    seconds["c_start"] = time.perf_counter() - start
+
+    # (a) the handler
+    start = time.perf_counter()
+    photoPng = PHOTO.read_bytes()
+    vqNearest.launches = conv3x3SubpixelThin.launches = 0
+    answer = handleUpload(engine, "photo.png", photoPng)
+    handlerK1, handlerK2 = vqNearest.launches, conv3x3SubpixelThin.launches
+    progressive = handleUpload(engine, "photo_progressive.jpg", PHOTO_PROGRESSIVE.read_bytes())
+    restore = handleUpload(engine, "photo.mcq", cliMcq)
+    restored = decodePng(restore.data)
+    huge = encodePng(np.zeros((MAX_PIXELS // 3000 + 1, 3000, 3), np.uint8))
+    try:
+        handleUpload(engine, "huge.png", huge)
+        refused = None
+    except TooLarge as e:
+        refused = str(e)
+    seconds["a"] = time.perf_counter() - start
+    print(f"  (a) handleUpload on the qp-{QP} zoo: photo.png -> {answer.fileName} "
+          f"({len(answer.data)} bytes) equal to the CLI's .mcq: {answer.data == cliMcq}, K1 "
+          f"{handlerK1} and K2 {handlerK2} launches (compress and preview); "
+          f"photo_progressive.jpg -> .mcq equal to the CLI's: {progressive.data == progressiveMcq}; "
+          f"photo.mcq -> {restore.fileName} decoding to the CLI's restore: "
+          f"{np.array_equal(restored, cliRestored)}; {MAX_PIXELS // 3000 + 1}x3000 refused: "
+          f"{refused!r}; {seconds['a']:.2f} s", flush=True)
+    if not (answer.data == cliMcq and progressive.data == progressiveMcq and handlerK1 == 3
+            and handlerK2 == 1 and np.array_equal(restored, cliRestored)
+            and np.array_equal(restore.preview, restored)
+            and refused == f"Image too large (> {MAX_PIXELS} pixels)."):
+        raise AssertionError("the web demo's handler disagrees with the CLI")
+    trace["handler"] = {"K1": handlerK1, "K2": handlerK2}
+
+    # (b) the denseNorm Neon codec: engine, CLI (a subprocess, meanwhile), CPU
+    start = time.perf_counter()
+    geometry = dict(NEON_V2_60K, denseNorm=True)
+    export = writeSeededExport(tmp / "neon_dense.npz", "Neon", geometry, seed=0, qp="-1")
+    crop = img[128:384, 128:384]
+    writePng(tmp / "crop.png", crop)
+    cliProc = subprocess.Popen([sys.executable, "-m", "mcquic_tpu_torch", "--local", str(export),
+                                str(tmp / "crop.png"), str(tmp / "dense.mcq")], cwd=ROOT,
+                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        denseEngine = loadModel(local=export, device="cuda")
+        denseEngine.decompressImage(denseEngine.compressImage(crop))            # warm-up
+        searches = []
+        originalEncode = quantizerModule.vqEncode
+
+        def captureNeon(x, codebook):
+            if x.is_cuda:                   # not the CPU step's, in its thread
+                searches.append((latentTokens(x), codebook.float().contiguous()))
+            return originalEncode(x, codebook)
+        quantizerModule.vqEncode = captureNeon
+        try:
+            cardCodes = denseEngine.encode(crop[None])
+        finally:
+            quantizerModule.vqEncode = originalEncode
+        with exactFp32(), torch.inference_mode():
+            for level, (tokens, codebook) in enumerate(searches):
+                n, _ = checkCodes(torch, tokens, codebook, vqNearest(tokens, codebook),
+                                  vqEncodePlain(tokens, codebook),
+                                  f"K1 denseNorm Neon level {level} {tuple(tokens.shape)}")
+                if n:
+                    raise AssertionError(f"K1 differs from the plain version at level {level}")
+        vqNearest.launches = 0
+        denseFile = denseEngine.compressImage(crop)
+        denseK1 = vqNearest.launches
+        denseRestored = denseEngine.decompressImage(denseFile)
+        cpuCodes = loadModel(local=export, device="cpu").encode(crop[None])
+        identical = all(np.array_equal(a, c) for a, c in zip(cardCodes, cpuCodes))
+        _, stderr = cliProc.communicate(timeout=CLI_TIMEOUT)
+    finally:
+        if cliProc.poll() is None:
+            cliProc.kill()
+            cliProc.wait()
+    if cliProc.returncode != 0:
+        raise RuntimeError(f"denseNorm Neon CLI exited {cliProc.returncode}:\n{stderr}")
+    sameCli = (tmp / "dense.mcq").read_bytes() == denseFile.serialize()
+    seconds["b"] = time.perf_counter() - start
+    print(f"  (b) seeded denseNorm Neon export at {geometry} ({export.stat().st_size / 1e6:.1f} MB):"
+          f" the 256x256 crop at {denseFile.BPP:.4f} bpp, K1 launches per compress {denseK1}, "
+          f"card codes identical to the CPU's: {identical}, the --local CLI's .mcq identical: "
+          f"{sameCli}, restored {denseRestored.shape}; {seconds['b']:.2f} s", flush=True)
+    if not (denseK1 == len(NEON_V2_60K["size"]) and identical and sameCli
+            and denseRestored.shape == crop.shape):
+        raise AssertionError("the denseNorm Neon codec did not run as it should")
+    trace["dense_neon"] = {"K1": denseK1}
+    del denseEngine
+    torch.cuda.empty_cache()
+
+    # (d) the text-conditioned generator
+    start = time.perf_counter()
+    textGeometry = dict(GEN_STAGE2_NEON_A, textConditioned=True, capDim=512)
+    state = seededGeneratorState(textGeometry, seed=0)
+    with torch.device("cuda"):
+        textModel = GeneratorV3SelfAttention(**textGeometry)
+    textModel.load_state_dict(state)
+    textModel.eval().requires_grad_(False)
+    captions = torch.from_numpy(np.random.default_rng(15).normal(size=(len(GEN_CLASSES), 512))
+                                .astype(np.float32)).cuda()
+    levels = len(textGeometry["size"])
+    with exactFp32(), torch.inference_mode():
+        textModel.generate(captions)                                           # warm-up
+        flashAttention.launches = 0
+        textCodes, textRestored = textModel.generate(captions)
+        textK3 = flashAttention.launches
+    finite = bool(torch.isfinite(textRestored).all())
+    agree = generatorVsCpu(torch, state, textGeometry, captions, levels)
+    seconds["d"] = time.perf_counter() - start
+    print(f"  (d) seeded text-conditioned generator at gen_stage2_neonA's geometry, capDim 512: "
+          f"greedy from {len(GEN_CLASSES)} seeded caption embeddings, K3 launches {textK3}, "
+          f"restored {tuple(textRestored.shape)} finite {finite}, depth-{GEN_CPU_DEPTH} codes "
+          f"card vs CPU agree on {agree:.4%}; {seconds['d']:.2f} s", flush=True)
+    if (textK3 != textGeometry["depth"] * levels or not finite
+            or tuple(textRestored.shape) != (len(GEN_CLASSES), 3, 256, 256)):
+        raise AssertionError(f"text-conditioned generation: K3 {textK3}, finite {finite}")
+    trace["text"] = {"K3": textK3}
+    del textModel, state
+    torch.cuda.empty_cache()
+
+    # (c) the card's step, then the CPU's
+    start = time.perf_counter()
+    waitDraws()
+    step("card", "cuda", recorded(torch.device("cuda")))
+    joinCpu()
+    (cpu, cpuS, cpuDense), (card, cardS, cardDense) = steps["cpu"], steps["card"]
+    gaps = {key: relativeGap(card[key], cpu[key]) for key in ("loss", "gradNorm")}
+    seconds["c"] = time.perf_counter() - start + seconds["c_start"]
+    print(f"  (c) denseNorm Neon (neon_v2_60k.yaml's model with denseNorm, batch 1, input 256) "
+          f"through Trainer, one step: CPU loss {cpu['loss']:.8f}, grad norm {cpu['gradNorm']:.8f}"
+          f" ({cpuS:.1f} s, in a thread); card loss {card['loss']:.8f}, grad norm "
+          f"{card['gradNorm']:.8f} ({cardS:.1f} s); gaps {gaps['loss']:.2e}, "
+          f"{gaps['gradNorm']:.2e} relative (tolerance {TRAIN_CPU_RTOL:g}); skipped "
+          f"{card['skipped']:.0f}/{cpu['skipped']:.0f} ({smi})", flush=True)
+    if (not (cpuDense and cardDense) or card["skipped"] or cpu["skipped"]
+            or gaps["loss"] > TRAIN_CPU_RTOL or gaps["gradNorm"] > TRAIN_CPU_RTOL):
+        raise AssertionError(f"the denseNorm Neon's step: {gaps}")
+    trace["seconds"] = seconds
+    return trace
+
+
 def buildAll():
     """Build K1, K1b, K2 and K3 (nvcc) and the rANS runtime and the JPEG codec
     (g++), all started together; print ptxas's registers and spills of every
@@ -2128,29 +2467,26 @@ def buildAll():
 
 
 def jpegCheck(np, photo, smi: str) -> dict:
-    """The JPEG decoder against the fixture's hashes of PIL's decode, the
-    progressive file refused; the photo's q95 bytes and their decode against
-    PIL's (`photo.json`); then the codec's rates on the photo at q95,
-    medians of JPEG_RATE_ITERS calls, in megapixels per second."""
+    """The host decoders against the fixtures' hashes of PIL's decode: every
+    JPEG of tests/golden/torch_jpeg/ (baseline and progressive, the
+    full-size progressive photo among them) and every PNG and BMP form of
+    tests/golden/torch_images/; the photo's q95 bytes and their decode
+    against PIL's (`photo.json`); then the codec's rates on the photo at
+    q95, and the progressive decoder's on the progressive photo, medians of
+    JPEG_RATE_ITERS calls, in megapixels per second."""
     import hashlib
-    from mcquic_tpu_torch.data.jpeg import UnsupportedJpeg, encodeJpeg, readJpeg
-    manifest = json.loads((JPEG_FIXTURE / "manifest.json").read_text())
-    for name, entry in sorted(manifest.items()):
-        data = (JPEG_FIXTURE / name).read_bytes()
-        if entry.get("unsupported"):
-            try:
-                readJpeg(data, name)
-            except UnsupportedJpeg as e:
-                print(f"  fixture {name}: refused ({e})", flush=True)
-                continue
-            raise AssertionError(f"the fixture's {name} decoded; it must raise UnsupportedJpeg")
-        got = readJpeg(data, name)
-        digest = hashlib.sha256(got.tobytes()).hexdigest()
-        if list(got.shape) != entry["shape"] or digest != entry["sha256"]:
-            raise AssertionError(f"the decode of the fixture's {name} is not PIL's "
-                                 f"({digest[:16]} against {entry['sha256'][:16]})")
-        print(f"  fixture {name} {tuple(got.shape)}: decode equals PIL's (sha256 "
-              f"{digest[:16]})", flush=True)
+    from mcquic_tpu_torch.data.dataset import _decodeImage
+    from mcquic_tpu_torch.data.jpeg import encodeJpeg, readJpeg
+    for folder in (JPEG_FIXTURE, IMAGE_FIXTURE):
+        manifest = json.loads((folder / "manifest.json").read_text())
+        for name, entry in sorted(manifest.items()):
+            got = _decodeImage((folder / name).read_bytes(), name)
+            digest = hashlib.sha256(got.tobytes()).hexdigest() if got is not None else None
+            if got is None or list(got.shape) != entry["shape"] or digest != entry["sha256"]:
+                raise AssertionError(f"the decode of the fixture's {name} is not PIL's "
+                                     f"({digest and digest[:16]} against {entry['sha256'][:16]})")
+            print(f"  fixture {folder.name}/{name} {tuple(got.shape)}: decode equals PIL's "
+                  f"(sha256 {digest[:16]})", flush=True)
     data = encodeJpeg(photo, 95)
     want = json.loads(PHOTO_DIGESTS.read_text())["photo_q95"]
     got = {"sha256": hashlib.sha256(data).hexdigest(),
@@ -2170,11 +2506,15 @@ def jpegCheck(np, photo, smi: str) -> dict:
             fn()
             times.append(time.perf_counter() - start)
         return megapixels / statistics.median(times)
+    progressive = PHOTO_PROGRESSIVE.read_bytes()
     rates = {"decode_mp_s": rate(lambda: readJpeg(data)),
-             "encode_mp_s": rate(lambda: encodeJpeg(photo, 95)), "photo_jpeg": data}
+             "encode_mp_s": rate(lambda: encodeJpeg(photo, 95)),
+             "progressive_decode_mp_s": rate(lambda: readJpeg(progressive)), "photo_jpeg": data}
     print(f"  JPEG codec on the host, the photo {photo.shape[1]}x{photo.shape[0]} at q95 "
           f"({len(data)} bytes): decode {rates['decode_mp_s']:.2f} MP/s, encode "
-          f"{rates['encode_mp_s']:.2f} MP/s (medians of {JPEG_RATE_ITERS}; {smi})", flush=True)
+          f"{rates['encode_mp_s']:.2f} MP/s; the progressive photo (PIL, q90, "
+          f"{len(progressive)} bytes): decode {rates['progressive_decode_mp_s']:.2f} MP/s "
+          f"(medians of {JPEG_RATE_ITERS}; {smi})", flush=True)
     return rates
 
 
@@ -2575,14 +2915,18 @@ def main() -> int:
                 if proc.returncode != 0:
                     raise RuntimeError(f"CLI {proc.args} exited {proc.returncode}:\n{stderr}")
 
-            # three compressions at once: the photo; the photo as a q95 JPEG; a PNG
-            # holding the port's decode of that JPEG, which must give the JPEG's .mcq
+            # four compressions at once: the photo; the photo as a q95 JPEG, and a
+            # PNG holding the port's decode of it, which must give the JPEG's .mcq;
+            # PIL's progressive JPEG of the photo
             photoJpg, decodedPng = out / "photo.jpg", out / "photo_decoded.png"
+            progressiveJpg = out / "photo_progressive.jpg"
             photoJpg.write_bytes(codec["photo_jpeg"])
+            progressiveJpg.write_bytes(PHOTO_PROGRESSIVE.read_bytes())
             decoded = jpeg.readJpeg(codec["photo_jpeg"])
             writePng(decodedPng, decoded)
             procs = [cli("-qp", QP, PHOTO, out / "cli.mcq")] + [
-                cli("-qp", QP, src, out / f"{src.stem}.mcq") for src in (photoJpg, decodedPng)]
+                cli("-qp", QP, src, out / f"{src.stem}.mcq")
+                for src in (photoJpg, decodedPng, progressiveJpg)]
             try:
                 finish(procs[0])
                 procs.append(cli(out / "cli.mcq", out / "cli.png"))
@@ -2617,6 +2961,32 @@ def main() -> int:
                   flush=True)
             if not (sameAsPng and inProcess == jpgMcq and jpgK1 == 3 and jpgK2 == 1):
                 raise AssertionError("the JPEG input does not compress as the PNG of its decode")
+
+            # the progressive JPEG's codes against those of a PNG of its pixels
+            progressiveMcq = (out / "photo_progressive.mcq").read_bytes()
+            progressiveDecoded = readImage(progressiveJpg)
+            writePng(out / "photo_progressive_decoded.png", progressiveDecoded)
+            vqNearest.launches = conv3x3SubpixelThin.launches = 0
+            progressiveFile = engine.compressImage(progressiveDecoded)
+            progressiveK1 = vqNearest.launches
+            progressiveRestored = engine.decompressImage(File.deserialize(progressiveMcq))
+            progressiveK2 = conv3x3SubpixelThin.launches
+            pngCodes = engine.encode(readPng(out / "photo_progressive_decoded.png")[None])
+            cliCodes = engine.coder.decompress([File.deserialize(progressiveMcq).Content],
+                                               [File.deserialize(progressiveMcq).FileHeader.CodeSize])
+            codesSame = all(np.array_equal(a, b) for a, b in zip(cliCodes, pngCodes))
+            print(f"  CLI on photo_progressive.jpg (PIL progressive q90, "
+                  f"{PHOTO_PROGRESSIVE.stat().st_size} bytes): "
+                  f"{File.deserialize(progressiveMcq).BPP:.4f} bpp, .mcq identical to the "
+                  f"in-process compress: {progressiveFile.serialize() == progressiveMcq}; its codes "
+                  f"and those of a PNG of its pixels identical: {codesSame}; K1 {progressiveK1} "
+                  f"launches in the compress, K2 {progressiveK2} in the restore; PSNR against its "
+                  f"decode {psnr(progressiveDecoded, progressiveRestored):.2f} dB", flush=True)
+            if not (codesSame and progressiveFile.serialize() == progressiveMcq
+                    and progressiveK1 == 3 and progressiveK2 == 1):
+                raise AssertionError("the progressive JPEG does not compress as the PNG of its "
+                                     "decode")
+            photoCliMcq, photoCliRestored = (out / "cli.mcq").read_bytes(), readPng(out / "cli.png")
 
     with Phase("6 generation"), tempfile.TemporaryDirectory() as tmp:
         start = time.perf_counter()
@@ -2691,41 +3061,7 @@ def main() -> int:
             raise AssertionError("the KV-cached codes differ from the uncached ones")
 
         # the card against the CPU plain path, same weights, depth cut to GEN_CPU_DEPTH
-        kept = {key: value for key, value in model.state_dict().items()
-                if not key.startswith("transformer.blocks.")
-                or int(key.split(".")[2]) < GEN_CPU_DEPTH}
-        small = dict(geometry, depth=GEN_CPU_DEPTH)
-        cardSmall, cpuSmall = GeneratorV3SelfAttention(**small), GeneratorV3SelfAttention(**small)
-        cardSmall.load_state_dict(kept)
-        cpuSmall.load_state_dict(kept)
-        cardSmall, cpuSmall = cardSmall.to(device).eval(), cpuSmall.eval()
-        with exactFp32(), torch.inference_mode():
-            cardCodes = [c.cpu() for c in cardSmall.sampleCodes(condition)]
-            cpuCodes = cpuSmall.sampleCodes(condition.cpu())
-            agree = (sum(int((a == b).sum()) for a, b in zip(cardCodes, cpuCodes))
-                     / sum(a.numel() for a in cardCodes))
-            firstDiff = next((lv for lv, (a, b) in enumerate(zip(cardCodes, cpuCodes))
-                              if not torch.equal(a, b)), None)
-            tie = 0.0
-            if firstDiff is not None:
-                cpuLogits = teacherForcedLogits(cpuSmall, condition.cpu(), cpuCodes, firstDiff)
-                a, b = cardCodes[firstDiff].reshape(batch, -1), cpuCodes[firstDiff].reshape(batch, -1)
-                gap = (cpuLogits.gather(-1, b[..., None].long())
-                       - cpuLogits.gather(-1, a[..., None].long()))
-                tie = gap.abs().max().item()
-            last = levels - 1
-            cardLogits = teacherForcedLogits(cardSmall, condition, [c.to(device) for c in cardCodes],
-                                             last).cpu()
-            cpuLogits = teacherForcedLogits(cpuSmall, condition.cpu(), cardCodes, last)
-            logitsDiff = (cardLogits - cpuLogits).abs().max().item()
-        print(f"  depth {GEN_CPU_DEPTH}, card vs CPU: greedy codes agree on {agree:.4%}"
-              + ("" if firstDiff is None else
-                 f", first differing level {firstDiff} (CPU logit gap there {tie:.2e})")
-              + f"; teacher-forced level-{last} logits on the card's codes differ by "
-                f"{logitsDiff:.2e}", flush=True)
-        if tie > GEN_TIE_ATOL or not logitsDiff <= GEN_LOGITS_ATOL:
-            raise AssertionError("the card's generation disagrees with the CPU plain path")
-        del cardSmall, cpuSmall
+        generatorVsCpu(torch, model.state_dict(), geometry, condition, levels)
 
         # Neon encode -> decode of a seeded 256x256 image: K1 at (m, k, d) = (1, 1024, 8)
         neon = model.compressor
@@ -2897,7 +3233,8 @@ def main() -> int:
         data = tiled.read_bytes()
         tf = TiledFile.deserialize(data)
         cliRestored = readPng(tiledPng)
-        sameFile = data == compressTiled(engine, img, TILE).serialize()
+        inProcess = compressTiled(engine, img, TILE)
+        sameFile = data == inProcess.serialize()
         sameRestore = np.array_equal(cliRestored, decompressTiled(engine, tf))
         tiles, rows, cols = toTiles(img, TILE)
         files = [engine.compressImage(t) for t in tiles]
@@ -2913,7 +3250,13 @@ def main() -> int:
               f"equal to in-process: {sameRestore}. The tiles coded whole: {sameStreams} of "
               f"{len(files)} streams identical; restored as one batch, pixels equal: "
               f"{np.array_equal(together, cliRestored)}; restored one by one, pixels equal on "
-              f"{(diff == 0).mean():.6%}, max diff {int(diff.max())}", flush=True)
+              f"{(diff == 0).mean():.6%}, max diff {int(diff.max())}"
+              + ("" if sameFile else
+                 f"; in-process against the CLI's: streams equal "
+                 f"{sum(a == b for a, b in zip(inProcess.binaries, tf.binaries))} of "
+                 f"{len(tf.binaries)}, fields equal "
+                 f"{[k for k in ('rows', 'cols', 'tile', 'height', 'width', 'qp', 'codeSize') if getattr(inProcess, k) == getattr(tf, k)]}"),
+              flush=True)
         if not (TiledFile.isTiled(data) and sameFile and sameRestore and sameStreams == len(files)
                 and np.array_equal(together, cliRestored) and diff.max() <= TILE_BATCH_MAX_DIFF):
             raise AssertionError("the tiled round trip disagrees")
@@ -3000,9 +3343,17 @@ def main() -> int:
         with Phase("13 GeneratorVAR"):
             varTrace = var13(torch, np, tmp / "p13", smi, neonTrace["checkpoint"],
                              tmp / "p10" / "classes", k3)
-        with Phase("14 reference checkpoint"):
-            (tmp / "p14").mkdir()
-            toolTrace = tooling14(torch, np, tmp / "p14", img, smi)
+        try:
+            with Phase("14 reference checkpoint"):
+                (tmp / "p14").mkdir()
+                toolTrace = tooling14(torch, np, tmp / "p14", img, smi)
+            with Phase("15 web demo, denseNorm, text conditioning"):
+                (tmp / "p15").mkdir()
+                webTrace = web15(torch, np, tmp / "p15", img, smi, engine, photoCliMcq,
+                                 photoCliRestored, progressiveMcq)
+        finally:
+            with Phase("13 GeneratorVAR, its generate CLI"):
+                finishVarCli(varTrace["cli"])
 
     kernels = [
         {"name": "vq_nearest", "route": "cuda", "source": "mcquic_tpu_torch/csrc/vq_encode.cu",
@@ -3020,6 +3371,8 @@ def main() -> int:
          "ddp_validation_launches_per_image": ddpTrace["rd_qp2"]["val"]["K1"],
          "var_train_launches_per_step": varTrace["K1_per_step"],
          "converted_reference_launches_per_compress": toolTrace["K1"],
+         "handler_launches_per_compress": webTrace["handler"]["K1"],
+         "dense_neon_launches_per_compress": webTrace["dense_neon"]["K1"],
          "neon_device_ms": neonK1["device_ms"], "neon_ms": neonK1["ms"],
          "neon_library_device_ms": neonK1["library_device_ms"],
          "qp12_device_ms": qp12K1["device_ms"],
@@ -3039,6 +3392,7 @@ def main() -> int:
          "train_validation_launches_per_image": trainTrace["K2"],
          "ddp_validation_launches_per_image": ddpTrace["rd_qp2"]["val"]["K2"],
          "converted_reference_launches_per_restore": toolTrace["K2"],
+         "handler_launches_per_compress_and_preview": webTrace["handler"]["K2"],
          "batch_library_device_ms": k2Batch["library_device_ms"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "mcquic_tpu_torch/csrc/flash_attention.cu",
@@ -3049,6 +3403,7 @@ def main() -> int:
          "bound_fp32_ms": k3["bound_fp32_ms"], "after_gen_train_launches": genTrace["K3_after"],
          "gen_train_launches_per_step": genTrace["K3_in_step"],
          "var_launches_per_generate": varTrace["K3_per_generate"],
+         "text_conditioned_launches_per_generate": webTrace["text"]["K3"],
          "var_shape_b_h_tq_tk_d": varTrace["k3"]["shape"], "var_ms": varTrace["k3"]["ms"],
          "var_device_ms": varTrace["k3"]["device_ms"], "var_plain_ms": varTrace["k3"]["plain_ms"],
          "var_bound_ms": varTrace["k3"]["bound_ms"], "var_bound_by": varTrace["k3"]["bound_by"],
@@ -3056,7 +3411,7 @@ def main() -> int:
          "var_library_ms": varTrace["k3"]["library_ms"],
          "var_library_device_ms": varTrace["k3"]["library_device_ms"]},
     ]
-    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - started:.1f} s", flush=True)
+    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -24,6 +24,9 @@ class ImageSize:
     def Pixels(self) -> int:
         return self.height * self.width
 
+    def __str__(self) -> str:
+        return f"[{self.width}x{self.height}, {self.channel}]"
+
 
 @dataclass
 class CodeSize:
@@ -32,6 +35,11 @@ class CodeSize:
     heights: List[int]
     widths: List[int]
     k: List[int]
+
+    def __str__(self) -> str:
+        sequence = ", ".join(f"[{w}x{h}, {k}]x{m}"
+                             for h, w, k, m in zip(self.heights, self.widths, self.k, self.m))
+        return f"{self.m} code-groups: {sequence}"
 
 
 @dataclass(init=False)
@@ -59,6 +67,12 @@ class FileHeader:
     @property
     def ImageSize(self) -> ImageSize:
         return self.imageSize
+
+    def __str__(self) -> str:
+        return (f"\n    Version    : {self.version}"
+                f"\n    QP         : {self.QuantizationParameter}"
+                f"\n    Image size : {self.ImageSize}"
+                f"\n    Code size  : {self.CodeSize}")
 
 
 def _headerToDict(h: FileHeader) -> dict:
@@ -107,3 +121,17 @@ class File:
     @property
     def BPP(self) -> float:
         return sum(len(x) for x in self.contents) * 8 / self.FileHeader.ImageSize.Pixels
+
+    def size(self, human: bool = False):
+        """The binaries' bytes, or with `human` as text in B, KiB, ..."""
+        total = sum(len(x) for x in self.contents)
+        if not human:
+            return total
+        for unit in ("B", "KiB", "MiB", "GiB"):
+            if total < 1024:
+                return f"{total:.2f} {unit}"
+            total /= 1024
+        return f"{total:.2f} TiB"
+
+    def __str__(self) -> str:
+        return f"Header: {self.fileHeader}\nSize  : {self.size(True)}\nBPP   : {self.BPP:.4f}"

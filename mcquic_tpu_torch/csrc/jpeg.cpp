@@ -1,11 +1,22 @@
 // mcquic_tpu_torch baseline JPEG codec (C++17, C ABI for ctypes).
 //
-// The decoder reads sequential Huffman JPEGs (SOF0 and SOF1) at 8-bit
-// precision with 1 or 3 components and sampling factors up to 2x2, and
-// returns RGB. It follows libjpeg-turbo's integer paths with the defaults a
-// plain `PIL.Image.open(f).convert("RGB")` uses, so its output is
+// The decoder reads sequential (SOF0, SOF1) and progressive (SOF2) Huffman
+// JPEGs at 8-bit precision with 1 or 3 components and sampling factors up to
+// 2x2, and returns RGB. It follows libjpeg-turbo's integer paths with the
+// defaults a plain `PIL.Image.open(f).convert("RGB")` uses, so its output is
 // bit-identical to that call:
 //   * jdhuff.c: Huffman decoding, restart markers, DC prediction;
+//   * jdphuff.c: the four progressive scan kinds (DC first, DC refine, AC
+//     first with end-of-band runs, AC refine with correction bits) into a
+//     coefficient buffer over the whole image, which the baseline path fills
+//     too; a restart resets the DC predictions and the end-of-band run.
+//     libjpeg smooths the blocks of a progressive file whose scans leave
+//     coefficient bits unsent (jdcoefct.c::smoothing_ok: any of the first
+//     ten coefficients of a component not complete); such a file, and any
+//     file whose last scan of a coefficient leaves Al > 0, returns
+//     MCQ_JPEG_UNSUPPORTED ("incomplete progressive scans");
+//   * jdinput.c::latch_quant_tables: a component's quantization table is
+//     the one defined when its first scan starts;
 //   * jidctint.c::jpeg_idct_islow: CONST_BITS 13, PASS1_BITS 2, the
 //     dequantization in the first pass, the all-zero column and row shortcuts,
 //     and the post-IDCT range-limit table indexed with RANGE_MASK;
@@ -16,8 +27,8 @@
 //   * jdcolor.c::ycc_rgb_convert with its 16-bit fixed-point tables;
 //   * jdapimin.c::default_decompress_parms for the colour space (JFIF means
 //     YCbCr, Adobe transform 0 means RGB, then the component ids).
-// Progressive, arithmetic-coded, lossless, hierarchical and 12-bit files,
-// and files of 2 or 4 components, are valid files this codec does not read:
+// Arithmetic-coded, lossless, hierarchical and 12-bit files, and files of 2
+// or 4 components, are valid files this codec does not read:
 // they return MCQ_JPEG_UNSUPPORTED with the marker named. Truncated or
 // corrupt data returns MCQ_JPEG_CORRUPT.
 //
@@ -201,6 +212,8 @@ struct Component {
   std::vector<int16_t> coefs;       // blocksH * blocksW * 64, natural order
   bool seen = false;
   int dcTable = 0, acTable = 0;
+  int16_t quant[64] = {};           // latched at the component's first scan
+  int coefBits[64];                 // progressive: the last scan's Al per coefficient, -1 unsent
 };
 
 class BitReader {
@@ -457,6 +470,7 @@ class Decoder {
     }
     for (auto& c : comps_)
       if (!c.seen) corrupt("component " + std::to_string(c.id) + " has no scan");
+    if (progressive_) checkComplete();
     output(rgb);
   }
 
@@ -487,15 +501,14 @@ class Decoder {
     switch (marker) {
       case 0xC0:
       case 0xC1:
+      case 0xC2:
         frame(marker, p, n);
         break;
-      case 0xC2: case 0xC6: case 0xCA: case 0xCE:
-        unsupported("progressive JPEG (SOF marker " + hexMarker(marker) + ")");
       case 0xC3: case 0xC7: case 0xCB: case 0xCF:
         unsupported("lossless JPEG (SOF marker " + hexMarker(marker) + ")");
-      case 0xC5:
+      case 0xC5: case 0xC6:
         unsupported("hierarchical JPEG (SOF marker " + hexMarker(marker) + ")");
-      case 0xC9: case 0xCD:
+      case 0xC9: case 0xCA: case 0xCD: case 0xCE:
         unsupported("arithmetic-coded JPEG (SOF marker " + hexMarker(marker) + ")");
       case 0xCC:
         unsupported("arithmetic-coded JPEG (DAC marker 0xFFCC)");
@@ -535,6 +548,7 @@ class Decoder {
   void frame(int marker, const uint8_t* p, size_t n) {
     if (frame_) corrupt("a second SOF marker");
     if (n < 6) corrupt("bad SOF segment");
+    progressive_ = marker == 0xC2;
     int precision = p[0];
     if (precision != 8)
       unsupported(std::to_string(precision) + "-bit JPEG (SOF marker " + hexMarker(marker) + ")");
@@ -577,6 +591,7 @@ class Decoder {
       c.blocksW = mcusX_ * c.h;
       c.blocksH = mcusY_ * c.v;
       c.coefs.assign(static_cast<size_t>(c.blocksW) * c.blocksH * 64, 0);
+      std::fill(c.coefBits, c.coefBits + 64, -1);
     }
     frame_ = true;
   }
@@ -633,21 +648,28 @@ class Decoder {
       if (found->dcTable > 3 || found->acTable > 3) corrupt("bad SOS table index");
       scanComps.push_back(found);
     }
-    int ss = p[1 + 2 * count], se = p[2 + 2 * count], ahal = p[3 + 2 * count];
-    if (ss != 0 || se != 63 || ahal != 0) corrupt("sequential scan with Ss, Se, Ah/Al " +
-                                                  std::to_string(ss) + ", " + std::to_string(se) +
-                                                  ", " + std::to_string(ahal));
+    int ss = p[1 + 2 * count], se = p[2 + 2 * count], ah = p[3 + 2 * count] >> 4,
+        al = p[3 + 2 * count] & 15;
+    if (!progressive_ && (ss != 0 || se != 63 || ah != 0 || al != 0))
+      corrupt("sequential scan with Ss, Se, Ah/Al " + std::to_string(ss) + ", " +
+              std::to_string(se) + ", " + std::to_string(p[3 + 2 * count]));
+    bool dcBand = ss == 0;
+    if (progressive_) progression(scanComps, ss, se, ah, al);
     for (auto* c : scanComps) {
       if (!quantDefined_[c->tq]) corrupt("quantization table not defined");
-      if (!huff_[0][c->dcTable].defined || !huff_[1][c->acTable].defined)
+      bool needDc = !progressive_ || (dcBand && ah == 0), needAc = !progressive_ || !dcBand;
+      if ((needDc && !huff_[0][c->dcTable].defined) || (needAc && !huff_[1][c->acTable].defined))
         corrupt("Huffman table not defined");
+      if (!c->seen) std::memcpy(c->quant, quant_[c->tq], sizeof c->quant);
       c->seen = true;
     }
     pos_ += length;
 
     BitReader reader(data_, size_, pos_);
     int dcPred[4] = {0, 0, 0, 0};
+    int eobrun = 0;
     int restartsLeft = restartInterval_, nextRestart = 0;
+    // jdhuff.c::decode_mcu: a whole block of a sequential scan
     auto decodeBlock = [&](Component& c, int pred, int16_t* block) {
       const HuffTable& dc = huff_[0][c.dcTable];
       const HuffTable& ac = huff_[1][c.acTable];
@@ -669,6 +691,82 @@ class Decoder {
         }
       }
     };
+    // jdphuff.c::decode_mcu_DC_first
+    auto dcFirst = [&](Component& c, int pred, int16_t* block) {
+      int s = reader.decode(huff_[0][c.dcTable]);
+      if (s > 16) corrupt("bad DC difference size");
+      int diff = s ? extend(reader.bits(s), s) : 0;
+      dcPred[pred] += diff;
+      block[0] = static_cast<int16_t>(static_cast<uint32_t>(dcPred[pred]) << al);
+    };
+    // jdphuff.c::decode_mcu_DC_refine
+    auto dcRefine = [&](Component&, int, int16_t* block) {
+      if (reader.bits(1)) block[0] = static_cast<int16_t>(block[0] | (1 << al));
+    };
+    // jdphuff.c::decode_mcu_AC_first
+    auto acFirst = [&](Component& c, int, int16_t* block) {
+      if (eobrun > 0) {
+        --eobrun;
+        return;
+      }
+      const HuffTable& ac = huff_[1][c.acTable];
+      for (int k = ss; k <= se; ++k) {
+        int rs = reader.decode(ac);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          k += r;
+          block[kNaturalOrder[k]] =
+              static_cast<int16_t>(static_cast<uint32_t>(extend(reader.bits(s), s)) << al);
+        } else if (r == 15) {
+          k += 15;
+        } else {
+          eobrun = 1 << r;
+          if (r) eobrun += reader.bits(r);
+          --eobrun;
+          break;
+        }
+      }
+    };
+    // jdphuff.c::decode_mcu_AC_refine
+    const int p1 = 1 << al, m1 = -(1 << al);
+    auto refine = [&](int16_t& coef) {
+      if (reader.bits(1) && (coef & p1) == 0)
+        coef = static_cast<int16_t>(coef + (coef >= 0 ? p1 : m1));
+    };
+    auto acRefine = [&](Component& c, int, int16_t* block) {
+      int k = ss;
+      if (eobrun == 0) {
+        const HuffTable& ac = huff_[1][c.acTable];
+        for (; k <= se; ++k) {
+          int rs = reader.decode(ac);
+          int r = rs >> 4, s = rs & 15;
+          if (s) {
+            s = reader.bits(1) ? p1 : m1;
+          } else if (r != 15) {
+            eobrun = 1 << r;
+            if (r) eobrun += reader.bits(r);
+            break;
+          }
+          do {
+            int16_t& coef = block[kNaturalOrder[k]];
+            if (coef != 0) {
+              refine(coef);
+            } else if (--r < 0) {
+              break;
+            }
+            ++k;
+          } while (k <= se);
+          if (s) block[kNaturalOrder[k]] = static_cast<int16_t>(s);
+        }
+      }
+      if (eobrun > 0) {
+        for (; k <= se; ++k) {
+          int16_t& coef = block[kNaturalOrder[k]];
+          if (coef != 0) refine(coef);
+        }
+        --eobrun;
+      }
+    };
     auto restartCheck = [&](bool last) {
       if (!restartInterval_ || last) return;
       if (--restartsLeft == 0) {
@@ -676,39 +774,83 @@ class Decoder {
         nextRestart = (nextRestart + 1) & 7;
         restartsLeft = restartInterval_;
         std::fill(dcPred, dcPred + 4, 0);
+        eobrun = 0;
       }
     };
-    if (count == 1) {  // non-interleaved: one block per MCU over the real blocks
-      Component& c = *scanComps[0];
-      int total = c.realBlocksW * c.realBlocksH, done = 0;
-      for (int by = 0; by < c.realBlocksH; ++by)
-        for (int bx = 0; bx < c.realBlocksW; ++bx) {
-          decodeBlock(c, 0, &c.coefs[(static_cast<size_t>(by) * c.blocksW + bx) * 64]);
-          restartCheck(++done == total);
-        }
-    } else {
-      int total = mcusX_ * mcusY_, done = 0;
-      for (int my = 0; my < mcusY_; ++my)
-        for (int mx = 0; mx < mcusX_; ++mx) {
-          for (int i = 0; i < count; ++i) {
-            Component& c = *scanComps[i];
-            for (int y = 0; y < c.v; ++y)
-              for (int x = 0; x < c.h; ++x) {
-                size_t by = static_cast<size_t>(my) * c.v + y, bx = mx * c.h + x;
-                decodeBlock(c, i, &c.coefs[(by * c.blocksW + bx) * 64]);
-              }
+    auto run = [&](auto&& unit) {
+      if (count == 1) {  // non-interleaved: one block per MCU over the real blocks
+        Component& c = *scanComps[0];
+        int total = c.realBlocksW * c.realBlocksH, done = 0;
+        for (int by = 0; by < c.realBlocksH; ++by)
+          for (int bx = 0; bx < c.realBlocksW; ++bx) {
+            unit(c, 0, &c.coefs[(static_cast<size_t>(by) * c.blocksW + bx) * 64]);
+            restartCheck(++done == total);
           }
-          restartCheck(++done == total);
-        }
-    }
+      } else {
+        int total = mcusX_ * mcusY_, done = 0;
+        for (int my = 0; my < mcusY_; ++my)
+          for (int mx = 0; mx < mcusX_; ++mx) {
+            for (int i = 0; i < count; ++i) {
+              Component& c = *scanComps[i];
+              for (int y = 0; y < c.v; ++y)
+                for (int x = 0; x < c.h; ++x) {
+                  size_t by = static_cast<size_t>(my) * c.v + y, bx = mx * c.h + x;
+                  unit(c, i, &c.coefs[(by * c.blocksW + bx) * 64]);
+                }
+            }
+            restartCheck(++done == total);
+          }
+      }
+    };
+    if (!progressive_) run(decodeBlock);
+    else if (dcBand && ah == 0) run(dcFirst);
+    else if (dcBand) run(dcRefine);
+    else if (ah == 0) run(acFirst);
+    else run(acRefine);
     pos_ = reader.finish();
+  }
+
+  // jdphuff.c::start_pass_phuff_decoder: the scan's parameters, then each
+  // coefficient's progression. libjpeg only warns where a scan refines bits
+  // that were never sent or sends them twice; no encoder writes such a file,
+  // and here it is corrupt.
+  void progression(const std::vector<Component*>& scanComps, int ss, int se, int ah, int al) {
+    bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || scanComps.size() != 1);
+    if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
+    if (bad)
+      corrupt("bad progressive scan: Ss " + std::to_string(ss) + ", Se " + std::to_string(se) +
+              ", Ah " + std::to_string(ah) + ", Al " + std::to_string(al));
+    for (auto* c : scanComps) {
+      if (ss != 0 && c->coefBits[0] < 0)
+        corrupt("progressive AC scan of component " + std::to_string(c->id) +
+                " before its DC scan");
+      for (int k = ss; k <= se; ++k) {
+        if (ah != std::max(c->coefBits[k], 0))
+          corrupt("progressive scan of component " + std::to_string(c->id) +
+                  " refines coefficient " + std::to_string(k) + " out of order");
+        c->coefBits[k] = al;
+      }
+    }
+  }
+
+  // After the last scan: the coefficients libjpeg would decode without
+  // block smoothing, every bit sent.
+  void checkComplete() const {
+    for (const auto& c : comps_)
+      for (int k = 0; k < 64; ++k)
+        if (c.coefBits[k] > 0 || (k < 10 && c.coefBits[k] < 0))
+          unsupported("incomplete progressive scans: coefficient " + std::to_string(k) +
+                      " of component " + std::to_string(c.id) +
+                      (c.coefBits[k] < 0 ? " is never sent"
+                                         : " ends at Al " + std::to_string(c.coefBits[k])) +
+                      " (SOF marker 0xFFC2); libjpeg smooths such files");
   }
 
   // The component's real samples, [height rows][stride], after the IDCT.
   std::vector<uint8_t> samples(const Component& c, int& stride) {
     stride = c.realBlocksW * 8;
     std::vector<uint8_t> plane(static_cast<size_t>(stride) * c.realBlocksH * 8);
-    const int16_t* q = quant_[c.tq];
+    const int16_t* q = c.quant;
     for (int by = 0; by < c.realBlocksH; ++by)
       for (int bx = 0; bx < c.realBlocksW; ++bx)
         idctIslow(&c.coefs[(static_cast<size_t>(by) * c.blocksW + bx) * 64], q,
@@ -833,7 +975,7 @@ class Decoder {
 
   const uint8_t* data_;
   size_t size_, pos_ = 0, scanStart_ = 0;
-  bool frame_ = false, sawJfif_ = false, sawAdobe_ = false;
+  bool frame_ = false, progressive_ = false, sawJfif_ = false, sawAdobe_ = false;
   int adobeTransform_ = -1;
   int height_ = 0, width_ = 0, hmax_ = 1, vmax_ = 1, mcusX_ = 0, mcusY_ = 0;
   int restartInterval_ = 0;

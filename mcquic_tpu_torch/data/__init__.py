@@ -7,9 +7,9 @@
     augmentation runs on the device, `data/augment.py`).
   * `getValLoader` (`:70-89`): a folder, batch 1, aligned crop.
 
-The port reads PNG and baseline JPEG (`data/dataset.py`). A training folder
-holding BMP or WebP images is refused with an error: training on a silent
-subset would be a different run.
+The port reads PNG, JPEG and BMP (`data/dataset.py`). A training folder
+holding WebP images is refused with an error: training on a silent subset
+would be a different run.
 """
 import logging
 import queue
@@ -55,15 +55,15 @@ def prefetched(gen: Iterable, depth: int = 4) -> Iterator:
 
 def checkTrainSet(pattern) -> str:
     """The training set, after refusing a folder that holds images the port
-    cannot read (BMP, WebP). Tar shards pass: their BMP and WebP members are
-    skipped with a warning as they stream."""
+    cannot read (WebP). Tar shards pass: their WebP members are skipped with
+    a warning as they stream."""
     src = str(pattern)
     if isShardPattern(src):
         return src
     others = [p for p in listImages(src) if p.suffix.lower() in UNREAD_EXTENSIONS]
     if others:
-        raise ValueError(f"trainSet {src!r} holds {len(others)} BMP or WebP images (e.g. "
-                         f"{others[0]}); this package decodes PNG and baseline JPEG only")
+        raise ValueError(f"trainSet {src!r} holds {len(others)} WebP images (e.g. "
+                         f"{others[0]}); this package decodes PNG, JPEG and BMP only")
     return src
 
 

@@ -12,9 +12,9 @@ folder to webdataset-style tar shards (counterpart of
     OUTPUT as `mcquic_DATA_%05d.tar.gz` (`_mergeSplits`), and
     `metadata.json` with the sample count.
 For the same folder and `jobs`, the shards' tar bytes and `metadata.json`
-equal the JAX writer's. Inputs are PNG and baseline JPEG; BMP and WebP
-files are skipped with a warning that names them, and a JPEG the port does
-not read raises.
+equal the JAX writer's. Inputs are PNG, JPEG and BMP; WebP files are
+skipped with a warning that names them, and a JPEG or BMP the port does not
+read raises.
 """
 import gzip
 import io

@@ -3,12 +3,15 @@ stream's shuffle and batching (counterpart of `mcquic_tpu/data/dataset.py`,
 reference `mcquic/data/dataset.py:67-123` and the webdataset pipeline of
 `mcquic/data/__init__.py:96-151`).
 
-Images decode through the port's own codecs: PNG (`data/png.py`) and
-baseline JPEG (`data/jpeg.py`), chosen by the file's magic bytes. A corrupt
-or truncated file decodes to None, as in the JAX package; a file of a kind
-the port does not read raises: `UnsupportedJpeg` (progressive, arithmetic,
-12-bit, CMYK), `UnsupportedPng` (16-bit, palette, interlaced). BMP and WebP files, which the JAX package reads through
-PIL, are listed and then skipped with a warning that names them.
+Images decode through the port's own codecs, chosen by the file's magic
+bytes: PNG in every form (`data/png.py`), sequential and progressive JPEG
+(`data/jpeg.py`) and BMP (`data/bmp.py`), each equal to PIL's
+`convert("RGB")`. A corrupt or truncated file decodes to None, as in the JAX
+package; a file of a kind the port does not read raises: `UnsupportedJpeg`
+(arithmetic, 12-bit, lossless, CMYK, progressive with unsent bits),
+`UnsupportedImage` (RLE or OS/2 1.x BMP, WebP). WebP files, which the JAX
+package reads through PIL, are listed and then skipped with a warning that
+names them.
 """
 import glob
 import logging
@@ -23,11 +26,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mcquic_tpu_torch.data.bmp import MAGIC as BMP_MAGIC, UnsupportedBmp, decodeBmp
 from mcquic_tpu_torch.data.jpeg import MAGIC as JPEG_MAGIC, UnsupportedJpeg, readJpeg
-from mcquic_tpu_torch.data.png import SIGNATURE as PNG_SIGNATURE, UnsupportedPng, decodePng
+from mcquic_tpu_torch.data.png import SIGNATURE as PNG_SIGNATURE, decodePng
 
 IMG_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
-UNREAD_EXTENSIONS = (".bmp", ".webp")        # listed, then skipped with a warning
+UNREAD_EXTENSIONS = (".webp",)               # listed, then skipped with a warning
 logger = logging.getLogger("mcquic_tpu_torch.data")
 
 
@@ -47,26 +51,23 @@ def isShardPattern(source) -> bool:
 
 
 def skipUnread(name) -> bool:
-    """True, with a warning naming it, for a BMP or WebP file or member."""
+    """True, with a warning naming it, for a WebP file or member."""
     if Path(str(name)).suffix.lower() in UNREAD_EXTENSIONS:
-        logger.warning("%s is BMP or WebP; this package decodes PNG and baseline JPEG only; "
-                       "skipped", name)
+        logger.warning("%s is WebP; this package decodes PNG, JPEG and BMP only; skipped", name)
         return True
     return False
 
 
 def _decodeImage(data: bytes, name: str = "") -> Optional[np.ndarray]:
-    """RGB uint8 [h, w, 3] of a PNG or JPEG file's bytes, by their magic;
-    None for a corrupt or truncated file (`mcquic_tpu/data/dataset.py:27-34`).
-    A JPEG or PNG the port does not read raises `UnsupportedJpeg` or
-    `UnsupportedPng`, a BMP or WebP `UnsupportedImage`, each naming `name`."""
+    """RGB uint8 [h, w, 3] of a PNG, JPEG or BMP file's bytes, by their
+    magic; None for a corrupt or truncated file
+    (`mcquic_tpu/data/dataset.py:27-34`). A JPEG the port does not read
+    raises `UnsupportedJpeg`, an RLE or OS/2 1.x BMP or a WebP
+    `UnsupportedImage`, each naming `name`."""
     data = bytes(data)
     if data.startswith(PNG_SIGNATURE):
         try:
             return decodePng(data)
-        except UnsupportedPng as e:
-            raise UnsupportedPng(f"{name}: {e}; this package reads 8-bit gray, RGB and RGBA "
-                                 "PNG only") from None
         except (ValueError, zlib.error, struct.error):
             return None
     if data.startswith(JPEG_MAGIC):
@@ -76,15 +77,22 @@ def _decodeImage(data: bytes, name: str = "") -> Optional[np.ndarray]:
             raise
         except ValueError:
             return None
-    if data.startswith(b"BM") or (data[:4] == b"RIFF" and data[8:12] == b"WEBP"):
-        raise UnsupportedImage(f"{name}: BMP or WebP; this package decodes PNG and baseline "
-                               "JPEG only")
+    if data.startswith(BMP_MAGIC):
+        try:
+            return decodeBmp(data)
+        except UnsupportedBmp as e:
+            raise UnsupportedImage(f"{name}: {e}; this package reads BMP without RLE and "
+                                   "with Windows headers only") from None
+        except ValueError:
+            return None
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        raise UnsupportedImage(f"{name}: WebP; this package decodes PNG, JPEG and BMP only")
     return None
 
 
 def readImage(path) -> np.ndarray:
-    """RGB uint8 [h, w, 3] of a PNG or baseline JPEG file; a file that does
-    not decode raises (`mcquic_tpu/demo.py:151-154` and
+    """RGB uint8 [h, w, 3] of a PNG, JPEG or BMP file; a file that does not
+    decode raises (`mcquic_tpu/demo.py:151-154` and
     `mcquic_tpu/data/dataset.py:72-76` read what PIL reads)."""
     img = _decodeImage(Path(path).read_bytes(), str(path))
     if img is None:
@@ -93,11 +101,11 @@ def readImage(path) -> np.ndarray:
 
 
 class BasicFolder:
-    """The PNG and JPEG images under `root`, sorted by path, as uint8
+    """The PNG, JPEG and BMP images under `root`, sorted by path, as uint8
     [h, w, 3]; a file that does not decode raises, as in
-    `mcquic_tpu/data/dataset.py:61-80`. BMP and WebP files are listed as the
-    JAX package lists them, then skipped with a warning, so a folder that
-    mixes formats is never read silently as a subset."""
+    `mcquic_tpu/data/dataset.py:61-80`. WebP files are listed as the JAX
+    package lists them, then skipped with a warning, so a folder that mixes
+    formats is never read silently as a subset."""
 
     def __init__(self, root):
         files = listImages(root)
@@ -117,8 +125,8 @@ class BasicFolder:
 
 
 def shardMembers(shard: str):
-    """(member name, bytes) of a shard's image files, in member order; BMP
-    and WebP members are skipped with a warning."""
+    """(member name, bytes) of a shard's image files, in member order; WebP
+    members are skipped with a warning."""
     mode = "r:gz" if shard.endswith(".gz") else "r"
     with tarfile.open(shard, mode) as tf:
         for member in tf:

@@ -7,9 +7,9 @@ order of the 1000 wnids is the canonical ImageNet-1k index, so, as in the
 JAX package, no table is hard-coded; a folder with every class gets the
 canonical ids, and the labels come from the folder names.
 
-`getGenLoader` reads an imagenet-style folder (`root/<wnid>/*.JPEG`, PNG or
-JPEG) or wnid-keyed tar shards (a glob, `.tar` or `.tar.gz`), as the JAX
-package's does. A class folder holding BMP or WebP images is refused, as
+`getGenLoader` reads an imagenet-style folder (`root/<wnid>/*.JPEG`, PNG,
+JPEG or BMP) or wnid-keyed tar shards (a glob, `.tar` or `.tar.gz`), as the
+JAX package's does. A class folder holding WebP images is refused, as
 `data/__init__.py::checkTrainSet` refuses one for stage 1.
 """
 import glob
@@ -145,8 +145,8 @@ def getGenLoader(root, batchSize: int, cropSize: int = 256, seed: int = 0, hostI
     allFiles = classFiles(root)
     others = [f for f, _ in allFiles if f.suffix.lower() in UNREAD_EXTENSIONS]
     if others:
-        raise ValueError(f"trainSet {str(root)!r} holds {len(others)} BMP or WebP images (e.g. "
-                         f"{others[0]}); this package decodes PNG and baseline JPEG only")
+        raise ValueError(f"trainSet {str(root)!r} holds {len(others)} WebP images (e.g. "
+                         f"{others[0]}); this package decodes PNG, JPEG and BMP only")
     files = allFiles[hostId::hostCount]
     if not files:
         raise FileNotFoundError(f"No class-labeled images under {root}")

@@ -3,9 +3,11 @@
 and bound through ctypes, as `coding/rans.py` binds the rANS runtime).
 
 `readJpeg(bytes)` returns RGB uint8 [H, W, 3], bit-identical to
-`PIL.Image.open(f).convert("RGB")` on libjpeg-turbo for sequential Huffman
-files (SOF0, SOF1) of 1 or 3 components with sampling factors up to 2x2.
-Progressive, arithmetic-coded, lossless, 12-bit and CMYK / YCCK files raise
+`PIL.Image.open(f).convert("RGB")` on libjpeg-turbo for sequential and
+progressive Huffman files (SOF0, SOF1, SOF2) of 1 or 3 components with
+sampling factors up to 2x2. A progressive file whose scans leave
+coefficient bits unsent (which libjpeg decodes with block smoothing),
+arithmetic-coded, lossless, 12-bit and CMYK / YCCK files raise
 `UnsupportedJpeg`; truncated or corrupt data raises `ValueError`.
 
 `encodeJpeg(rgb, quality)` returns the bytes `PIL.Image.save(f, "JPEG",
@@ -60,7 +62,8 @@ def _raise(status: int, err, name: str):
     message = err.value.decode(errors="replace")
     where = f"{name}: " if name else ""
     if status == _UNSUPPORTED:
-        raise UnsupportedJpeg(f"{where}{message}; this package reads baseline JPEG only")
+        raise UnsupportedJpeg(f"{where}{message}; this package reads sequential and "
+                              "progressive Huffman JPEG only")
     raise ValueError(f"{where}cannot decode the JPEG: {message}")
 
 

@@ -14,7 +14,9 @@ samples from the same seed. Greedy decoding (`model.generate` with no
 generator) is the same function in both packages. A `GeneratorVAR`
 checkpoint samples with classifier-free guidance `cfg` and `topK`, the
 others with `temperature` and `topK`, as `mcquic_tpu/generate.py:43-49`
-routes them.
+routes them. A text-conditioned checkpoint samples from caption embeddings
+[n, capDim] handed to `sample` from Python; the CLI's class ids are refused
+for it (`conditionOf`).
 """
 import logging
 from pathlib import Path
@@ -34,15 +36,14 @@ from mcquic_tpu_torch.utils.convert import (fromJaxGeneratorParams, halvingOf, r
 logger = logging.getLogger("mcquic_tpu_torch.generate")
 
 # config params the port's generators take; `loadFrom` (the trainer's
-# tokenizer source) and `capDim` (text conditioning only) change nothing here
-# and are dropped.
+# tokenizer source) changes nothing here and is dropped.
 TAKEN = ("channel", "k", "size", "qk_norm", "norm_eps", "hiddenSize", "depth", "nHeads",
-         "numClasses", "useAda", "remat")
-DROPPED = ("loadFrom", "capDim")
+         "numClasses", "useAda", "remat", "denseNorm", "textConditioned", "capDim")
+DROPPED = ("loadFrom",)
 # `GeneratorVAR`'s fields; like the JAX package's `constructGenerator`, its
 # loader drops any other config param (a shared schema's qk_norm, say)
 VAR_TAKEN = ("channel", "k", "size", "depth", "embedDim", "nHeads", "numClasses", "condDropRate",
-             "normEps", "attnL2Norm")
+             "normEps", "attnL2Norm", "denseNorm")
 
 # The generator the repo last trained, configs/rd5/gen_stage2_neonA.yaml, over
 # the tokenizer of configs/rd5/neon_v2_60k.yaml: 426 tokens over 9 levels,
@@ -60,9 +61,6 @@ def generatorConfig(meta: dict):
     if key not in STAGE2_MODELS:
         raise NotImplementedError(f"generator `{key}` is not ported to mcquic_tpu_torch "
                                   f"(ported: {sorted(STAGE2_MODELS)})")
-    for name in ("textConditioned", "denseNorm"):
-        if params.pop(name, False):
-            raise NotImplementedError(f"{key} with {name}=True is not ported")
     if key == "GeneratorVAR":
         dropped = sorted(set(params) - set(VAR_TAKEN) - set(DROPPED))
         if dropped:
@@ -85,20 +83,41 @@ def loadGenerator(path, device="cuda") -> torch.nn.Module:
     return model.to(device).eval().requires_grad_(False)
 
 
-def sample(model, classIds: Sequence[int], seed: int = 0, temperature: float = 1.0,
-           topK: int = 0, cfg: float = 1.5):
-    """Class ids -> (codes small -> large, uint8 NHWC images) on the model's
-    device, fp32 with TF32 off, drawn with a `torch.Generator` seeded with
-    `seed`: `GeneratorVAR` with guidance `cfg`, the others at
-    `temperature`."""
+def conditionOf(model, condition, device) -> torch.Tensor:
+    """The model's condition on `device`: class ids [n] as int64, or, for a
+    text-conditioned generator, caption embeddings [n, capDim] as fp32.
+    Class ids for a text-conditioned model are refused: its `capProj` takes
+    embeddings, and the JAX package's model raises flax's
+    ScopeParamShapeError on ids; neither package's `generate` encodes
+    captions (the CLIP encoder is not in the repo)."""
+    if getattr(model, "textConditioned", False):
+        array = np.asarray(condition)
+        if array.ndim != 2 or array.shape[1] != model.capDim or array.dtype.kind != "f":
+            raise ValueError(f"this generator is text-conditioned: its condition is a float "
+                             f"caption embedding [n, {model.capDim}], not class ids "
+                             f"{array.shape if array.ndim != 1 else list(array)}; the JAX "
+                             "package's model cannot take class ids either "
+                             "(ScopeParamShapeError), and no caption encoder is in the repo")
+        return torch.from_numpy(array.astype(np.float32)).to(device)
+    classIds = [int(c) for c in condition]
     bad = [c for c in classIds if c > model.numClasses]
     if bad:
         raise ValueError(f"class ids {bad} are past the model's {model.numClasses} classes "
                          "(-1 or numClasses picks the null class)")
+    return torch.tensor(classIds, dtype=torch.int64, device=device)
+
+
+def sample(model, condition, seed: int = 0, temperature: float = 1.0,
+           topK: int = 0, cfg: float = 1.5):
+    """Class ids, or caption embeddings [n, capDim] for a text-conditioned
+    generator (`conditionOf`) -> (codes small -> large, uint8 NHWC images)
+    on the model's device, fp32 with TF32 off, drawn with a
+    `torch.Generator` seeded with `seed`: `GeneratorVAR` with guidance
+    `cfg`, the others at `temperature`."""
     device = next(model.parameters()).device
+    condition = conditionOf(model, condition, device)
     generator = torch.Generator(device=device).manual_seed(seed)
     with exactFp32(), torch.inference_mode():
-        condition = torch.tensor(list(classIds), dtype=torch.int64, device=device)
         if isinstance(model, GeneratorVAR):
             codes, restored = model.generate(condition, generator, cfg=cfg, topK=topK)
         else:
@@ -111,6 +130,7 @@ def main(modelPath, classIds: Sequence[int], outputDir, topK: int = 0,
          temperature: float = 1.0, seed: int = 0, device="cuda", cfg: float = 1.5) -> List[Path]:
     """Sample one image per class id into `outputDir/class{id}_{i}.png`."""
     model = loadGenerator(modelPath, device)
+    conditionOf(model, classIds, "cpu")          # refuses ids for a text-conditioned model
     outputDir = Path(outputDir)
     outputDir.mkdir(parents=True, exist_ok=True)
     _, images = sample(model, classIds, seed, temperature, topK, cfg)
@@ -172,9 +192,12 @@ def writeSeededGenerator(path, geometry: dict = GEN_STAGE2_NEON_A, seed: int = 0
     halving = halvingOf(geometry["size"])
     if key == "GeneratorVAR":
         flat = toJaxGeneratorParams(state, halving, geometry.get("depth", 24), var=True,
-                                    attnL2Norm=geometry.get("attnL2Norm", True))
+                                    attnL2Norm=geometry.get("attnL2Norm", True),
+                                    denseNorm=geometry.get("denseNorm", False))
     else:
-        flat = toJaxGeneratorParams(state, halving, geometry["depth"])
+        flat = toJaxGeneratorParams(state, halving, geometry["depth"],
+                                    denseNorm=geometry.get("denseNorm", False),
+                                    textConditioned=geometry.get("textConditioned", False))
     config = {"model": {"key": key, "params": dict(geometry)}}
     return writeExport(path, flat, {"config": config, "version": mcquic_tpu_torch.__version__,
                                     "seed": seed})

@@ -29,6 +29,8 @@ from mcquic_tpu_torch.models.quantizer import ResidualBackwardQuantizer, UMGMQua
 from mcquic_tpu_torch.nn import (AttentionBlock, ResidualBlock, ResidualBlockShuffle,
                                  ResidualBlockWithStride, conv3x3, pixelShuffle3x3)
 
+NEON_GROUPS = 32               # `g` of the JAX Neon's encoder and decoder
+
 
 def _v1Encoder(c: int) -> nn.Sequential:
     """conv3x3/2, ResB, ResBStride/2, Attn, ResB, ResBStride/2, ResB."""
@@ -91,43 +93,53 @@ class Compressor(nn.Module):
         return self._decoder(yHat), yHat, codes, logits
 
 
-def _neonEncoder(c: int) -> nn.Sequential:
+def _neonEncoder(c: int, denseNorm: bool = False) -> nn.Sequential:
     """16 stages (compressor.py:186-207), three of them stride 2, ending in
-    the quantizer's 8-channel latent."""
-    latent = ResidualBackwardQuantizer.channel
+    the quantizer's 8-channel latent. With `denseNorm` the residual blocks'
+    GroupNorms have 32 groups, those of the last two stages one."""
+    latent, g, dn = ResidualBackwardQuantizer.channel, NEON_GROUPS, denseNorm
     return nn.Sequential(
-        conv3x3(3, c), AttentionBlock(c), ResidualBlock(c), ResidualBlock(c),
-        ResidualBlockWithStride(c, 2), ResidualBlock(c), ResidualBlockWithStride(c, 2),
-        ResidualBlock(c), ResidualBlockWithStride(c, 2), AttentionBlock(c),
-        ResidualBlock(c, 2 * c), ResidualBlock(2 * c), ResidualBlock(2 * c), ResidualBlock(2 * c),
-        ResidualBlock(2 * c, latent), AttentionBlock(latent))
+        conv3x3(3, c), AttentionBlock(c, g, dn), ResidualBlock(c, c, g, dn),
+        ResidualBlock(c, c, g, dn), ResidualBlockWithStride(c, 2), ResidualBlock(c, c, g, dn),
+        ResidualBlockWithStride(c, 2), ResidualBlock(c, c, g, dn), ResidualBlockWithStride(c, 2),
+        AttentionBlock(c, g, dn), ResidualBlock(c, 2 * c, g, dn), ResidualBlock(2 * c, 2 * c, g, dn),
+        ResidualBlock(2 * c, 2 * c, g, dn), ResidualBlock(2 * c, 2 * c, g, dn),
+        ResidualBlock(2 * c, latent, 1, dn), AttentionBlock(latent, 1, dn))
 
 
-def _neonDecoder(c: int) -> nn.Sequential:
+def _neonDecoder(c: int, denseNorm: bool = False) -> nn.Sequential:
     """17 stages (compressor.py:208-228), three pixel-shuffle upsamples, then
-    conv3x3 to RGB."""
-    latent = ResidualBackwardQuantizer.channel
+    conv3x3 to RGB; GroupNorms as in the encoder, one group in the first two
+    stages."""
+    latent, g, dn = ResidualBackwardQuantizer.channel, NEON_GROUPS, denseNorm
     return nn.Sequential(
-        AttentionBlock(latent), ResidualBlock(latent, 2 * c), ResidualBlock(2 * c),
-        ResidualBlock(2 * c), ResidualBlock(2 * c), ResidualBlock(2 * c, c), AttentionBlock(c),
-        ResidualBlock(c), ResidualBlockShuffle(c, 2), ResidualBlock(c), ResidualBlockShuffle(c, 2),
-        ResidualBlock(c), ResidualBlockShuffle(c, 2), ResidualBlock(c), ResidualBlock(c),
-        AttentionBlock(c), conv3x3(c, 3))
+        AttentionBlock(latent, 1, dn), ResidualBlock(latent, 2 * c, 1, dn),
+        ResidualBlock(2 * c, 2 * c, g, dn), ResidualBlock(2 * c, 2 * c, g, dn),
+        ResidualBlock(2 * c, 2 * c, g, dn), ResidualBlock(2 * c, c, g, dn), AttentionBlock(c, g, dn),
+        ResidualBlock(c, c, g, dn), ResidualBlockShuffle(c, 2), ResidualBlock(c, c, g, dn),
+        ResidualBlockShuffle(c, 2), ResidualBlock(c, c, g, dn), ResidualBlockShuffle(c, 2),
+        ResidualBlock(c, c, g, dn), ResidualBlock(c, c, g, dn), AttentionBlock(c, g, dn),
+        conv3x3(c, 3))
 
 
 class Neon(nn.Module):
     """v2 tokenizer: channel, one shared codebook of k codewords, per-level
-    latent grids `size` (large -> small)."""
+    latent grids `size` (large -> small); `denseNorm` puts a GroupNorm in
+    every residual block of the encoder, the decoder and the quantizer
+    (with 32 groups in the encoder's and decoder's wide stages, so the
+    channel must be a multiple of 32 there, as flax requires)."""
 
-    def __init__(self, channel: int, k: int, size: Sequence[int], useRemat: bool = True):
+    def __init__(self, channel: int, k: int, size: Sequence[int], useRemat: bool = True,
+                 denseNorm: bool = False):
         super().__init__()
         self.channel = channel
         self.k = k
         self.size = list(size)
         self.useRemat = useRemat
-        self._encoder = _neonEncoder(channel)
-        self._decoder = _neonDecoder(channel)
-        self._quantizer = ResidualBackwardQuantizer(k, self.size)
+        self.denseNorm = denseNorm
+        self._encoder = _neonEncoder(channel, denseNorm)
+        self._decoder = _neonDecoder(channel, denseNorm)
+        self._quantizer = ResidualBackwardQuantizer(k, self.size, denseNorm)
 
     def encode(self, x: torch.Tensor) -> List[torch.Tensor]:
         """x [n, 3, H, W] in [-1, 1] -> codes small -> large, each [n, 1, h, w]."""
@@ -178,6 +190,8 @@ def seededModel(geometry: dict, seed: int = 0) -> nn.Module:
             return rng.normal(size=shape) * np.sqrt(2 / (5 * shape[-1]))
         if key.endswith("._temperature") or key.endswith("beta"):
             return 1 + rng.uniform(0, 0.1, size=shape)
+        if key.endswith("weight") and len(shape) == 1:          # a GroupNorm's scale
+            return 1 + rng.uniform(-0.1, 0.1, size=shape)
         if "._freqEMA." in key:
             freq = rng.uniform(0.5, 1.5, size=shape)
             return freq / freq.sum(-1, keepdims=True)
@@ -243,6 +257,8 @@ def initialize(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif key.endswith("gamma"):
             value = torch.sqrt(torch.clamp_min(0.1 * torch.eye(shape[0], dtype=p.dtype,
                                                                device=p.device) + eps2, eps2))
+        elif key.endswith("weight") and len(shape) == 1:        # a GroupNorm's scale
+            value = torch.ones_like(p)
         elif key.endswith("weight"):
             bound = 1 / math.sqrt(int(np.prod(shape[1:])))
             value = (torch.rand(shape, generator=generator, device=p.device, dtype=p.dtype)

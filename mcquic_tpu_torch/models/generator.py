@@ -11,8 +11,11 @@ Ported: `RMSNorm`, `SwiGLU`, `AnyResAttention`, `AnyResBlock`,
 `AnyResTransformer`, `blockCausalMask` and `GeneratorV3SelfAttention` with
 `generate` (KV-cached or not), `residual_forward`, the sequence assembly and
 the teacher-forced training pass (`forward`, `generator.py:395-452`);
-`useAda=False` is the NoAda ablation. Text conditioning and GroupNorm
-(`denseNorm`) are not ported.
+`useAda=False` is the NoAda ablation; `denseNorm` builds the tokenizer with
+its GroupNorm blocks. With `textConditioned` (`generator.py:294-316`) the
+condition is a precomputed caption embedding [n, capDim], projected by
+`capProj` (a Linear to the hidden size) where the class table would be
+read; the caption encoder itself (CLIP) runs outside the model.
 
 Self-attention in sampling goes through `ops/attention_cuda.py::flashAttention`:
 kernel K3 on CUDA, its plain version on the CPU. The KV-cached branch calls
@@ -30,7 +33,7 @@ KV-cached path rounds scaffold tokens to fp32, whatever the model's dtype.
 Every LayerNorm has flax's epsilon, 1e-6.
 """
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -234,12 +237,15 @@ def topKFilter(logits: torch.Tensor, topK: int) -> torch.Tensor:
 class GeneratorV3SelfAttention(nn.Module):
     """Class-conditional next-scale generator over a frozen Neon
     (generator.py:282-529). `size` lists Neon's latent grids large -> small;
-    a class id of -1 (or numClasses) picks the null embedding."""
+    a class id of -1 (or numClasses) picks the null embedding. With
+    `textConditioned` the condition is a float caption embedding [n,
+    capDim] instead of class ids."""
 
     def __init__(self, channel: int, k: int, size: Sequence[int], qk_norm: bool = True,
                  norm_eps: float = 1e-5, hiddenSize: int = 1536, depth: int = 24,
                  nHeads: int = 16, numClasses: int = IMAGENET_CLASSES, useAda: bool = True,
-                 remat: bool = False):
+                 remat: bool = False, denseNorm: bool = False, textConditioned: bool = False,
+                 capDim: int = 512):
         super().__init__()
         self.k = k
         self.remat = remat
@@ -248,8 +254,13 @@ class GeneratorV3SelfAttention(nn.Module):
         self.depth = depth
         self.nHeads = nHeads
         self.numClasses = numClasses
-        self.compressor = Neon(channel, k, self.size, useRemat=False)
-        self.classEmbed = nn.Parameter(torch.zeros(numClasses + 1, hs))
+        self.textConditioned = textConditioned
+        self.capDim = capDim
+        self.compressor = Neon(channel, k, self.size, useRemat=False, denseNorm=denseNorm)
+        if textConditioned:
+            self.capProj = nn.Linear(capDim, hs)
+        else:
+            self.classEmbed = nn.Parameter(torch.zeros(numClasses + 1, hs))
         self.scaffoldCodebook = nn.Parameter(torch.zeros(1, k, hs))
         # Construction order (large -> small), as in Neon. Level 0 (the
         # largest) would only turn the last codes into features no level
@@ -317,7 +328,11 @@ class GeneratorV3SelfAttention(nn.Module):
         return torch.cat([p.expand(bs, *p.shape[1:]) for p in parts], 1)
 
     def _condEmbed(self, condition: torch.Tensor) -> torch.Tensor:
-        """Class ids [bs] -> pooled condition [bs, hidden]; -1 is the null class."""
+        """Class ids [bs] -> pooled condition [bs, hidden]; -1 is the null
+        class. A text-conditioned model projects caption embeddings [bs,
+        capDim] instead (`generator.py:385-391`)."""
+        if self.textConditioned:
+            return self.capProj(condition.to(self.dtype))
         idx = torch.where(condition < 0, torch.full_like(condition, self.numClasses), condition)
         return self.classEmbed[idx.long()]
 
@@ -375,23 +390,27 @@ class GeneratorV3SelfAttention(nn.Module):
         return predictions, loss, codes, restored, perLevel
 
     def generate(self, condition: torch.Tensor, generator: Optional[torch.Generator] = None,
-                 temperature: float = 1.0, topK: int = 0,
-                 kvCache: bool = True) -> Tuple[List[torch.Tensor], torch.Tensor]:
+                 temperature: float = 1.0, topK: int = 0, kvCache: bool = True,
+                 gumbel: Optional[Callable] = None) -> Tuple[List[torch.Tensor], torch.Tensor]:
         """Next-scale sampling (generator.py:454-529): `sampleCodes`, then
         Neon's decode. Returns (codes small -> large, each [bs, 1, h, w]
         int32; the restored image [bs, 3, H, W] in [-1, 1])."""
-        codes = self.sampleCodes(condition, generator, temperature, topK, kvCache)
+        codes = self.sampleCodes(condition, generator, temperature, topK, kvCache, gumbel)
         return codes, self.compressor.decode(codes)
 
     def sampleCodes(self, condition: torch.Tensor, generator: Optional[torch.Generator] = None,
-                    temperature: float = 1.0, topK: int = 0,
-                    kvCache: bool = True) -> List[torch.Tensor]:
+                    temperature: float = 1.0, topK: int = 0, kvCache: bool = True,
+                    gumbel: Optional[Callable] = None) -> List[torch.Tensor]:
         """The codes of every level, small -> large, each [bs, 1, h, w] int32.
-        With no `generator`, decoding is greedy (argmax); with one, each level
-        is drawn from softmax(logits / temperature), cut to the topK largest
-        when topK > 0. `kvCache=True` runs each level's tokens only, with the
-        keys and values of earlier levels cached; `kvCache=False` reruns the
-        whole prefix under the block-causal mask (the equivalence oracle)."""
+        With no `generator` and no `gumbel`, decoding is greedy (argmax);
+        with a generator, each level is drawn from softmax(logits /
+        temperature), cut to the topK largest when topK > 0; with `gumbel`
+        (shape -> Gumbel noise), each level is argmax of those filtered
+        logits plus the noise, which is `jax.random.categorical` when both
+        are handed the same noise. `kvCache=True` runs each level's tokens
+        only, with the keys and values of earlier levels cached;
+        `kvCache=False` reruns the whole prefix under the block-causal mask
+        (the equivalence oracle)."""
         bs = condition.shape[0]
         capPooled = self._condEmbed(condition)
         hd = self.hiddenSize // self.nHeads
@@ -419,14 +438,17 @@ class GeneratorV3SelfAttention(nn.Module):
                 logits = self.transformer(seq, self._mask[:prefix, :prefix], capPooled,
                                           capPooled)
                 levelLogits = logits[:, prefix - hw:]
-            if generator is None:
+            if generator is None and gumbel is None:
                 token = levelLogits.argmax(-1)
             else:
                 scaled = levelLogits / max(temperature, 1e-6)
                 if topK > 0:
                     scaled = topKFilter(scaled, topK)
-                probs = torch.softmax(scaled, -1).reshape(bs * hw, -1)
-                token = torch.multinomial(probs, 1, generator=generator)
+                if gumbel is not None:
+                    token = (scaled + gumbel(tuple(scaled.shape)).to(scaled)).argmax(-1)
+                else:
+                    probs = torch.softmax(scaled, -1).reshape(bs * hw, -1)
+                    token = torch.multinomial(probs, 1, generator=generator)
             side = math.isqrt(hw)
             code = token.reshape(bs, 1, side, side).to(torch.int32)
             predictions.append(code)

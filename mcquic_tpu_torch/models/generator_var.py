@@ -149,7 +149,8 @@ class GeneratorVAR(nn.Module):
 
     def __init__(self, channel: int, k: int, size: Sequence[int], depth: int = 24,
                  embedDim: int = 1536, nHeads: int = 16, numClasses: int = IMAGENET_CLASSES,
-                 condDropRate: float = 0.1, normEps: float = NORM_EPS, attnL2Norm: bool = True):
+                 condDropRate: float = 0.1, normEps: float = NORM_EPS, attnL2Norm: bool = True,
+                 denseNorm: bool = False):
         super().__init__()
         self.k = k
         self.size = list(size)
@@ -160,7 +161,7 @@ class GeneratorVAR(nn.Module):
         self.condDropRate = condDropRate
         self.normEps = normEps
         self.attnL2Norm = attnL2Norm
-        self.compressor = Neon(channel, k, self.size, useRemat=False)
+        self.compressor = Neon(channel, k, self.size, useRemat=False, denseNorm=denseNorm)
         self.patchNums = sorted(self.size)
         self.lengths = [pn * pn for pn in self.patchNums]
         self.L = sum(self.lengths)

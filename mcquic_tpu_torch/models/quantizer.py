@@ -188,22 +188,24 @@ class UMGMQuantizer(nn.Module):
 # --------------------------------------------------------------------- v2
 
 
-def _sequentialEnc(ch: int, halving: bool) -> nn.Sequential:
+def _sequentialEnc(ch: int, halving: bool, denseNorm: bool = False) -> nn.Sequential:
     """A level's encoder stack (`quantizer.py:317-341`): ResB(ch->4ch), Attn,
     ResBStride/2 or ResB, conv1x1(4ch->ch) without bias."""
-    wide = 4 * ch
-    return nn.Sequential(ResidualBlock(ch, wide), AttentionBlock(wide),
-                         ResidualBlockWithStride(wide, 2) if halving else ResidualBlock(wide),
+    wide, dn = 4 * ch, denseNorm
+    return nn.Sequential(ResidualBlock(ch, wide, 1, dn), AttentionBlock(wide, 1, dn),
+                         ResidualBlockWithStride(wide, 2) if halving
+                         else ResidualBlock(wide, wide, 1, dn),
                          conv1x1(wide, ch, bias=False))
 
 
-def _sequentialUp(ch: int, upsample: bool) -> nn.Sequential:
+def _sequentialUp(ch: int, upsample: bool, denseNorm: bool = False) -> nn.Sequential:
     """A level's backward or decoder stack (`quantizer.py:344-367`):
     conv1x1(ch->4ch) without bias, ResBShuffle*2 or ResB, Attn, ResB(4ch->ch)."""
-    wide = 4 * ch
+    wide, dn = 4 * ch, denseNorm
     return nn.Sequential(conv1x1(ch, wide, bias=False),
-                         ResidualBlockShuffle(wide, 2) if upsample else ResidualBlock(wide),
-                         AttentionBlock(wide), ResidualBlock(wide, ch))
+                         ResidualBlockShuffle(wide, 2) if upsample
+                         else ResidualBlock(wide, wide, 1, dn),
+                         AttentionBlock(wide, 1, dn), ResidualBlock(wide, ch, 1, dn))
 
 
 class _LevelQuantizer(nn.Module):
@@ -243,7 +245,7 @@ class ResidualBackwardQuantizer(nn.Module):
     channel = 8
     EMA = 0.998                      # `quantizer.py:193`; the v1 cascade's is 0.9
 
-    def __init__(self, k: int, size: Sequence[int]):
+    def __init__(self, k: int, size: Sequence[int], denseNorm: bool = False):
         super().__init__()
         self.k = k
         self.size = list(size)
@@ -259,9 +261,10 @@ class ResidualBackwardQuantizer(nn.Module):
             if thisSize not in (lastSize, lastSize // 2):
                 raise ValueError("The given size sequence does not half or equal from left to right.")
             halving = thisSize == lastSize // 2
-            encoders.append(_sequentialEnc(ch, halving))
-            backwards.append(_sequentialUp(ch, halving) if i < L - 1 else nn.Identity())
-            decoders.append(_sequentialUp(ch, halving))
+            encoders.append(_sequentialEnc(ch, halving, denseNorm))
+            backwards.append(_sequentialUp(ch, halving, denseNorm) if i < L - 1
+                             else nn.Identity())
+            decoders.append(_sequentialUp(ch, halving, denseNorm))
             lastSize = thisSize
         self._encoders = nn.ModuleList(encoders)
         self._backwards = nn.ModuleList(backwards)

@@ -66,6 +66,12 @@ class TiledFile:
         total = sum(len(b) for levels in self.binaries for b in levels)
         return total * 8 / (self.height * self.width)
 
+    def __str__(self) -> str:
+        total = sum(len(b) for levels in self.binaries for b in levels)
+        return (f"Tiled {self.height}x{self.width} as {self.rows}x{self.cols} "
+                f"of {self.tile}px (qp {self.qp})\n"
+                f"Size  : {total} B\nBPP   : {self.BPP:.4f}")
+
 
 def toTiles(img: np.ndarray, tile: int) -> Tuple[np.ndarray, int, int]:
     """uint8 HWC -> ([rows*cols, tile, tile, 3] row-major, rows, cols); the

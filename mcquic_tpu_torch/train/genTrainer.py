@@ -66,8 +66,8 @@ from mcquic_tpu_torch.train.saver import OptaxLayout, Saver, restoreGenerator
 from mcquic_tpu_torch.train.state import averageOverRanks, globalNorm
 from mcquic_tpu_torch.utils import exactFp32, resolveDevice
 from mcquic_tpu_torch.utils.convert import (_applyMap, convertReference, generatorMapOf,
-                                            halvingOf, loadTorchStateDict, modelGeometry, neonMap,
-                                            readExport, toJaxGeneratorParams)
+                                            halvingOf, loadTorchStateDict, modelGeometry,
+                                            neonMapOf, readExport, toJaxGeneratorParams)
 
 logger = logging.getLogger("mcquic_tpu_torch.train.gen")
 
@@ -105,14 +105,19 @@ def makeGenTrainStep(model, optimizer, clipNorm: float = 2.0):
 
 
 def checkGenerator(key: str, params: dict):
-    """Refuses what the port cannot train: a key other than the three
-    generators, text conditioning, GroupNorm."""
+    """Refuses a key other than the three generators, and a text-conditioned
+    generator: the JAX package's trainer feeds it the loaders' class ids,
+    which its caption projection cannot take (`capProj` is [capDim,
+    hidden]; flax raises ScopeParamShapeError), and neither package's
+    loaders read captions, so no trainer of either package steps one."""
     if key not in STAGE2_MODELS:
         raise NotImplementedError(f"generator `{key}` does not train in this package (ported: "
                                   f"{sorted(STAGE2_MODELS)})")
-    for name in ("textConditioned", "denseNorm"):
-        if params.get(name):
-            raise NotImplementedError(f"{key} with {name}=True is not ported")
+    if params.get("textConditioned"):
+        raise ValueError(f"{key} with textConditioned=True takes [n, capDim] caption "
+                         "embeddings; `train -G` feeds class ids from class folders or "
+                         "wnid-keyed shards and reads no captions (the JAX package's "
+                         "GenTrainer cannot step such a model either)")
 
 
 def constructGenerator(key: str, params: dict):
@@ -256,6 +261,8 @@ class GenTrainer:
             self._geometry = {"halving": halvingOf(model.size), "depth": model.depth,
                               "useAda": model.transformer.useAda,
                               "qkNorm": model.transformer.blocks[0].attention.qkNorm}
+        if model.compressor.denseNorm:
+            self._geometry["denseNorm"] = True
         self._layout = OptaxLayout(generatorMapOf(self._geometry), self._names)
 
         optimCfg = train.scaledOptim(self._world)
@@ -287,8 +294,8 @@ class GenTrainer:
         """The frozen tokenizer's weights from a stage-1 checkpoint or export,
         or a reference torch checkpoint of the geometry in `modelParams`."""
         flat = loadCompressorParams(path, modelParams)
-        model.compressor.load_state_dict(_applyMap(neonMap(halvingOf(model.size)), flat),
-                                         strict=True)
+        geometry = {"size": model.size, "denseNorm": model.compressor.denseNorm}
+        model.compressor.load_state_dict(_applyMap(neonMapOf(geometry), flat), strict=True)
         logger.info("loaded the frozen compressor from %s", path)
 
     @property

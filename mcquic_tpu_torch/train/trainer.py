@@ -76,8 +76,8 @@ from mcquic_tpu_torch.train.saver import OptaxLayout, Saver, restoreGenerator, s
 from mcquic_tpu_torch.train.state import (codeUsage, makeTrainStep, reassignShapes,
                                           refreshCodebooks, trainableParameters)
 from mcquic_tpu_torch.utils import exactFp32, resolveDevice
-from mcquic_tpu_torch.utils.convert import (compressorMap, halvingOf, modelGeometry, neonMap,
-                                            stateDictOf, toJaxParams)
+from mcquic_tpu_torch.utils.convert import (compressorMap, modelGeometry, neonMapOf, stateDictOf,
+                                            toJaxParams)
 
 logger = logging.getLogger("mcquic_tpu_torch.train")
 
@@ -98,13 +98,16 @@ def resolveStage1Model(config: Config):
 def modelMap(geometry: dict):
     """The stage-1 model's name map: Neon's or the v1 Compressor's."""
     if "size" in geometry:
-        return neonMap(halvingOf(geometry["size"]))
+        return neonMapOf(geometry)
     return compressorMap(len(geometry["k"]))
 
 
 def geometryOf(model) -> dict:
     if isinstance(model, Neon):
-        return {"channel": model.channel, "k": model.k, "size": list(model.size)}
+        geometry = {"channel": model.channel, "k": model.k, "size": list(model.size)}
+        if model.denseNorm:
+            geometry["denseNorm"] = True
+        return geometry
     return {"channel": model.channel, "m": model.m, "k": list(model.k)}
 
 

@@ -107,8 +107,11 @@ class _Map:
         self.add(f"{torchPrefix}.beta", (*flaxPrefix, "beta"))
         self.add(f"{torchPrefix}.gamma", (*flaxPrefix, "gamma"), _gamma)
 
-    def residualBlock(self, t: str, f: Tuple[str, ...], skip: bool = False):
+    def residualBlock(self, t: str, f: Tuple[str, ...], skip: bool = False,
+                      denseNorm: bool = False):
         self.conv(f"{t}._branch.1", (*f, "Conv_0"))
+        if denseNorm:                   # the GroupNorm in the middle SiLU's place
+            self.layerNorm(f"{t}._branch.2", (*f, "GroupNorm_0"))
         self.conv(f"{t}._branch.3", (*f, "Conv_1"))
         if skip:                        # conv1x1 where the block changes width
             self.conv(f"{t}._skip", (*f, "Conv_2"))
@@ -125,11 +128,13 @@ class _Map:
         self.conv(f"{t}._branch.3", (*f, "Conv_0"))
         self.conv(f"{t}._skip.0", (*f, "PixelShuffleConv_1"))
 
-    def attentionBlock(self, t: str, f: Tuple[str, ...]):
+    def attentionBlock(self, t: str, f: Tuple[str, ...], denseNorm: bool = False):
         for j in range(3):
-            self.residualBlock(f"{t}._mainBranch.{j}", (*f, f"ResidualBlock_{j}"))
+            self.residualBlock(f"{t}._mainBranch.{j}", (*f, f"ResidualBlock_{j}"),
+                               denseNorm=denseNorm)
         for j in range(3):
-            self.residualBlock(f"{t}._sideBranch.{j}", (*f, f"ResidualBlock_{3 + j}"))
+            self.residualBlock(f"{t}._sideBranch.{j}", (*f, f"ResidualBlock_{3 + j}"),
+                               denseNorm=denseNorm)
         self.conv(f"{t}._sideBranch.3", (*f, "Conv_0"))
 
 
@@ -196,26 +201,28 @@ def fromJaxParams(flat: Dict[str, np.ndarray], levels: int = None) -> Dict[str, 
 
 
 def neonMap(halving: Sequence[bool], t: str = "", f: Tuple[str, ...] = ("params",),
-            coder: Tuple[str, ...] = ("coder",)) -> _Map:
+            coder: Tuple[str, ...] = ("coder",), denseNorm: bool = False) -> _Map:
     """The `Neon` tokenizer's name map (the inverse of the JAX package's
     `buildNeonMap` plus the stacked temperature and freqEMA of its
     `convertNeon`). `halving[i]` says whether construction level i (large ->
-    small) halves its grid. Torch keys get prefix `t`, flax paths `f` and
-    `coder`."""
+    small) halves its grid; with `denseNorm` every residual block's
+    `GroupNorm_0/scale,bias` is its `_branch.2.weight,bias`. Torch keys get
+    prefix `t`, flax paths `f` and `coder`."""
     mp = _Map()
+    dn = denseNorm
     e = (*f, "_encoder")
     mp.conv(f"{t}_encoder.0", (*e, "Conv_0"))
     for fi, ti in enumerate([1, 9, 15]):
-        mp.attentionBlock(f"{t}_encoder.{ti}", (*e, f"AttentionBlock_{fi}"))
+        mp.attentionBlock(f"{t}_encoder.{ti}", (*e, f"AttentionBlock_{fi}"), dn)
     for fi, ti in enumerate([2, 3, 5, 7, 10, 11, 12, 13, 14]):
-        mp.residualBlock(f"{t}_encoder.{ti}", (*e, f"ResidualBlock_{fi}"), skip=ti in (10, 14))
+        mp.residualBlock(f"{t}_encoder.{ti}", (*e, f"ResidualBlock_{fi}"), ti in (10, 14), dn)
     for fi, ti in enumerate([4, 6, 8]):
         mp.residualBlockStride(f"{t}_encoder.{ti}", (*e, f"ResidualBlockWithStride_{fi}"))
     d = (*f, "_decoder")
     for fi, ti in enumerate([0, 6, 15]):
-        mp.attentionBlock(f"{t}_decoder.{ti}", (*d, f"AttentionBlock_{fi}"))
+        mp.attentionBlock(f"{t}_decoder.{ti}", (*d, f"AttentionBlock_{fi}"), dn)
     for fi, ti in enumerate([1, 2, 3, 4, 5, 7, 9, 11, 13, 14]):
-        mp.residualBlock(f"{t}_decoder.{ti}", (*d, f"ResidualBlock_{fi}"), skip=ti in (1, 5))
+        mp.residualBlock(f"{t}_decoder.{ti}", (*d, f"ResidualBlock_{fi}"), ti in (1, 5), dn)
     for fi, ti in enumerate([8, 10, 12]):
         mp.residualBlockShuffle(f"{t}_decoder.{ti}", (*d, f"ResidualBlockShuffle_{fi}"))
     mp.conv(f"{t}_decoder.16", (*d, "Conv_0"))
@@ -233,24 +240,29 @@ def neonMap(halving: Sequence[bool], t: str = "", f: Tuple[str, ...] = ("params"
         if halves:
             mp.residualBlockShuffle(f"{torchBase}.1", (*flaxBase, "ResidualBlockShuffle_0"))
         else:
-            mp.residualBlock(f"{torchBase}.1", (*flaxBase, "ResidualBlock_0"))
-        mp.attentionBlock(f"{torchBase}.2", (*flaxBase, "AttentionBlock_0"))
+            mp.residualBlock(f"{torchBase}.1", (*flaxBase, "ResidualBlock_0"), denseNorm=dn)
+        mp.attentionBlock(f"{torchBase}.2", (*flaxBase, "AttentionBlock_0"), dn)
         mp.residualBlock(f"{torchBase}.3", (*flaxBase, f"ResidualBlock_{0 if halves else 1}"),
-                         skip=True)
+                         True, dn)
 
     for i, halves in enumerate(halving):
         enc, te = (*q, f"_encoders_{i}"), f"{tq}._encoders.{i}"
-        mp.residualBlock(f"{te}.0", (*enc, "ResidualBlock_0"), skip=True)
-        mp.attentionBlock(f"{te}.1", (*enc, "AttentionBlock_0"))
+        mp.residualBlock(f"{te}.0", (*enc, "ResidualBlock_0"), True, dn)
+        mp.attentionBlock(f"{te}.1", (*enc, "AttentionBlock_0"), dn)
         if halves:
             mp.residualBlockStride(f"{te}.2", (*enc, "ResidualBlockWithStride_0"))
         else:
-            mp.residualBlock(f"{te}.2", (*enc, "ResidualBlock_1"))
+            mp.residualBlock(f"{te}.2", (*enc, "ResidualBlock_1"), denseNorm=dn)
         mp.conv(f"{te}.3", (*enc, "Conv_0"), bias=False)
         if i < L - 1:
             upStack(f"{tq}._backwards.{i}", (*q, f"_backwards_{i}"), halves)
         upStack(f"{tq}._decoders.{i}", (*q, f"_decoders_{i}"), halves)
     return mp
+
+
+def neonMapOf(geometry: dict) -> _Map:
+    """The name map of a Neon geometry (`modelGeometry`'s form)."""
+    return neonMap(halvingOf(geometry["size"]), denseNorm=geometry.get("denseNorm", False))
 
 
 def halvingOf(size: Sequence[int]) -> List[bool]:
@@ -266,14 +278,21 @@ RMS_NORMS = ("attentionNorm", "attentionNorm1", "ffnNorm", "ffnNorm1", "attentio
 
 
 def generatorMap(halving: Sequence[bool], depth: int, useAda: bool = True,
-                 qkNorm: bool = True) -> _Map:
+                 qkNorm: bool = True, denseNorm: bool = False,
+                 textConditioned: bool = False) -> _Map:
     """`GeneratorV3SelfAttention` (and its NoAda variant): the flax tree with
     the frozen Neon under `compressor`. The generator's own scaffold decoder
-    at construction level 0 (the largest) never runs and has no weights."""
+    at construction level 0 (the largest) never runs and has no weights. A
+    text-conditioned generator has the caption projection `capProj` in the
+    class table's place."""
     mp = neonMap(halving, t="compressor.", f=("params", "compressor"),
-                 coder=("coder", "compressor"))
+                 coder=("coder", "compressor"), denseNorm=denseNorm)
     p = ("params",)
-    for name in ("classEmbed", "scaffoldCodebook", "firstLevelPosEmbed", "levelEmbed"):
+    if textConditioned:
+        mp.dense("capProj", (*p, "capProj"))
+    else:
+        mp.add("classEmbed", (*p, "classEmbed"))
+    for name in ("scaffoldCodebook", "firstLevelPosEmbed", "levelEmbed"):
         mp.add(name, (*p, name))
     mp.layerNorm("capToFirstNorm", (*p, "capToFirstNorm"))
     mp.dense("capToFirst", (*p, "capToFirst"))
@@ -309,12 +328,13 @@ def generatorMap(halving: Sequence[bool], depth: int, useAda: bool = True,
     return mp
 
 
-def varMap(halving: Sequence[bool], depth: int, attnL2Norm: bool = True) -> _Map:
+def varMap(halving: Sequence[bool], depth: int, attnL2Norm: bool = True,
+           denseNorm: bool = False) -> _Map:
     """`GeneratorVAR` (`mcquic_tpu/models/generator_var.py`): the flax tree
     with the frozen Neon under `compressor`, the blocks as `blocks_{i}`; its
     LayerNorms have no parameters."""
     mp = neonMap(halving, t="compressor.", f=("params", "compressor"),
-                 coder=("coder", "compressor"))
+                 coder=("coder", "compressor"), denseNorm=denseNorm)
     p = ("params",)
     mp.dense("wordEmbed", (*p, "wordEmbed"))
     for name in ("classEmb", "posStart", "pos1LC", "lvlEmbed"):
@@ -347,19 +367,25 @@ def _applyMap(mp: _Map, flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 def generatorGeometry(flat: Dict[str, np.ndarray]) -> dict:
     """What the name map needs, read off a generator's flat params: halving
     per level and depth, then adaLN and qk-norm (`GeneratorV3SelfAttention`)
-    or the l2 qk-norm (`GeneratorVAR`, `var` True)."""
+    or the l2 qk-norm (`GeneratorVAR`, `var` True); `denseNorm` and
+    `textConditioned` are present only where set."""
     var = "params/pos1LC" in flat
     L = flat["params/lvlEmbed" if var else "params/levelEmbed"].shape[0]
     enc = "params/compressor/_quantizer/_encoders_{}/ResidualBlockWithStride_0/Conv_0/Conv_0/kernel"
     halving = [enc.format(i) in flat for i in range(L)]
+    flags = {}
+    if "params/compressor/_encoder/ResidualBlock_0/GroupNorm_0/scale" in flat:
+        flags["denseNorm"] = True
     if var:
         blocks = {key.split("/")[1] for key in flat if key.startswith("params/blocks_")}
         return {"var": True, "halving": halving, "depth": len(blocks),
-                "attnL2Norm": "params/blocks_0/attn/scaleLogit" in flat}
+                "attnL2Norm": "params/blocks_0/attn/scaleLogit" in flat, **flags}
+    if "params/capProj/kernel" in flat:
+        flags["textConditioned"] = True
     blocks = {key.split("/")[2] for key in flat if key.startswith("params/transformer/block")}
     return {"halving": halving, "depth": len(blocks),
             "useAda": "params/transformer/finalAdaLN/kernel" in flat,
-            "qkNorm": "params/transformer/block0/attention/qNorm/scale" in flat}
+            "qkNorm": "params/transformer/block0/attention/qNorm/scale" in flat, **flags}
 
 
 def generatorMapOf(geometry: dict) -> _Map:
@@ -392,12 +418,13 @@ def _invertMap(mp: _Map, stateDict: Dict[str, torch.Tensor]) -> Dict[str, np.nda
 
 def toJaxGeneratorParams(stateDict: Dict[str, torch.Tensor], halving: Sequence[bool],
                          depth: int, useAda: bool = True, qkNorm: bool = True,
-                         var: bool = False, attnL2Norm: bool = True) -> Dict[str, np.ndarray]:
+                         var: bool = False, attnL2Norm: bool = True, denseNorm: bool = False,
+                         textConditioned: bool = False) -> Dict[str, np.ndarray]:
     """The inverse of `fromJaxGeneratorParams`: the port's generator state
     dict -> flat flax variables, for writing a checkpoint in the JAX
     package's format (`writeExport`); `var` for a `GeneratorVAR`."""
-    mp = varMap(halving, depth, attnL2Norm) if var else generatorMap(halving, depth, useAda,
-                                                                      qkNorm)
+    mp = (varMap(halving, depth, attnL2Norm, denseNorm) if var
+          else generatorMap(halving, depth, useAda, qkNorm, denseNorm, textConditioned))
     return _invertMap(mp, stateDict)
 
 
@@ -407,7 +434,7 @@ def toJaxParams(stateDict: Dict[str, torch.Tensor], geometry: dict) -> Dict[str,
     package's names (`params/...`, `coder/...`), which its `loadTree` and
     engine read."""
     if "size" in geometry:
-        return _invertMap(neonMap(halvingOf(geometry["size"])), stateDict)
+        return _invertMap(neonMapOf(geometry), stateDict)
     return _invertMap(compressorMap(len(geometry["k"])), stateDict)
 
 
@@ -515,17 +542,17 @@ def modelGeometry(meta: dict) -> dict:
     them: a `size` pyramid means the Neon tokenizer, whatever the key says
     (`{channel, k, size}`, a list-valued k read at its first entry);
     otherwise the v1 Compressor (`{channel, m, k}`, a uniform list-valued m
-    read as its int)."""
+    read as its int). A Neon's `denseNorm` is kept where it is set."""
     model = meta["config"]["model"]
     params = dict(model["params"])
     k = params["k"]
     if "size" in params:
+        geometry = {"channel": int(params["channel"]),
+                    "k": int(k[0] if isinstance(k, (list, tuple)) else k),
+                    "size": [int(s) for s in params["size"]]}
         if params.get("denseNorm"):
-            raise NotImplementedError("Neon with denseNorm (GroupNorm blocks) is not ported "
-                                      "(ROADMAP A10)")
-        return {"channel": int(params["channel"]),
-                "k": int(k[0] if isinstance(k, (list, tuple)) else k),
-                "size": [int(s) for s in params["size"]]}
+            geometry["denseNorm"] = True
+        return geometry
     m = params["m"]
     if isinstance(m, (list, tuple)):
         if len(set(m)) != 1:
@@ -539,7 +566,7 @@ def stateDictOf(flat: Dict[str, np.ndarray], geometry: dict) -> Dict[str, torch.
     """A stage-1 model's flat flax variables -> the port's state dict, by the
     map its geometry (`modelGeometry`) names: Neon's or the v1 Compressor's."""
     if "size" in geometry:
-        return _applyMap(neonMap(halvingOf(geometry["size"])), flat)
+        return _applyMap(neonMapOf(geometry), flat)
     return fromJaxParams(flat, len(geometry["k"]))
 
 

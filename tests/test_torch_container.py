@@ -148,21 +148,41 @@ def test_png_writer_round_trips_through_pil(tmp_path):
         png.encodePng(img[..., :2])
 
 
+def _withHeader(data: bytes, depth: int, colorType: int, interlace: int = 0) -> bytes:
+    width, height = struct.unpack(">II", data[16:24])
+    ihdr = b"IHDR" + struct.pack(">IIBBBBB", width, height, depth, colorType, 0, 0, interlace)
+    return data[:12] + ihdr + struct.pack(">I", zlib.crc32(ihdr)) + data[33:]
+
+
 @pytest.mark.parametrize("mode", ["P", "I;16", "LA"])
 def test_png_rejects_what_it_does_not_read(mode):
-    img = Image.new(mode, (4, 4))
+    """PIL's palette, 16-bit gray and gray-with-alpha files decode as PIL
+    decodes them; the same files with a bit depth the standard does not
+    allow for their color type are refused."""
+    rng = np.random.default_rng(0)
+    img = Image.fromarray(rng.integers(0, 256, (5, 6, 3)).astype(np.uint8)).convert(
+        "L" if mode == "I;16" else mode)
+    if mode == "I;16":
+        img = Image.fromarray((np.asarray(img).astype(np.uint16) * 257).astype(np.uint16))
     buf = io.BytesIO()
     img.save(buf, format="PNG")
-    with pytest.raises(ValueError, match="unsupported PNG"):
-        png.decodePng(buf.getvalue())
+    data = buf.getvalue()
+    np.testing.assert_array_equal(png.decodePng(data),
+                                  np.asarray(Image.open(io.BytesIO(data)).convert("RGB")))
+    colorType = data[25]
+    with pytest.raises(ValueError, match=f"bad PNG header: bit depth 3, color type {colorType}"):
+        png.decodePng(_withHeader(data, 3, colorType))
 
 
 def test_png_rejects_interlaced_and_corrupt_files():
+    """An interlace method other than none and Adam7 is refused, and so is
+    an IHDR declaring Adam7 over rows written without it (the data runs
+    short); a bad CRC and a foreign signature raise."""
     good = png.encodePng(np.zeros((4, 4, 3), np.uint8))
-    ihdr = b"IHDR" + struct.pack(">IIBBBBB", 4, 4, 8, 2, 0, 0, 1)      # Adam7
-    interlaced = good[:12] + ihdr + struct.pack(">I", zlib.crc32(ihdr)) + good[33:]
-    with pytest.raises(ValueError, match="interlace 1"):
-        png.decodePng(interlaced)
+    with pytest.raises(ValueError, match="interlace 2"):
+        png.decodePng(_withHeader(good, 8, 2, 2))
+    with pytest.raises(ValueError, match="truncated"):
+        png.decodePng(_withHeader(good, 8, 2, 1))
     with pytest.raises(ValueError, match="CRC"):
         png.decodePng(good[:40] + bytes([good[40] ^ 1]) + good[41:])
     with pytest.raises(ValueError, match="not a PNG"):

@@ -23,6 +23,8 @@ from mcquic_tpu_torch.utils.convert import readExport
 ROOT = Path(__file__).resolve().parent.parent
 TINY_V1 = dict(channel=8, m=2, k=[16, 8])
 TINY_NEON = dict(channel=8, k=16, size=[16, 8, 4, 2, 2])
+# denseNorm puts 32-group GroupNorms in the Neon's wide stages: channel 32 at least
+DENSE_NEON = dict(channel=32, k=16, size=[2, 1, 1], denseNorm=True)
 SHAPES = ("raw", "trainer", "model")
 
 
@@ -44,7 +46,8 @@ def geometryArgs(geometry: dict) -> list:
     args = ["--channel", str(geometry["channel"]), "--k", ",".join(map(str, np.atleast_1d(
         geometry["k"])))]
     if "size" in geometry:
-        return args + ["--size", ",".join(map(str, geometry["size"]))]
+        return args + ["--size", ",".join(map(str, geometry["size"]))] + (
+            ["--denseNorm"] if geometry.get("denseNorm") else [])
     return args + ["--m", str(geometry["m"])]
 
 
@@ -55,11 +58,14 @@ def jaxConvert(monkeypatch, capsys, argv) -> Path:
     return Path(capsys.readouterr().out.strip().splitlines()[-1])
 
 
-@pytest.mark.parametrize("name,shape", [("v1", s) for s in SHAPES] + [("neon", s) for s in SHAPES])
+@pytest.mark.parametrize("name,shape", [("v1", s) for s in SHAPES] + [("neon", s) for s in SHAPES]
+                         + [("neon denseNorm", "trainer")])
 def test_exports_equal_the_jax_converter(tmp_path, monkeypatch, capsys, name, shape):
     """The port's `main` and the JAX package's write exports with equal
-    arrays, an equal config and the same qp from the same checkpoint."""
-    geometry = TINY_V1 if name == "v1" else TINY_NEON
+    arrays, an equal config and the same qp from the same checkpoint; with
+    `--denseNorm`, every residual block's `_branch.2` GroupNorm lands on the
+    JAX converter's `GroupNorm_0` (`buildNeonMap(..., denseNorm=True)`)."""
+    geometry = {"v1": TINY_V1, "neon": TINY_NEON, "neon denseNorm": DENSE_NEON}[name]
     ckpt = referenceCheckpoint(tmp_path / "ref.ckpt", geometry, shape)
     args = geometryArgs(geometry) + ["--qp", "3"]
     theirs = jaxConvert(monkeypatch, capsys, [str(ckpt), str(tmp_path / "jax" / "out.npz"), *args])

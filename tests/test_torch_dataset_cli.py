@@ -4,9 +4,10 @@
 and with more jobs than images, every shard's tar bytes (compared after
 gzip decompression: the deflate bytes depend on the zlib build) and
 `metadata.json` are equal. The folder holds 512x512 crops of the photo as
-PNG and JPEG, an image under the filter's 512 px, a corrupt JPEG, and a BMP
-the port skips with a warning (the JAX writer reads it; it is too small to
-pass the filter, so both sets agree).
+PNG, JPEG and BMP (the BMP passes into the shards as in the JAX writer, which
+reads it through PIL), an image under the filter's 512 px, a corrupt JPEG,
+and a WebP the port skips with a warning (the JAX writer fails to decode
+this one, so both sets agree).
 
 `tests/golden/torch_jpeg/photo.json` holds what `chip_smoke.py` holds the
 card host to: the digests of PIL's q95 bytes of the photo and of its decode
@@ -43,7 +44,8 @@ def images(tmp_path_factory):
     Image.fromarray(photo[:, 200:712][:, ::-1]).save(folder / "mirrored_photo.jpg", quality=90)
     writePng(folder / "small.png", photo[:300, :600])
     (folder / "broken.jpg").write_bytes(b"\xff\xd8\xff\xe0\x00\x10JFIF")
-    Image.fromarray(photo[:100, :100]).save(folder / "tiny.bmp")
+    Image.fromarray(photo[:, 100:612]).save(folder / "crop_bmp.bmp")
+    (folder / "skipped.webp").write_bytes(b"RIFF")
     return folder
 
 
@@ -63,33 +65,33 @@ def _both(images: Path, tmp: Path, jobs: int, gen: bool):
                          ids=["j1", "j3", "j2 -G", "more jobs than images"])
 def test_shards_equal_the_jax_writers(images, tmp_path, jobs, gen):
     nOurs, nTheirs, ours, theirs = _both(images, tmp_path, jobs, gen)
-    assert nOurs == nTheirs == 5
+    assert nOurs == nTheirs == 6
     a, b = _tars(ours), _tars(theirs)
-    assert list(a) == list(b) == [f"mcquic_DATA_{i:05d}.tar.gz" for i in range(min(jobs, 5))]
+    assert list(a) == list(b) == [f"mcquic_DATA_{i:05d}.tar.gz" for i in range(min(jobs, 6))]
     for name in a:
         assert a[name] == b[name], name
     assert (ours / "metadata.json").read_text() == (theirs / "metadata.json").read_text()
     assert json.loads((ours / "metadata.json").read_text()) == {
-        "count": 5, "shards": min(jobs, 5), "imageText": gen}
+        "count": 6, "shards": min(jobs, 6), "imageText": gen}
     assert not list(ours.glob("split*"))
 
 
 def test_dataset_command_writes_shards_and_names_what_it_skips(images, tmp_path):
     """`python -m mcquic_tpu_torch dataset -j 2 IMAGES OUTPUT` in a
-    subprocess: it prints the count, warns about the BMP by name, and its
+    subprocess: it prints the count, warns about the WebP by name, and its
     members are `{key}.jpg` in key order across the shards."""
     import tarfile
     proc = subprocess.run([sys.executable, "-m", "mcquic_tpu_torch", "dataset", "-j", "2",
                            str(images), str(tmp_path / "out")], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert proc.stdout.strip().splitlines()[-1] == "5"
-    assert "tiny.bmp" in proc.stderr and "skipped" in proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "6"
+    assert "skipped.webp" in proc.stderr and "skipped" in proc.stderr
     names = []
     for shard in sorted((tmp_path / "out").glob("*.tar.gz")):
         with tarfile.open(shard, "r:gz") as tf:
             names += [m.name for m in tf]
-    assert names == [f"{k:09d}.jpg" for k in range(5)]
+    assert names == [f"{k:09d}.jpg" for k in range(6)]
     first = tarfile.open(sorted((tmp_path / "out").glob("*.tar.gz"))[0], "r:gz")
     data = first.extractfile(first.getmember("000000000.jpg")).read()
     assert np.asarray(Image.open(io.BytesIO(data))).shape == (512, 512, 3)

@@ -79,8 +79,9 @@ def test_gen_transform_equals_jax_and_never_flips():
 
 def test_shards_and_jpeg_are_refused(classes, tmp_path):
     """Tar shards and JPEG class folders are read and match the JAX loader
-    (labels equal, crops within one level); BMP and WebP files are refused
-    naming one, and a progressive JPEG raises `UnsupportedJpeg` naming it."""
+    (labels equal, crops within one level), a progressive JPEG and a BMP
+    among them; WebP files are refused naming one, and a progressive JPEG
+    whose scans leave bits unsent raises `UnsupportedJpeg` naming it."""
     import io
     import tarfile
     from PIL import Image
@@ -107,15 +108,26 @@ def test_shards_and_jpeg_are_refused(classes, tmp_path):
             np.testing.assert_array_equal(lblA, lblB)
             assert np.abs(imgA.astype(int) - imgB.astype(int)).max() <= 1
 
+    # a progressive JPEG and a BMP are read, as the JAX loader reads them through PIL
     progressive = io.BytesIO()
     Image.fromarray(img[:200, :200]).save(progressive, format="JPEG", progressive=True)
     (jpeg / WNIDS[1] / "p.JPEG").write_bytes(progressive.getvalue())
-    with pytest.raises(UnsupportedJpeg, match=r"p.JPEG: progressive JPEG \(SOF marker 0xFFC2\)"):
+    Image.fromarray(img[250:460, 100:330]).save(jpeg / WNIDS[1] / "q.bmp")
+    ours = list(imagenet_classes.getGenLoader(jpeg, 2, cropSize=128, seed=1)())
+    theirs = list(jaxClasses.getGenLoader(str(jpeg), 2, cropSize=128, seed=1)())
+    assert len(ours) == len(theirs) == 3
+    for (imgA, lblA), (imgB, lblB) in zip(ours, theirs):
+        np.testing.assert_array_equal(lblA, lblB)
+        assert np.abs(imgA.astype(int) - imgB.astype(int)).max() <= 1
+    # one whose scans leave bits unsent is refused, naming it
+    data = progressive.getvalue()
+    (jpeg / WNIDS[1] / "p.JPEG").write_bytes(data[:data.rindex(b"\xff\xda")] + b"\xff\xd9")
+    with pytest.raises(UnsupportedJpeg, match=r"p.JPEG: incomplete progressive scans"):
         for _ in imagenet_classes.getGenLoader(jpeg, 2, seed=1)():
             pass
     (jpeg / WNIDS[1] / "p.JPEG").unlink()
     (jpeg / WNIDS[0] / "b.webp").write_bytes(b"RIFF")
-    with pytest.raises(ValueError, match=r"1 BMP or WebP images \(e.g. .*b.webp\)"):
+    with pytest.raises(ValueError, match=r"1 WebP images \(e.g. .*b.webp\)"):
         imagenet_classes.getGenLoader(jpeg, 2)
     (tmp_path / "empty").mkdir()
     with pytest.raises(FileNotFoundError):

@@ -16,6 +16,7 @@ from mcquic_tpu.train.saver import saveTree
 from mcquic_tpu_torch.cli import main as cliMain
 from mcquic_tpu_torch.data.png import readPng
 from mcquic_tpu_torch.generate import generatorConfig, loadGenerator, sample
+from mcquic_tpu_torch.models.generator import GeneratorV3SelfAttention
 from mcquic_tpu_torch.utils.convert import fromJaxGeneratorParams
 from test_torch_generator import TINY, portGenerate, portGenerator, seededGeneratorFlat, unflattenTree
 
@@ -100,10 +101,15 @@ def test_config_keys_the_port_lacks_are_refused():
     # GeneratorVAR is ported; like the JAX package's loader, it drops what it does not take
     key, kwargs = generatorConfig({"config": tinyConfig("GeneratorVAR")})
     assert key == "GeneratorVAR" and "hiddenSize" not in kwargs and kwargs["k"] == 16
-    with pytest.raises(NotImplementedError, match="textConditioned"):
-        generatorConfig({"config": tinyConfig(textConditioned=True)})
-    with pytest.raises(NotImplementedError, match="denseNorm"):
-        generatorConfig({"config": tinyConfig(denseNorm=True)})
+    # text conditioning and denseNorm load; class ids for a text-conditioned
+    # model are what stays refused (tests/test_torch_text_generator.py)
+    key, kwargs = generatorConfig({"config": tinyConfig(textConditioned=True, capDim=12)})
+    assert kwargs["textConditioned"] and kwargs["capDim"] == 12
+    model = GeneratorV3SelfAttention(**kwargs)
+    with pytest.raises(ValueError, match="text-conditioned: its condition is a float caption"):
+        sample(model, [1, 2])
+    key, kwargs = generatorConfig({"config": tinyConfig(denseNorm=True, channel=32)})
+    assert kwargs["denseNorm"] and GeneratorV3SelfAttention(**kwargs).compressor.denseNorm
     with pytest.raises(ValueError, match="not taken"):
         generatorConfig({"config": tinyConfig(mystery=1)})
     key, kwargs = generatorConfig({"config": tinyConfig("GeneratorV3SelfAttentionNoAda")})

@@ -13,7 +13,9 @@ Neon (`train`) and of a tiny generator over it (`train -G`), and the
 reads its shards (JPEG decoder, shard loader), the codec compressing one of
 the JPEGs; and the train CLI as two data-parallel processes under
 MCQUIC_COORDINATOR, MCQUIC_NUM_PROCESSES and MCQUIC_PROCESS_ID (gloo on the
-CPU), each reading its own tar shard, one export between them.
+CPU), each reading its own tar shard, one export between them; and the web
+demo's handler and the image decoders (progressive JPEG, BMP, 16-bit PNG)
+through `handleUpload` and the codec CLI.
 """
 import ast
 import subprocess
@@ -29,7 +31,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "mcquic_tpu_torch"
 TINY = ROOT / "assets" / "tiny_demo_672919fb.mcquic.npz"
 BLOCKED = ["jax", "jaxlib", "flax", "optax", "msgpack", "PIL", "ml_dtypes", "yaml", "click",
-           "joblib", "triton", "mcquic_tpu"]
+           "joblib", "triton", "streamlit", "mcquic_tpu"]
 
 GUARD = textwrap.dedent('''
     import importlib, pkgutil, runpy, sys
@@ -215,6 +217,41 @@ def test_dataset_and_shards_run_without_the_jax_package_and_its_dependencies(tmp
     import mcquic_tpu_torch
     names = {m.name for m in pkgutil.walk_packages(mcquic_tpu_torch.__path__, "mcquic_tpu_torch.")}
     assert {"mcquic_tpu_torch.data.jpeg", "mcquic_tpu_torch.data.cli"} <= names
+
+
+def test_service_and_decoders_run_without_the_jax_package_and_its_dependencies(tmp_path):
+    """In the guarded process (streamlit blocked too): a progressive JPEG, a
+    BMP and a 16-bit RGB PNG through the codec CLI, and `handleUpload` on
+    the tiny model for the BMP and its `.mcq`."""
+    from PIL import Image
+    from test_torch_images import pngForm
+    photo = readPng(ROOT / "assets" / "photo_768x512.png")[:64, :96]
+    Image.fromarray(photo).save(tmp_path / "p.jpg", quality=90, progressive=True)
+    Image.fromarray(photo).save(tmp_path / "b.bmp")
+    (tmp_path / "g.png").write_bytes(pngForm(2, 16, shape=(40, 48)))
+    runs = [["--device", "cpu", "--local", str(TINY), str(tmp_path / name),
+             str(tmp_path / (name + ".mcq"))] for name in ("p.jpg", "b.bmp", "g.png")]
+    extra = textwrap.dedent(f"""
+        from pathlib import Path
+        from mcquic_tpu_torch.demo import loadModel
+        from mcquic_tpu_torch.service.stCompressService import handleUpload
+        engine = loadModel(local={str(TINY)!r}, device="cpu")
+        data = Path({str(tmp_path / "b.bmp")!r}).read_bytes()
+        answer = handleUpload(engine, "b.bmp", data)
+        back = handleUpload(engine, answer.fileName, answer.data)
+        assert answer.fileName == "b.mcq" and back.fileName == "b.png", answer.fileName
+        assert back.preview.shape == (64, 96, 3)
+        leaked = sorted(n for n in sys.modules if blocked(n))
+        assert not leaked, leaked
+        print("handler ok", flush=True)
+    """)
+    script = GUARD.format(blocked=BLOCKED, root=str(ROOT), runs=runs) + extra
+    proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "round trip ok" in proc.stdout and "handler ok" in proc.stdout
+    for name in ("p.jpg", "b.bmp", "g.png"):
+        assert (tmp_path / (name + ".mcq")).stat().st_size > 0, name
 
 
 def _portFiles():

@@ -8,9 +8,13 @@ against PIL on libjpeg-turbo, exactly:
     writer (`writeBaseline`), on what PIL does not write: 4:4:0,
     non-interleaved scans, 16-bit quantization tables, SOF1, several tables
     in one DHT segment, component ids 'R', 'G', 'B';
-  * progressive, arithmetic-coded, lossless, 12-bit and CMYK files raise
-    `UnsupportedJpeg` naming the file and the marker; a truncated or corrupt
-    file raises ValueError, and `_decodeImage` returns None for it;
+  * progressive files (SOF2) as PIL writes them: 4:2:0, 4:2:2, 4:4:4, gray,
+    sizes 1x1 to 257x131, restart intervals, optimized tables, q100 and q10;
+  * a progressive file whose scans leave bits unsent (PIL's scan script cut
+    before its last refinement; libjpeg smooths such a file), arithmetic-coded,
+    lossless, 12-bit and CMYK files raise `UnsupportedJpeg` naming the file and
+    the marker; a truncated or corrupt file, baseline or progressive, raises
+    ValueError, and `_decodeImage` returns None for it;
   * the encoder's bytes equal `Image.save(f, "JPEG", quality=95)` (and 75);
   * the card's fixture (`tests/golden/torch_jpeg/`): PIL's decode of every
     committed file hashes to its manifest entry, and so does the port's.
@@ -230,6 +234,20 @@ PIL_CASES += [
     ("optimized Huffman", crop(80, 120), dict(quality=95, optimize=True)),
     ("Adobe RGB", crop(40, 56), dict(quality=95, keep_rgb=True)),
 ]
+PIL_CASES += [(f"progressive {h}x{w} subsampling {s}", crop(h, w),
+               dict(quality=90, subsampling=s, progressive=True))
+              for h, w in ((1, 1), (17, 9), (96, 128), (257, 131)) for s in (0, 1, 2)]
+PIL_CASES += [
+    ("progressive grayscale", crop(75, 61).mean(2).astype(np.uint8),
+     dict(quality=90, progressive=True)),
+    ("progressive restart markers", crop(80, 120),
+     dict(quality=95, progressive=True, restart_marker_blocks=3)),
+    ("progressive restart rows 4:4:4", crop(80, 120),
+     dict(quality=95, progressive=True, restart_marker_rows=1, subsampling=0)),
+    ("progressive optimized q75", crop(80, 120), dict(quality=75, progressive=True, optimize=True)),
+    ("progressive q100", crop(64, 64), dict(quality=100, progressive=True)),
+    ("progressive q10", crop(64, 64), dict(quality=10, progressive=True)),
+]
 
 
 @pytest.mark.parametrize("name,img,kwargs", PIL_CASES, ids=[c[0] for c in PIL_CASES])
@@ -272,8 +290,17 @@ def _sofPrecision(data: bytes, bits: int) -> bytes:
     return data[:pos + 4] + bytes([bits]) + data[pos + 5:]
 
 
+def _lastScanCut(data: bytes) -> bytes:
+    """A progressive file cut before its last scan, which refines the luma
+    AC coefficients from Al 1 to 0 in PIL's script: the file ends at EOI
+    with bits unsent, and libjpeg decodes it with block smoothing."""
+    sos = data.rindex(b"\xff\xda")
+    return data[:sos] + b"\xff\xd9"
+
+
 REFUSED = [
-    ("progressive", lambda: pilSave(crop(32, 32), quality=90, progressive=True), "SOF marker 0xFFC2"),
+    ("progressive", lambda: _lastScanCut(pilSave(crop(32, 32), quality=90, progressive=True)),
+     "incomplete progressive scans: .*ends at Al 1 .*SOF marker 0xFFC2"),
     ("arithmetic", lambda: _withMarker(pilSave(crop(32, 32)), 0xC0, 0xC9), "0xFFC9"),
     ("lossless", lambda: _withMarker(pilSave(crop(32, 32)), 0xC0, 0xC3), "0xFFC3"),
     ("12-bit", lambda: _sofPrecision(pilSave(crop(32, 32)), 12), "12-bit"),
@@ -324,6 +351,41 @@ def test_corrupt_files_never_crash_the_decoder():
     assert outcomes == {"decoded", "raised"}
 
 
+def test_corrupt_progressive_files_never_crash_the_decoder():
+    """The same byte flips and cuts of a progressive file with restart
+    markers; every refinement scan kind and end-of-band run is in it."""
+    data = pilSave(crop(48, 64), quality=95, progressive=True, restart_marker_blocks=2)
+    rng = np.random.default_rng(1)
+    outcomes = set()
+    for _ in range(400):
+        b = bytearray(data)
+        for _ in range(int(rng.integers(1, 6))):
+            b[int(rng.integers(0, len(b)))] = int(rng.integers(0, 256))
+        if rng.random() < 0.3:
+            b = b[:int(rng.integers(0, len(b)))]
+        try:
+            readJpeg(bytes(b))
+            outcomes.add("decoded")
+        except ValueError:
+            outcomes.add("raised")
+    assert outcomes == {"decoded", "raised"}
+
+
+def test_a_progressive_file_cut_before_a_scan_is_refused_whatever_is_missing():
+    """Cut after each of PIL's ten scans but the last: PIL decodes every cut
+    (smoothing what is missing); the port refuses each, naming what is
+    incomplete, and decodes the whole file as PIL does."""
+    data = pilSave(crop(40, 48), quality=90, progressive=True)
+    starts = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+    assert len(starts) == 10
+    for cut in starts[1:]:
+        short = data[:cut] + b"\xff\xd9"
+        assert pilDecode(short).shape == (40, 48, 3)
+        with pytest.raises(UnsupportedJpeg, match="incomplete progressive scans"):
+            readJpeg(short)
+    np.testing.assert_array_equal(readJpeg(data), pilDecode(data))
+
+
 def test_a_header_claiming_a_huge_image_is_refused():
     data = bytearray(pilSave(crop(16, 16)))
     pos = data.index(b"\xff\xc0")
@@ -359,23 +421,21 @@ FIXTURE_FILES = {
     "restart.jpg": (crop(64, 96, 350, 600), dict(quality=95, restart_marker_blocks=3)),
     "optimized.jpg": (crop(56, 72, 150, 420), dict(quality=90, optimize=True)),
     "progressive.jpg": (crop(32, 32, 5, 700), dict(quality=90, progressive=True)),
+    "photo_progressive.jpg": (PHOTO, dict(quality=90, progressive=True)),
 }
 
 
 def writeFixture(folder: Path):
-    """The card's decoder fixture: the files PIL writes and a manifest of
-    the SHA-256 of PIL's decode of each (`unsupported` for the progressive
-    one). Run once to create `tests/golden/torch_jpeg/`."""
+    """The card's decoder fixture: the files PIL writes, the full-size
+    progressive photo among them, and a manifest of the SHA-256 of PIL's
+    decode of each. Run once to create `tests/golden/torch_jpeg/`."""
     folder.mkdir(parents=True, exist_ok=True)
     manifest = {}
     for name, (img, kwargs) in FIXTURE_FILES.items():
         data = pilSave(img, **kwargs)
         (folder / name).write_bytes(data)
         decoded = pilDecode(data)
-        entry = {"shape": list(decoded.shape), "sha256": _sha(decoded), "pil": kwargs}
-        if kwargs.get("progressive"):
-            entry["unsupported"] = True
-        manifest[name] = entry
+        manifest[name] = {"shape": list(decoded.shape), "sha256": _sha(decoded), "pil": kwargs}
     (folder / "manifest.json").write_text(json.dumps(manifest, indent=1, sort_keys=True) + "\n")
 
 
@@ -387,8 +447,4 @@ def test_fixture_manifest_is_pils_decode_and_the_ports():
         data = (FIXTURE / name).read_bytes()
         theirs = pilDecode(data)
         assert list(theirs.shape) == entry["shape"] and _sha(theirs) == entry["sha256"], name
-        if entry.get("unsupported"):
-            with pytest.raises(UnsupportedJpeg, match=name):
-                readJpeg(data, name)
-        else:
-            assert _sha(readJpeg(data, name)) == entry["sha256"], name
+        assert _sha(readJpeg(data, name)) == entry["sha256"], name

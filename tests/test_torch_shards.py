@@ -158,20 +158,25 @@ def test_gen_loader_on_jpeg_class_folders_equals_jax(tmp_path):
 
 def test_tar_shards_skip_what_is_corrupt_and_name_what_is_unsupported(tmp_path):
     """A truncated JPEG, a truncated PNG and a non-image member are skipped, as
-    the JAX package's `TarShards` skips them; a BMP member is skipped with a
-    warning naming it; a palette PNG (valid, which this package does not
-    read) raises `UnsupportedPng` naming the member."""
+    the JAX package's `TarShards` skips them; BMP and palette PNG members
+    are read and equal the JAX `TarShards`' (PIL's); an RLE8 BMP (valid,
+    which this package does not read) raises `UnsupportedImage` naming the
+    member."""
     from mcquic_tpu.data.dataset import TarShards as JaxTarShards
-    from mcquic_tpu_torch.data.png import UnsupportedPng, encodePng
+    from mcquic_tpu_torch.data.dataset import UnsupportedImage
+    from mcquic_tpu_torch.data.png import encodePng
     good = [PHOTO[:120, :160], PHOTO[200:320, 300:460]]
     members = [("0.jpg", _jpeg(good[0])), ("1.jpg", _jpeg(good[1])[:300]),
                ("2.png", encodePng(good[1])), ("3.png", encodePng(good[0])[:2000]),
                ("4.txt", b"caption")]
-    with tarfile.open(tmp_path / "a.tar", "w") as tf:
-        for name, data in members:
-            info = tarfile.TarInfo(name)
-            info.size = len(data)
-            tf.addfile(info, io.BytesIO(data))
+
+    def shard(path, members):
+        with tarfile.open(path, "w") as tf:
+            for name, data in members:
+                info = tarfile.TarInfo(name)
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+    shard(tmp_path / "a.tar", members)
     ours, theirs = list(TarShards(str(tmp_path / "a.tar"))), list(JaxTarShards(str(tmp_path / "a.tar")))
     assert len(ours) == len(theirs) == 2
     for x, y in zip(ours, theirs):
@@ -180,14 +185,20 @@ def test_tar_shards_skip_what_is_corrupt_and_name_what_is_unsupported(tmp_path):
     palette = io.BytesIO()
     Image.fromarray(good[0]).convert("P").save(palette, format="PNG")
     bmp = io.BytesIO()
-    Image.fromarray(good[0]).save(bmp, format="BMP")
-    with tarfile.open(tmp_path / "b.tar", "w") as tf:
-        for name, data in (("5.bmp", bmp.getvalue()), ("6.png", palette.getvalue())):
-            info = tarfile.TarInfo(name)
-            info.size = len(data)
-            tf.addfile(info, io.BytesIO(data))
-    with pytest.raises(UnsupportedPng, match=r"b.tar:6.png: unsupported PNG"):
-        list(TarShards(str(tmp_path / "b.tar")))
+    Image.fromarray(good[1]).save(bmp, format="BMP")
+    shard(tmp_path / "b.tar", (("5.bmp", bmp.getvalue()), ("6.png", palette.getvalue())))
+    ours, theirs = list(TarShards(str(tmp_path / "b.tar"))), list(JaxTarShards(str(tmp_path / "b.tar")))
+    assert len(ours) == len(theirs) == 2
+    for x, y in zip(ours, theirs):
+        np.testing.assert_array_equal(x, y)
+
+    rle = io.BytesIO()
+    Image.fromarray(good[0]).convert("P").save(rle, format="BMP")
+    rle = bytearray(rle.getvalue())
+    rle[30:34] = (1).to_bytes(4, "little")               # BI_RLE8
+    shard(tmp_path / "c.tar", (("7.bmp", bytes(rle)),))
+    with pytest.raises(UnsupportedImage, match=r"c.tar:7.bmp: RLE8-compressed BMP"):
+        list(TarShards(str(tmp_path / "c.tar")))
 
 
 # ------------------------------------------------------------ split by host

@@ -214,8 +214,9 @@ def test_train_cli_refuses_what_the_port_cannot_train(tmp_path, v2):
     Tar shards are read: stage 1 trains 2 steps from a `*.tar.gz` glob of
     `{key}.jpg` members (the JAX writer's layout) and stage 2 (`-G`) from
     wnid-keyed `{wnid}_{n}.jpg` shards over the tiny Neon. A training folder
-    of BMP or WebP images is refused naming one, and a progressive JPEG
-    member stops the run with `UnsupportedJpeg` naming the member."""
+    holding WebP images is refused naming one (its BMP is read); a
+    progressive JPEG member trains, and one whose scans leave bits unsent
+    stops the run with `UnsupportedJpeg` naming the member."""
     import io
     import tarfile
     from PIL import Image
@@ -266,26 +267,35 @@ def test_train_cli_refuses_what_the_port_cannot_train(tmp_path, v2):
 
     (tmp_path / "bmp").mkdir()
     writePng(tmp_path / "bmp" / "a.png", img[:256, :256])
-    (tmp_path / "bmp" / "b.bmp").write_bytes(b"BM")
+    Image.fromarray(np.ascontiguousarray(img[256:, :256])).save(tmp_path / "bmp" / "b.bmp")
     (tmp_path / "bmp" / "c.webp").write_bytes(b"RIFF")
     bmp = tmp_path / "bmp.yaml"
     bmp.write_text(text.replace(f"trainSet: {tmp_path / 'pngs'}", f"trainSet: {tmp_path / 'bmp'}"))
-    with pytest.raises(ValueError, match=r"2 BMP or WebP images \(e.g. .*b.bmp\)"):
+    with pytest.raises(ValueError, match=r"1 WebP images \(e.g. .*c.webp\)"):
         main(bmp, device="cpu")
 
     progressive = io.BytesIO()
     Image.fromarray(np.ascontiguousarray(img[:256, :300])).save(progressive, format="JPEG",
                                                                 progressive=True)
-    with tarfile.open(tmp_path / "shards" / "mcquic_DATA_00002.tar", "w") as tf:
-        info = tarfile.TarInfo("000000009.jpg")
-        info.size = len(progressive.getvalue())
-        tf.addfile(info, io.BytesIO(progressive.getvalue()))
+
+    def member(data):
+        with tarfile.open(tmp_path / "shards" / "mcquic_DATA_00002.tar", "w") as tf:
+            info = tarfile.TarInfo("000000009.jpg")
+            info.size = len(data)
+            tf.addfile(info, io.BytesIO(data))
+    member(progressive.getvalue())
     mixed = tmp_path / "mixed.yaml"
     mixed.write_text(text.replace(f"trainSet: {tmp_path / 'pngs'}",
                                   f"trainSet: {tmp_path / 'shards'}/*.tar*")
                      .replace(f"saveDir: {tmp_path / 'saved'}", f"saveDir: {tmp_path / 'mixed'}"))
-    with pytest.raises(UnsupportedJpeg, match=r"mcquic_DATA_00002.tar:000000009.jpg: progressive"):
-        main(mixed, device="cpu")
+    assert main(mixed, device="cpu").exists()
+    data = progressive.getvalue()
+    member(data[:data.rindex(b"\xff\xda")] + b"\xff\xd9")
+    cut = tmp_path / "cut.yaml"
+    cut.write_text(mixed.read_text().replace(f"saveDir: {tmp_path / 'mixed'}",
+                                             f"saveDir: {tmp_path / 'cut'}"))
+    with pytest.raises(UnsupportedJpeg, match=r"mcquic_DATA_00002.tar:000000009.jpg: incomplete"):
+        main(cut, device="cpu")
 
 
 def test_saver_rotates_locks_and_caps_its_history(tmp_path):

@@ -127,8 +127,17 @@ def test_validation_logs_code_maps_and_restored_as_the_jax_trainer(tmp_path, mon
 
 
 def test_dense_norm_refusal_cites_roadmap_a10():
+    """A10 is done: the geometry keeps denseNorm and builds the GroupNorm
+    Neon. What is still refused is what flax refuses too: a denseNorm Neon
+    whose wide stages cannot take 32 GroupNorm groups (channel 8)."""
+    from mcquic_tpu_torch.models.compressor import buildModel
     from mcquic_tpu_torch.utils.convert import modelGeometry
     meta = {"config": {"model": {"key": "Neon", "params": {
         "channel": 8, "k": 16, "size": [2, 1, 1], "denseNorm": True}}}}
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A10\)"):
-        modelGeometry(meta)
+    geometry = modelGeometry(meta)
+    assert geometry["denseNorm"] is True
+    with pytest.raises(ValueError, match="divisible by num_groups"):
+        buildModel(geometry)
+    geometry["channel"] = 32
+    norms = [m for m in buildModel(geometry).modules() if isinstance(m, torch.nn.GroupNorm)]
+    assert norms and all(m.eps == 1e-6 for m in norms)

@@ -100,10 +100,10 @@ def test_val_loader_matches_jax(valFolder):
 
 
 def test_val_loader_skips_what_it_cannot_decode(tmp_path, caplog):
-    """JPEGs are read as the JAX loader reads them; BMP and WebP files are
+    """JPEGs and BMPs are read as the JAX loader reads them; WebP files are
     skipped with a warning naming each; a corrupt JPEG raises (`Cannot
-    decode`, as the JAX `BasicFolder`), and a progressive one
-    `UnsupportedJpeg` naming it."""
+    decode`, as the JAX `BasicFolder`), and a progressive one whose scans
+    leave bits unsent `UnsupportedJpeg` naming it."""
     import io
     from PIL import Image
     from mcquic_tpu.data import getValLoader as jaxGetValLoader
@@ -112,22 +112,23 @@ def test_val_loader_skips_what_it_cannot_decode(tmp_path, caplog):
     writePng(tmp_path / "a.png", photo[:256, :300])
     Image.fromarray(photo[100:400, 200:520]).save(tmp_path / "b.jpg", quality=92)
     Image.fromarray(photo[200:460, :256]).save(tmp_path / "c.jpeg", quality=95, subsampling=0)
+    Image.fromarray(photo[100:400, 300:600]).save(tmp_path / "d.bmp")
     theirs = list(jaxGetValLoader(str(tmp_path))())
-    (tmp_path / "d.bmp").write_bytes(b"BM")
     (tmp_path / "e.webp").write_bytes(b"RIFF")
     with caplog.at_level("WARNING"):
         got = list(getValLoader(str(tmp_path))())
-    assert [stem for _, stem in got] == [stem for _, stem in theirs] == ["a", "b", "c"]
+    assert [stem for _, stem in got] == [stem for _, stem in theirs] == ["a", "b", "c", "d"]
     for (x, _), (y, _) in zip(got, theirs):
         np.testing.assert_array_equal(x, y)
-    assert "d.bmp is BMP or WebP" in caplog.text and "e.webp is BMP or WebP" in caplog.text
+    assert "e.webp is WebP" in caplog.text and "d.bmp" not in caplog.text
     (tmp_path / "f.jpg").write_bytes(b"\xff\xd8\xff\xe0\x00\x10JFIF")
     with pytest.raises(RuntimeError, match="Cannot decode .*f.jpg"):
         list(getValLoader(str(tmp_path))())
     progressive = io.BytesIO()
     Image.fromarray(photo[:256, :256]).save(progressive, format="JPEG", progressive=True)
-    (tmp_path / "f.jpg").write_bytes(progressive.getvalue())
-    with pytest.raises(UnsupportedJpeg, match="f.jpg: progressive"):
+    data = progressive.getvalue()
+    (tmp_path / "f.jpg").write_bytes(data[:data.rindex(b"\xff\xda")] + b"\xff\xd9")
+    with pytest.raises(UnsupportedJpeg, match="f.jpg: incomplete progressive scans"):
         list(getValLoader(str(tmp_path))())
 
 

@@ -168,10 +168,11 @@ def test_model_geometry_from_sidecar():
     neon = {"config": {"model": {"key": "Compressor",
                                  "params": {"channel": 8, "k": [16], "size": [4, 2, 2]}}}}
     assert convert.modelGeometry(neon) == {"channel": 8, "k": 16, "size": [4, 2, 2]}
+    # denseNorm is kept where it is set (the GroupNorm blocks are ported)
     dense = {"config": {"model": {"key": "Neon", "params": {"channel": 8, "k": 16, "size": [4, 2, 2],
                                                              "denseNorm": True}}}}
-    with pytest.raises(NotImplementedError, match="denseNorm"):
-        convert.modelGeometry(dense)
+    assert convert.modelGeometry(dense) == {"channel": 8, "k": 16, "size": [4, 2, 2],
+                                            "denseNorm": True}
 
 
 def test_models_hash_copy_matches_the_jax_package():

@@ -11,14 +11,18 @@ ends:
   1. environment: torch / CUDA / nvcc versions, the card, its power limit;
   2. build: kernels K1 (csrc/vq_encode.cu), K1b (csrc/vq_grouped.cu), K2
      (csrc/thin_head.cu) and K3 (csrc/flash_attention.cu) with nvcc, the
-     rANS runtime and the JPEG codec (csrc/jpeg.cpp) with g++, all started
-     together; ptxas's registers and spills of every kernel; the host
-     decoders against the fixtures tests/golden/torch_jpeg/ (baseline and
-     progressive JPEG, the full-size progressive photo among them) and
-     tests/golden/torch_images/ (the PNG forms and PIL's BMP forms), by the
-     SHA-256 of PIL's decode of each file, and the codec's decode and encode
-     rates on the host, in megapixels per second, on the photo at q95,
-     beside the progressive decoder's on the progressive photo;
+     rANS runtime, the JPEG codec (csrc/jpeg.cpp) and the WebP decoder
+     (csrc/webp.cpp) with g++, all started together; ptxas's registers and
+     spills of every kernel; the host decoders against the fixtures
+     tests/golden/torch_jpeg/ (baseline, progressive, smoothed, arithmetic,
+     lossless, CMYK, YCCK and 4:1:1 JPEG; the full-size progressive, CMYK
+     and arithmetic photos among them), tests/golden/torch_images/ (the PNG
+     forms and PIL's BMP forms) and tests/golden/torch_webp/ (lossy,
+     lossless, alpha, animated; the full-size lossy and lossless photos), by
+     the SHA-256 of PIL's decode of each file, and the codec's decode and
+     encode rates on the host, in megapixels per second, on the photo at
+     q95, beside the progressive, arithmetic, CMYK and WebP decoders' on
+     their photos;
   3. kernels against their plain versions on the card, fp32 with TF32 off,
      at the main paths' shapes, with two times each for the kernel, the
      plain version and one library call computing the same function: `ms`,
@@ -44,7 +48,9 @@ ends:
      file restores with 1 K2 launch (phase 2 holds the port's q95 bytes of
      the photo and its decode of them to PIL's); the same for PIL's
      progressive JPEG of the photo, whose codes equal those of a PNG of its
-     decode;
+     decode; and for the WebP photo (PIL's default quality) and the CMYK
+     photo (PIL's q95): each `.mcq` equals the CLI's for a PNG of the port's
+     decode, with K1 3 and K2 1 in process;
   6. generation at the full width and depth of gen_stage2_neonA: a seeded
      checkpoint in the JAX package's format goes through the loader; greedy
      `generate` for four classes with and without the KV cache must give the
@@ -52,7 +58,8 @@ ends:
      K3 is held to its plain version on the q/k/v of every call; the card's
      codes are held to the CPU plain path at depth 2; one Neon encode and
      decode of a seeded 256x256 image runs K1, whose codes must equal the
-     plain version's; `python -m mcquic_tpu_torch generate` writes 4 PNGs;
+     plain version's; `python -m mcquic_tpu_torch generate`, started beside
+     the phase's in-process work, writes 4 PNGs;
   7. the validation, batched and tiled codec paths: `python -m
      mcquic_tpu_torch validate -e` on a folder holding the photo with the
      qp-2 zoo model (bpp and PSNR held to phase 4's; the reference's speed
@@ -109,7 +116,8 @@ ends:
  11. generator training at full width: configs/rd5/gen_stage2_neonA.yaml
      (hidden 512, depth 8, 8 heads, batch 8, Adam, the cosine warm-up) with
      `loadFrom` phase 10's checkpoint, on class folders of `.JPEG` crops
-     (the port's encoder, q95) under two real wnids. Gates: the first step's loss, per-level CE and gradient
+     (the port's encoder, q95), a CMYK `.JPEG` and a `.webp` (the decoder
+     fixtures' photos) under two real wnids. Gates: the first step's loss, per-level CE and gradient
      norm equal the CPU's (TRAIN_CPU_RTOL); in process, K1 launches 9 times
      per step with codes equal to the plain version's, K3 never, and the
      tokenizer stays bit-identical; GEN_TRAIN_STEPS steps through
@@ -125,7 +133,8 @@ ends:
      same process: the checkpoints must be bit-identical (the backend and
      NCCL's version printed); (b) two ranks (`chip_smoke.py --ddp-worker`,
      gloo, which reduces CUDA tensors) sharing the card at full width, rd_qp2
-     and gen_stage2_neonA at batch 4 each against one process at batch 8 on
+     and gen_stage2_neonA at batch 4 each against one process at batch 8 (run
+     in this process while the ranks run) on
      the same 8 images, DDP_STEPS steps, the optimizer state sharded across
      the ranks (ZeRO): the first step's loss and gradient norm within
      TRAIN_CPU_RTOL, the ranks' parameter checksums equal after every step,
@@ -189,6 +198,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import ExitStack
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -236,6 +246,11 @@ TILE = 256
 JPEG_FIXTURE = ROOT / "tests" / "golden" / "torch_jpeg"
 IMAGE_FIXTURE = ROOT / "tests" / "golden" / "torch_images"   # the PNG and BMP forms
 PHOTO_PROGRESSIVE = JPEG_FIXTURE / "photo_progressive.jpg"   # PIL's progressive q90 of the photo
+PHOTO_CMYK = JPEG_FIXTURE / "photo_cmyk_q95.jpg"              # PIL's CMYK q95 of the photo
+WEBP_FIXTURE = ROOT / "tests" / "golden" / "torch_webp"
+PHOTO_WEBP = WEBP_FIXTURE / "photo_q80.webp"                  # PIL's default-quality WebP of the photo
+PHOTO_WEBP_LOSSLESS = WEBP_FIXTURE / "photo_lossless.webp"    # PIL's lossless WebP of the photo
+PHOTO_ARITHMETIC = JPEG_FIXTURE / "photo_arithmetic.jpg"      # the test writer's arithmetic q-table JPEG
 PHOTO_DIGESTS = JPEG_FIXTURE / "photo.json"   # PIL's q95 of the photo, the JAX writer's shards
 JPEG_RATE_ITERS = 20
 SHARD_CROPS = 16                 # 512x512 crops into the dataset CLI: two batches of 8 per epoch
@@ -1197,6 +1212,9 @@ def train11(torch, np, tmp: Path, img, smi: str, neonCheckpoint: Path, lengths) 
     classes = tmp / "classes"
     for j, wnid in enumerate(GEN_WNIDS):
         cropFolder(classes / wnid, img, 8, size=300, seed=j + 1, jpeg=True)
+    # a CMYK .JPEG and a WebP among the class folders' files
+    (classes / GEN_WNIDS[0] / f"{GEN_WNIDS[0]}_cmyk.JPEG").write_bytes(PHOTO_CMYK.read_bytes())
+    (classes / GEN_WNIDS[1] / f"{GEN_WNIDS[1]}_photo.webp").write_bytes(PHOTO_WEBP.read_bytes())
     data = Config.load(str(GEN_NEON_A_CONFIG)).serialize()
     data["model"]["params"]["loadFrom"] = str(neonCheckpoint)
     data["train"].update(totalStep=GEN_TRAIN_STEPS, trainSet=str(classes), valSet=str(classes),
@@ -1213,7 +1231,8 @@ def train11(torch, np, tmp: Path, img, smi: str, neonCheckpoint: Path, lengths) 
     print(f"  configs/rd5/gen_stage2_neonA.yaml: {data['model']['params']}, batch {bs}, "
           f"{data['train']['optim']}, {data['train']['schdr']['key']}; {trainable / 1e6:.2f} M "
           f"trainable parameters, the tokenizer frozen ({sum(v.numel() for v in frozen.values()) / 1e6:.2f} M, "
-          f"from phase 10's checkpoint); class folders {GEN_WNIDS}", flush=True)
+          f"from phase 10's checkpoint); class folders {GEN_WNIDS} of .JPEG crops with a CMYK "
+          f".JPEG and a .webp", flush=True)
     if abs(trainer._baseLr - 1e-4 / 2 ** 1.5) > 1e-12:
         raise AssertionError(f"lr {trainer._baseLr} is not the recipe's 1e-4 under the world rule")
 
@@ -1576,9 +1595,12 @@ def ddpCompare(torch, np, tmp: Path, smi: str, case: str, configs: dict, backend
     generator step."""
     world = max(configs)
     start = time.perf_counter()
-    ranks = joinRanks(startRanks(case, world, tmp, configs[world], backend), DDP_TIMEOUT)
+    started = startRanks(case, world, tmp, configs[world], backend)
+    try:
+        one = ddpCase(torch, np, case, configs[1])   # the reference, while the ranks run
+    finally:
+        ranks = joinRanks(started, DDP_TIMEOUT)
     ranksS = time.perf_counter() - start
-    one = ddpCase(torch, np, case, configs[1])
     first = ranks[0]["metrics"][0]
     for r in ranks:
         print(f"  {case} rank {r['rank']}: step seconds {[round(t, 3) for t in r['seconds']]}, "
@@ -1590,7 +1612,8 @@ def ddpCompare(torch, np, tmp: Path, smi: str, case: str, configs: dict, backend
     bytesOk = sharded > 0 and all(r["sharded_bytes"] == sharded and r["state_bytes"]
                                   == one["state_bytes"] - sharded * (world - 1) for r in ranks)
     print(f"  {case}, {world} ranks x batch {DDP_GLOBAL_BATCH // world} {how} ({ranksS:.1f} s, "
-          f"processes included) against 1 process x batch {DDP_GLOBAL_BATCH}: first step loss "
+          f"processes and the one-process reference beside them included) against 1 process x "
+          f"batch {DDP_GLOBAL_BATCH}: first step loss "
           f"{first['loss']:.8f} against {one['metrics'][0]['loss']:.8f}, grad norm "
           f"{first['gradNorm']:.8f} against {one['metrics'][0]['gradNorm']:.8f} (gaps "
           f"{gaps['loss']:.2e}, {gaps['gradNorm']:.2e}; tolerance {TRAIN_CPU_RTOL:g}); the ranks' "
@@ -1988,6 +2011,13 @@ def var13(torch, np, tmp: Path, smi: str, neonCheckpoint: Path, classes: Path, k
             "generate_idle": genIdle, "K3_per_generate": launches, "err": worst, "k3": k3Var,
             "steps_per_s": 1 / steady, "busy_ms": stepBusy[0], "peak_gib": peak,
             "K1_per_step": levels, "inception": inception, "cli": cli}
+
+
+def stopProcess(proc):
+    """Kill `proc` if it still runs."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
 
 
 def finishVarCli(cli):
@@ -2437,11 +2467,11 @@ def web15(torch, np, tmp: Path, img, smi: str, engine, cliMcq: bytes, cliRestore
 
 
 def buildAll():
-    """Build K1, K1b, K2 and K3 (nvcc) and the rANS runtime and the JPEG codec
-    (g++), all started together; print ptxas's registers and spills of every
-    kernel."""
+    """Build K1, K1b, K2 and K3 (nvcc) and the rANS runtime, the JPEG codec
+    and the WebP decoder (g++), all started together; print ptxas's
+    registers and spills of every kernel."""
     from mcquic_tpu_torch.coding import rans
-    from mcquic_tpu_torch.data import jpeg
+    from mcquic_tpu_torch.data import jpeg, webp
     from mcquic_tpu_torch.ops import attention_cuda, subpixel_cuda, vq_cuda, vq_grouped_cuda
     from mcquic_tpu_torch.utils.build import buildLog
 
@@ -2449,14 +2479,15 @@ def buildAll():
         start = time.perf_counter()
         fn()
         return name, time.perf_counter() - start
-    with ThreadPoolExecutor(6) as pool:
+    with ThreadPoolExecutor(7) as pool:
         jobs = [pool.submit(timed, name, fn) for name, fn in
                 (("K1 vq_encode.cu (nvcc)", vq_cuda.build),
                  ("K1b vq_grouped.cu (nvcc)", vq_grouped_cuda.build),
                  ("K2 thin_head.cu (nvcc)", subpixel_cuda.build),
                  ("K3 flash_attention.cu (nvcc)", attention_cuda.build),
                  ("rANS mcquic_rans.cpp (g++)", rans.build),
-                 ("JPEG jpeg.cpp (g++)", jpeg.build))]
+                 ("JPEG jpeg.cpp (g++)", jpeg.build),
+                 ("WebP webp.cpp (g++)", webp.build))]
         for job in jobs:
             name, seconds = job.result()
             print(f"  built {name} in {seconds:.2f} s", flush=True)
@@ -2468,16 +2499,20 @@ def buildAll():
 
 def jpegCheck(np, photo, smi: str) -> dict:
     """The host decoders against the fixtures' hashes of PIL's decode: every
-    JPEG of tests/golden/torch_jpeg/ (baseline and progressive, the
-    full-size progressive photo among them) and every PNG and BMP form of
-    tests/golden/torch_images/; the photo's q95 bytes and their decode
-    against PIL's (`photo.json`); then the codec's rates on the photo at
-    q95, and the progressive decoder's on the progressive photo, medians of
-    JPEG_RATE_ITERS calls, in megapixels per second."""
+    JPEG of tests/golden/torch_jpeg/ (baseline, progressive, smoothed,
+    arithmetic, lossless, CMYK, YCCK, 4:1:1; the full-size progressive, CMYK
+    and arithmetic photos among them), every PNG and BMP form of
+    tests/golden/torch_images/ and every WebP of tests/golden/torch_webp/
+    (the full-size lossy and lossless photos among them); the photo's q95
+    bytes and their decode against PIL's (`photo.json`); then the codec's
+    rates on the photo at q95, and the progressive, arithmetic, CMYK and
+    WebP decoders' on their photos, medians of JPEG_RATE_ITERS calls, in
+    megapixels per second."""
     import hashlib
     from mcquic_tpu_torch.data.dataset import _decodeImage
     from mcquic_tpu_torch.data.jpeg import encodeJpeg, readJpeg
-    for folder in (JPEG_FIXTURE, IMAGE_FIXTURE):
+    from mcquic_tpu_torch.data.webp import readWebp
+    for folder in (JPEG_FIXTURE, IMAGE_FIXTURE, WEBP_FIXTURE):
         manifest = json.loads((folder / "manifest.json").read_text())
         for name, entry in sorted(manifest.items()):
             got = _decodeImage((folder / name).read_bytes(), name)
@@ -2507,14 +2542,27 @@ def jpegCheck(np, photo, smi: str) -> dict:
             times.append(time.perf_counter() - start)
         return megapixels / statistics.median(times)
     progressive = PHOTO_PROGRESSIVE.read_bytes()
+    arithmetic, cmyk = PHOTO_ARITHMETIC.read_bytes(), PHOTO_CMYK.read_bytes()
+    lossy, lossless = PHOTO_WEBP.read_bytes(), PHOTO_WEBP_LOSSLESS.read_bytes()
     rates = {"decode_mp_s": rate(lambda: readJpeg(data)),
              "encode_mp_s": rate(lambda: encodeJpeg(photo, 95)),
-             "progressive_decode_mp_s": rate(lambda: readJpeg(progressive)), "photo_jpeg": data}
+             "progressive_decode_mp_s": rate(lambda: readJpeg(progressive)),
+             "arithmetic_decode_mp_s": rate(lambda: readJpeg(arithmetic)),
+             "cmyk_decode_mp_s": rate(lambda: readJpeg(cmyk)),
+             "webp_lossy_decode_mp_s": rate(lambda: readWebp(lossy)),
+             "webp_lossless_decode_mp_s": rate(lambda: readWebp(lossless)), "photo_jpeg": data}
     print(f"  JPEG codec on the host, the photo {photo.shape[1]}x{photo.shape[0]} at q95 "
           f"({len(data)} bytes): decode {rates['decode_mp_s']:.2f} MP/s, encode "
           f"{rates['encode_mp_s']:.2f} MP/s; the progressive photo (PIL, q90, "
-          f"{len(progressive)} bytes): decode {rates['progressive_decode_mp_s']:.2f} MP/s "
-          f"(medians of {JPEG_RATE_ITERS}; {smi})", flush=True)
+          f"{len(progressive)} bytes): decode {rates['progressive_decode_mp_s']:.2f} MP/s; the "
+          f"arithmetic photo ({len(arithmetic)} bytes): decode "
+          f"{rates['arithmetic_decode_mp_s']:.2f} MP/s; the CMYK photo (PIL, q95, {len(cmyk)} "
+          f"bytes): decode {rates['cmyk_decode_mp_s']:.2f} MP/s (medians of {JPEG_RATE_ITERS}; "
+          f"{smi})", flush=True)
+    print(f"  WebP decoder on the host, the photo: lossy (PIL's default q80, {len(lossy)} bytes) "
+          f"{rates['webp_lossy_decode_mp_s']:.2f} MP/s, lossless ({len(lossless)} bytes) "
+          f"{rates['webp_lossless_decode_mp_s']:.2f} MP/s (medians of {JPEG_RATE_ITERS}; {smi})",
+          flush=True)
     return rates
 
 
@@ -2924,9 +2972,18 @@ def main() -> int:
             progressiveJpg.write_bytes(PHOTO_PROGRESSIVE.read_bytes())
             decoded = jpeg.readJpeg(codec["photo_jpeg"])
             writePng(decodedPng, decoded)
+            # the WebP and CMYK photos, each beside a PNG of the port's decode of it
+            forms = {}
+            for source in (PHOTO_WEBP, PHOTO_CMYK):
+                copy = out / source.name
+                copy.write_bytes(source.read_bytes())
+                formDecoded = readImage(copy)
+                writePng(out / f"{source.stem}_decoded.png", formDecoded)
+                forms[source.name] = (copy, out / f"{source.stem}_decoded.png", formDecoded)
             procs = [cli("-qp", QP, PHOTO, out / "cli.mcq")] + [
                 cli("-qp", QP, src, out / f"{src.stem}.mcq")
-                for src in (photoJpg, decodedPng, progressiveJpg)]
+                for src in (photoJpg, decodedPng, progressiveJpg,
+                            *[copy for copy, _, _ in forms.values()])]
             try:
                 finish(procs[0])
                 procs.append(cli(out / "cli.mcq", out / "cli.png"))
@@ -2986,9 +3043,29 @@ def main() -> int:
                     and progressiveK1 == 3 and progressiveK2 == 1):
                 raise AssertionError("the progressive JPEG does not compress as the PNG of its "
                                      "decode")
+            # the WebP and CMYK photos: the CLI's .mcq equals the one for a PNG of the
+            # port's decode (compressed in process, as the CLI compresses: the photo.jpg
+            # gate above holds the CLI to the in-process bytes); in process, K1 3 per
+            # compress and K2 1 per restore
+            for name, (copy, png, formDecoded) in forms.items():
+                formMcq = (out / f"{copy.stem}.mcq").read_bytes()
+                samePng = formMcq == engine.compressImage(readImage(png)).serialize()
+                vqNearest.launches = conv3x3SubpixelThin.launches = 0
+                formInProcess = engine.compressImage(readImage(copy)).serialize()
+                formK1 = vqNearest.launches
+                formRestored = engine.decompressImage(File.deserialize(formMcq))
+                formK2 = conv3x3SubpixelThin.launches
+                print(f"  CLI on {name} ({copy.stat().st_size} bytes): "
+                      f"{File.deserialize(formMcq).BPP:.4f} bpp, .mcq identical to the one for a "
+                      f"PNG of its decode: {samePng}, to the in-process compress: "
+                      f"{formInProcess == formMcq}; K1 {formK1} launches in the compress, K2 "
+                      f"{formK2} in the restore; PSNR against its decode "
+                      f"{psnr(formDecoded, formRestored):.2f} dB", flush=True)
+                if not (samePng and formInProcess == formMcq and formK1 == 3 and formK2 == 1):
+                    raise AssertionError(f"{name} does not compress as the PNG of its decode")
             photoCliMcq, photoCliRestored = (out / "cli.mcq").read_bytes(), readPng(out / "cli.png")
 
-    with Phase("6 generation"), tempfile.TemporaryDirectory() as tmp:
+    with Phase("6 generation"), tempfile.TemporaryDirectory() as tmp, ExitStack() as stopAtExit:
         start = time.perf_counter()
         ckpt = writeSeededGenerator(Path(tmp) / "gen_stage2_neonA.ckpt.npz", geometry, seed=0)
         model = loadGenerator(ckpt, device="cuda")
@@ -2997,6 +3074,14 @@ def main() -> int:
               f"depth), {ckpt.stat().st_size / 1e6:.1f} MB, written and loaded in "
               f"{time.perf_counter() - start:.2f} s", flush=True)
         condition = torch.tensor(GEN_CLASSES, device=device)
+        # the CLI, in a subprocess beside the in-process checks, joined at the end
+        out = Path(tmp) / "samples"
+        cliStart = time.perf_counter()
+        generateCli = subprocess.Popen([sys.executable, "-m", "mcquic_tpu_torch", "generate", "-c",
+                                        ",".join(map(str, GEN_CLASSES)), str(ckpt), str(out)],
+                                       cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True)
+        stopAtExit.callback(stopProcess, generateCli)   # should the phase fail before its join
 
         # warm-up of both modes, decode included, keeping the q/k/v of every K3 call
         calls = []
@@ -3097,18 +3182,18 @@ def main() -> int:
         if neonLaunches != levels or not torch.isfinite(neonRestored).all():
             raise AssertionError(f"Neon round trip: K1 launched {neonLaunches} times")
 
-        # the CLI, in a subprocess
-        out = Path(tmp) / "samples"
-        start = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "mcquic_tpu_torch", "generate", "-c",
-                               ",".join(map(str, GEN_CLASSES)), str(ckpt), str(out)],
-                              cwd=ROOT, capture_output=True, text=True, timeout=CLI_TIMEOUT)
-        if proc.returncode != 0:
-            raise RuntimeError(f"generate CLI exited {proc.returncode}:\n{proc.stderr}")
+        # the CLI started at the top of the phase
+        try:
+            _, stderr = generateCli.communicate(timeout=CLI_TIMEOUT)
+        finally:
+            stopProcess(generateCli)
+        if generateCli.returncode != 0:
+            raise RuntimeError(f"generate CLI exited {generateCli.returncode}:\n{stderr}")
         pngs = sorted(out.glob("*.png"))
         shapes = [readPng(p).shape for p in pngs]
         print(f"  CLI generate: {[p.name for p in pngs]}, {shapes} in "
-              f"{time.perf_counter() - start:.2f} s (process start and load included)", flush=True)
+              f"{time.perf_counter() - cliStart:.2f} s (process start and load included, beside "
+              f"the phase's in-process work)", flush=True)
         if len(pngs) != batch or any(sh != (256, 256, 3) for sh in shapes):
             raise AssertionError("the generate CLI did not write 4 256x256 PNGs")
 

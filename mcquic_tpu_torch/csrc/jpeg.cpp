@@ -1,36 +1,55 @@
-// mcquic_tpu_torch baseline JPEG codec (C++17, C ABI for ctypes).
+// mcquic_tpu_torch JPEG codec (C++17, C ABI for ctypes).
 //
-// The decoder reads sequential (SOF0, SOF1) and progressive (SOF2) Huffman
-// JPEGs at 8-bit precision with 1 or 3 components and sampling factors up to
-// 2x2, and returns RGB. It follows libjpeg-turbo's integer paths with the
-// defaults a plain `PIL.Image.open(f).convert("RGB")` uses, so its output is
-// bit-identical to that call:
+// The decoder reads every JPEG that `PIL.Image.open(f).convert("RGB")` reads
+// on libjpeg-turbo 3.1 and returns RGB, bit-identical to that call:
+// sequential (SOF0, SOF1) and progressive (SOF2) Huffman files, the same
+// with arithmetic coding (SOF9, SOF10, DAC), and lossless files (SOF3), at
+// 8-bit precision with 1, 3 or 4 components and sampling factors up to 4.
+// It follows libjpeg-turbo's integer paths with the defaults PIL uses:
 //   * jdhuff.c: Huffman decoding, restart markers, DC prediction;
 //   * jdphuff.c: the four progressive scan kinds (DC first, DC refine, AC
 //     first with end-of-band runs, AC refine with correction bits) into a
 //     coefficient buffer over the whole image, which the baseline path fills
-//     too; a restart resets the DC predictions and the end-of-band run.
-//     libjpeg smooths the blocks of a progressive file whose scans leave
-//     coefficient bits unsent (jdcoefct.c::smoothing_ok: any of the first
-//     ten coefficients of a component not complete); such a file, and any
-//     file whose last scan of a coefficient leaves Al > 0, returns
-//     MCQ_JPEG_UNSUPPORTED ("incomplete progressive scans");
+//     too; a restart resets the DC predictions and the end-of-band run;
+//   * jdarith.c: the QM decoder of T.81 Annex D (jaricom.c's table), the DC
+//     and AC statistics areas, the DAC conditioning (L, U, Kx), the four
+//     progressive scan kinds, restarts that reset the statistics, and the
+//     decoder's "spectral or magnitude overflow", after which the rest of the
+//     scan is left as decoded so far (libjpeg warns and goes on);
+//   * jdlhuff.c, jddiffct.c and jdlossls.c for lossless files: the seven
+//     predictors, the first-row and first-column rules, restarts that start a
+//     first row again, the point transform; libjpeg-turbo converts no colour
+//     in lossless mode, so a lossless file it would have to convert (JFIF
+//     YCbCr, YCCK) is refused as PIL refuses it, and upsampling is plain
+//     replication (do_fancy needs a DCT);
+//   * jdcoefct.c::decompress_smooth_data: block smoothing of a progressive
+//     file whose scans leave any of the first ten coefficients of a component
+//     inexact, over the 5x5 neighbourhood of DC values libjpeg-turbo 2.1 and
+//     later use, with the DC interpolation where no AC data came;
 //   * jdinput.c::latch_quant_tables: a component's quantization table is
 //     the one defined when its first scan starts;
 //   * jidctint.c::jpeg_idct_islow: CONST_BITS 13, PASS1_BITS 2, the
 //     dequantization in the first pass, the all-zero column and row shortcuts,
 //     and the post-IDCT range-limit table indexed with RANGE_MASK;
 //   * jdsample.c: h2v1_fancy_upsample and h2v2_fancy_upsample where the
-//     downsampled width exceeds 2 (box upsampling otherwise), and
-//     h1v2_fancy_upsample; jdmainct.c's context rows: the row above the first
-//     is the first, the row below the last real downsampled row is that row;
-//   * jdcolor.c::ycc_rgb_convert with its 16-bit fixed-point tables;
+//     downsampled width exceeds 2 (box upsampling otherwise),
+//     h1v2_fancy_upsample, and int_upsample for every other integral ratio;
+//     jdmainct.c's context rows: the row above the first is the first, the row
+//     below the last real downsampled row is that row;
+//   * jdcolor.c::ycc_rgb_convert with its 16-bit fixed-point tables, and
+//     ycck_cmyk_convert; a 4-component file is read as PIL reads it (CMYK,
+//     "CMYK;I": each sample inverted), then PIL's cmyk2rgb;
 //   * jdapimin.c::default_decompress_parms for the colour space (JFIF means
-//     YCbCr, Adobe transform 0 means RGB, then the component ids).
-// Arithmetic-coded, lossless, hierarchical and 12-bit files, and files of 2
-// or 4 components, are valid files this codec does not read:
-// they return MCQ_JPEG_UNSUPPORTED with the marker named. Truncated or
-// corrupt data returns MCQ_JPEG_CORRUPT.
+//     YCbCr, Adobe transform 0 means RGB, then the component ids; 4
+//     components are CMYK unless an Adobe marker's transform is nonzero).
+// Every file libjpeg or PIL refuses returns MCQ_JPEG_CORRUPT, as truncated
+// or corrupt data does: 12-bit and 2-component files (PIL reads 8-bit
+// files of 1, 3 or 4 components only), hierarchical files, a height of 0
+// (the height a DNL marker would set), interleaved scans of more than ten
+// blocks per MCU, fractional sampling ratios, lossless files that need a
+// colour conversion or whose restart interval is not a whole number of MCU
+// rows, lossless arithmetic coding (SOF11). A DNL marker after a scan is
+// skipped, as libjpeg skips it. No valid file returns MCQ_JPEG_UNSUPPORTED.
 //
 // The encoder writes what `PIL.Image.save(f, "JPEG", quality=q)` writes for
 // an RGB image, byte for byte: SOI, JFIF APP0 1.01 (density 1x1, no unit),
@@ -67,9 +86,6 @@ struct Failure {
 };
 
 [[noreturn]] void corrupt(const std::string& message) { throw Failure{kCorrupt, message}; }
-[[noreturn]] void unsupported(const std::string& message) {
-  throw Failure{kUnsupported, message};
-}
 
 std::string hexMarker(int marker) {
   char buf[16];
@@ -204,18 +220,6 @@ void buildHuffTable(HuffTable& t, const uint8_t* bits, const uint8_t* vals, int 
   t.defined = true;
 }
 
-struct Component {
-  int id = 0, h = 1, v = 1, tq = 0;
-  int blocksW = 0, blocksH = 0;     // allocated blocks (interleaved MCU cover)
-  int realBlocksW = 0, realBlocksH = 0;
-  int width = 0, height = 0;        // downsampled size of the real samples
-  std::vector<int16_t> coefs;       // blocksH * blocksW * 64, natural order
-  bool seen = false;
-  int dcTable = 0, acTable = 0;
-  int16_t quant[64] = {};           // latched at the component's first scan
-  int coefBits[64];                 // progressive: the last scan's Al per coefficient, -1 unsent
-};
-
 class BitReader {
  public:
   BitReader(const uint8_t* data, size_t size, size_t pos) : data_(data), size_(size), pos_(pos) {}
@@ -321,6 +325,172 @@ class BitReader {
   uint64_t buffer_ = 0;
   int count_ = 0, pad_ = 0;
   bool marker_ = false, truncated_ = false;
+};
+
+// jaricom.c: T.81 Table D.2, each entry Qe << 16 | Next_Index_MPS << 8 |
+// Switch_MPS << 7 | Next_Index_LPS; entry 113 is the fixed 0.5 estimate.
+constexpr uint32_t arithEntry(uint32_t qe, uint32_t nlps, uint32_t nmps, uint32_t sw) {
+  return (qe << 16) | (nmps << 8) | (sw << 7) | nlps;
+}
+constexpr uint32_t kAriTab[114] = {
+    arithEntry(0x5a1d, 1, 1, 1),      arithEntry(0x2586, 14, 2, 0),
+    arithEntry(0x1114, 16, 3, 0),     arithEntry(0x080b, 18, 4, 0),
+    arithEntry(0x03d8, 20, 5, 0),     arithEntry(0x01da, 23, 6, 0),
+    arithEntry(0x00e5, 25, 7, 0),     arithEntry(0x006f, 28, 8, 0),
+    arithEntry(0x0036, 30, 9, 0),     arithEntry(0x001a, 33, 10, 0),
+    arithEntry(0x000d, 35, 11, 0),    arithEntry(0x0006, 9, 12, 0),
+    arithEntry(0x0003, 10, 13, 0),    arithEntry(0x0001, 12, 13, 0),
+    arithEntry(0x5a7f, 15, 15, 1),    arithEntry(0x3f25, 36, 16, 0),
+    arithEntry(0x2cf2, 38, 17, 0),    arithEntry(0x207c, 39, 18, 0),
+    arithEntry(0x17b9, 40, 19, 0),    arithEntry(0x1182, 42, 20, 0),
+    arithEntry(0x0cef, 43, 21, 0),    arithEntry(0x09a1, 45, 22, 0),
+    arithEntry(0x072f, 46, 23, 0),    arithEntry(0x055c, 48, 24, 0),
+    arithEntry(0x0406, 49, 25, 0),    arithEntry(0x0303, 51, 26, 0),
+    arithEntry(0x0240, 52, 27, 0),    arithEntry(0x01b1, 54, 28, 0),
+    arithEntry(0x0144, 56, 29, 0),    arithEntry(0x00f5, 57, 30, 0),
+    arithEntry(0x00b7, 59, 31, 0),    arithEntry(0x008a, 60, 32, 0),
+    arithEntry(0x0068, 62, 33, 0),    arithEntry(0x004e, 63, 34, 0),
+    arithEntry(0x003b, 32, 35, 0),    arithEntry(0x002c, 33, 9, 0),
+    arithEntry(0x5ae1, 37, 37, 1),    arithEntry(0x484c, 64, 38, 0),
+    arithEntry(0x3a0d, 65, 39, 0),    arithEntry(0x2ef1, 67, 40, 0),
+    arithEntry(0x261f, 68, 41, 0),    arithEntry(0x1f33, 69, 42, 0),
+    arithEntry(0x19a8, 70, 43, 0),    arithEntry(0x1518, 72, 44, 0),
+    arithEntry(0x1177, 73, 45, 0),    arithEntry(0x0e74, 74, 46, 0),
+    arithEntry(0x0bfb, 75, 47, 0),    arithEntry(0x09f8, 77, 48, 0),
+    arithEntry(0x0861, 78, 49, 0),    arithEntry(0x0706, 79, 50, 0),
+    arithEntry(0x05cd, 48, 51, 0),    arithEntry(0x04de, 50, 52, 0),
+    arithEntry(0x040f, 50, 53, 0),    arithEntry(0x0363, 51, 54, 0),
+    arithEntry(0x02d4, 52, 55, 0),    arithEntry(0x025c, 53, 56, 0),
+    arithEntry(0x01f8, 54, 57, 0),    arithEntry(0x01a4, 55, 58, 0),
+    arithEntry(0x0160, 56, 59, 0),    arithEntry(0x0125, 57, 60, 0),
+    arithEntry(0x00f6, 58, 61, 0),    arithEntry(0x00cb, 59, 62, 0),
+    arithEntry(0x00ab, 61, 63, 0),    arithEntry(0x008f, 61, 32, 0),
+    arithEntry(0x5b12, 65, 65, 1),    arithEntry(0x4d04, 80, 66, 0),
+    arithEntry(0x412c, 81, 67, 0),    arithEntry(0x37d8, 82, 68, 0),
+    arithEntry(0x2fe8, 83, 69, 0),    arithEntry(0x293c, 84, 70, 0),
+    arithEntry(0x2379, 86, 71, 0),    arithEntry(0x1edf, 87, 72, 0),
+    arithEntry(0x1aa9, 87, 73, 0),    arithEntry(0x174e, 72, 74, 0),
+    arithEntry(0x1424, 72, 75, 0),    arithEntry(0x119c, 74, 76, 0),
+    arithEntry(0x0f6b, 74, 77, 0),    arithEntry(0x0d51, 75, 78, 0),
+    arithEntry(0x0bb6, 77, 79, 0),    arithEntry(0x0a40, 77, 48, 0),
+    arithEntry(0x5832, 80, 81, 1),    arithEntry(0x4d1c, 88, 82, 0),
+    arithEntry(0x438e, 89, 83, 0),    arithEntry(0x3bdd, 90, 84, 0),
+    arithEntry(0x34ee, 91, 85, 0),    arithEntry(0x2eae, 92, 86, 0),
+    arithEntry(0x299a, 93, 87, 0),    arithEntry(0x2516, 86, 71, 0),
+    arithEntry(0x5570, 88, 89, 1),    arithEntry(0x4ca9, 95, 90, 0),
+    arithEntry(0x44d9, 96, 91, 0),    arithEntry(0x3e22, 97, 92, 0),
+    arithEntry(0x3824, 99, 93, 0),    arithEntry(0x32b4, 99, 94, 0),
+    arithEntry(0x2e17, 93, 86, 0),    arithEntry(0x56a8, 95, 96, 1),
+    arithEntry(0x4f46, 101, 97, 0),   arithEntry(0x47e5, 102, 98, 0),
+    arithEntry(0x41cf, 103, 99, 0),   arithEntry(0x3c3d, 104, 100, 0),
+    arithEntry(0x375e, 99, 93, 0),    arithEntry(0x5231, 105, 102, 0),
+    arithEntry(0x4c0f, 106, 103, 0),  arithEntry(0x4639, 107, 104, 0),
+    arithEntry(0x415e, 103, 99, 0),   arithEntry(0x5627, 105, 106, 1),
+    arithEntry(0x50e7, 108, 107, 0),  arithEntry(0x4b85, 109, 103, 0),
+    arithEntry(0x5597, 110, 109, 0),  arithEntry(0x504f, 111, 107, 0),
+    arithEntry(0x5a10, 110, 111, 1),  arithEntry(0x5522, 112, 109, 0),
+    arithEntry(0x59eb, 112, 111, 1),  arithEntry(0x5a1d, 113, 113, 0)};
+
+// jdarith.c::arith_decode and its byte input: past a marker the decoder
+// reads zeros (legal in arithmetic coding); past the end of the data the
+// file is truncated, which PIL refuses.
+class ArithReader {
+ public:
+  ArithReader(const uint8_t* data, size_t size, size_t pos) : data_(data), size_(size), pos_(pos) {}
+
+  int decode(uint8_t* st) {
+    while (a_ < 0x8000) {
+      if (--ct_ < 0) {
+        int byte = 0;
+        if (!marker_) {
+          byte = next();
+          if (byte == 0xFF) {
+            size_t at = pos_ - 1;
+            do byte = next();
+            while (byte == 0xFF);
+            if (byte == 0) {
+              byte = 0xFF;
+            } else {
+              marker_ = true;
+              markerPos_ = at;
+              byte = 0;
+            }
+          }
+        }
+        c_ = (c_ << 8) | byte;
+        if ((ct_ += 8) < 0)
+          if (++ct_ == 0) a_ = 0x8000;
+      }
+      a_ <<= 1;
+    }
+    int sv = *st;
+    uint32_t qe = kAriTab[sv & 0x7F];
+    uint8_t nl = qe & 0xFF;
+    qe >>= 8;
+    uint8_t nm = qe & 0xFF;
+    qe >>= 8;
+    int64_t temp = a_ - qe;
+    a_ = temp;
+    temp <<= ct_;
+    if (c_ >= temp) {
+      c_ -= temp;
+      if (a_ < qe) {
+        a_ = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a_ = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a_ < 0x8000) {
+      if (a_ < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  // jdarith.c::process_restart's reader part: find the next marker, which
+  // must be `want`, and start decoding afresh after it.
+  void restart(int want) {
+    size_t pos = marker_ ? markerPos_ : nextMarkerFrom(pos_);
+    while (pos < size_ && data_[pos] == 0xFF) ++pos;
+    if (pos >= size_) corrupt("entropy-coded data truncated before a restart marker");
+    int marker = data_[pos];
+    if (marker != want)
+      corrupt("expected restart marker " + hexMarker(want) + ", found " + hexMarker(marker));
+    pos_ = pos + 1;
+    marker_ = false;
+    c_ = a_ = 0;
+    ct_ = -16;
+  }
+
+  size_t finish() const { return marker_ ? markerPos_ : nextMarkerFrom(pos_); }
+
+  bool failed() const { return ct_ == -1; }
+  void fail() { ct_ = -1; }
+
+ private:
+  int next() {
+    if (pos_ >= size_) corrupt("entropy-coded data truncated");
+    return data_[pos_++];
+  }
+
+  size_t nextMarkerFrom(size_t pos) const {
+    while (pos < size_ && !(data_[pos] == 0xFF && pos + 1 < size_ && data_[pos + 1] != 0x00 &&
+                            data_[pos + 1] != 0xFF))
+      ++pos;
+    return pos;
+  }
+
+  const uint8_t* data_;
+  size_t size_, pos_, markerPos_ = 0;
+  int64_t c_ = 0, a_ = 0;
+  int ct_ = -16;
+  bool marker_ = false;
 };
 
 inline int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
@@ -433,6 +603,24 @@ void idctIslow(const int16_t* coef, const int16_t* quant, uint8_t* out, int stri
   }
 }
 
+struct Component {
+  int id = 0, h = 1, v = 1, tq = 0;
+  int blocksW = 0, blocksH = 0;     // allocated blocks (interleaved MCU cover); samples when lossless
+  int realBlocksW = 0, realBlocksH = 0;
+  int width = 0, height = 0;        // downsampled size of the real samples
+  std::vector<int16_t> coefs;       // blocksH * blocksW * 64, natural order
+  std::vector<uint16_t> diffs;      // lossless: blocksH * blocksW differences, then samples
+  bool seen = false;
+  int dcTable = 0, acTable = 0;
+  int16_t quant[64] = {};           // latched at the component's first scan
+  int coefBits[64];                 // progressive: the last scan's Al per coefficient, -1 unsent
+};
+
+// jdcoefct.c: the natural positions of the first ten coefficients in zigzag
+// order, whose quantizers block smoothing divides by.
+constexpr int kQ01 = 1, kQ10 = 8, kQ20 = 16, kQ11 = 9, kQ02 = 2, kQ03 = 3, kQ12 = 10, kQ21 = 17,
+              kQ30 = 24;
+
 class Decoder {
  public:
   Decoder(const uint8_t* data, size_t size) : data_(data), size_(size) {}
@@ -456,6 +644,7 @@ class Decoder {
   int components() const { return static_cast<int>(comps_.size()); }
 
   void decode(uint8_t* rgb) {
+    colorSpace();
     pos_ = scanStart_;
     int marker = 0xDA;
     while (true) {
@@ -470,11 +659,13 @@ class Decoder {
     }
     for (auto& c : comps_)
       if (!c.seen) corrupt("component " + std::to_string(c.id) + " has no scan");
-    if (progressive_) checkComplete();
+    smoothing_ = smoothingOk();
     output(rgb);
   }
 
  private:
+  enum Space { kGray, kRgb, kYcc, kCmyk, kYcck };
+
   int nextMarker() {
     // skip anything up to the next 0xFF (libjpeg warns about such bytes),
     // then the fill bytes
@@ -499,19 +690,18 @@ class Decoder {
     const uint8_t* p = data_ + pos_ + 2;
     size_t n = length - 2;
     switch (marker) {
-      case 0xC0:
-      case 0xC1:
-      case 0xC2:
+      case 0xC0: case 0xC1: case 0xC2: case 0xC3: case 0xC9: case 0xCA:
         frame(marker, p, n);
         break;
-      case 0xC3: case 0xC7: case 0xCB: case 0xCF:
-        unsupported("lossless JPEG (SOF marker " + hexMarker(marker) + ")");
-      case 0xC5: case 0xC6:
-        unsupported("hierarchical JPEG (SOF marker " + hexMarker(marker) + ")");
-      case 0xC9: case 0xCA: case 0xCD: case 0xCE:
-        unsupported("arithmetic-coded JPEG (SOF marker " + hexMarker(marker) + ")");
+      case 0xCB:
+        corrupt("lossless arithmetic-coded JPEG (SOF marker 0xFFCB), which libjpeg-turbo does "
+                "not read");
+      case 0xC5: case 0xC6: case 0xC7: case 0xCD: case 0xCE: case 0xCF:
+        corrupt("hierarchical JPEG (SOF marker " + hexMarker(marker) +
+                "), which libjpeg does not read");
       case 0xCC:
-        unsupported("arithmetic-coded JPEG (DAC marker 0xFFCC)");
+        arithConditioning(p, n);
+        break;
       case 0xC4:
         huffmanTables(p, n);
         break;
@@ -532,12 +722,10 @@ class Decoder {
         }
         break;
       case 0xDC:
-        unsupported("JPEG with a DNL marker (0xFFDC)");
+        break;  // DNL: jdmarker.c skips it
       case 0xDE: case 0xDF:
-        unsupported("hierarchical JPEG (marker " + hexMarker(marker) + ")");
+        corrupt("hierarchical JPEG (marker " + hexMarker(marker) + "), which libjpeg does not read");
       default:
-        if (marker == 0xC8 || (marker >= 0xF0 && marker <= 0xFD))
-          unsupported("JPEG extension marker " + hexMarker(marker));
         if (!(marker >= 0xE0 && marker <= 0xEF) && marker != 0xFE)
           corrupt("unknown marker " + hexMarker(marker));
         break;  // APPn, COM
@@ -548,18 +736,20 @@ class Decoder {
   void frame(int marker, const uint8_t* p, size_t n) {
     if (frame_) corrupt("a second SOF marker");
     if (n < 6) corrupt("bad SOF segment");
-    progressive_ = marker == 0xC2;
+    progressive_ = marker == 0xC2 || marker == 0xCA;
+    arith_ = marker == 0xC9 || marker == 0xCA;
+    lossless_ = marker == 0xC3;
     int precision = p[0];
     if (precision != 8)
-      unsupported(std::to_string(precision) + "-bit JPEG (SOF marker " + hexMarker(marker) + ")");
+      corrupt(std::to_string(precision) + "-bit JPEG (SOF marker " + hexMarker(marker) +
+              "); PIL reads 8-bit files only");
     height_ = (p[1] << 8) | p[2];
     width_ = (p[3] << 8) | p[4];
     int count = p[5];
-    if (count == 4)
-      unsupported("4-component (CMYK or YCCK) JPEG (SOF marker " + hexMarker(marker) + ")");
-    if (count != 1 && count != 3)
-      unsupported(std::to_string(count) + "-component JPEG (SOF marker " + hexMarker(marker) + ")");
-    if (height_ == 0) unsupported("JPEG whose height is set by a DNL marker");
+    if (count != 1 && count != 3 && count != 4)
+      corrupt(std::to_string(count) + "-component JPEG (SOF marker " + hexMarker(marker) +
+              "); PIL reads 1, 3 or 4 components");
+    if (height_ == 0) corrupt("JPEG of height 0 (a height set by a DNL marker), which libjpeg refuses");
     if (width_ == 0) corrupt("JPEG of width 0");
     // PIL's decompression-bomb limit (2 * Image.MAX_IMAGE_PIXELS), past which
     // PIL refuses to open a file: a corrupt header allocates nothing huge
@@ -575,25 +765,45 @@ class Decoder {
       c.v = p[7 + 3 * i] & 15;
       c.tq = p[8 + 3 * i];
       if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3) corrupt("bad SOF component");
-      if (c.h > 2 || c.v > 2)
-        unsupported("JPEG with sampling factor " + std::to_string(c.h) + "x" +
-                    std::to_string(c.v) + " (SOF marker " + hexMarker(marker) + ")");
       hmax_ = std::max(hmax_, c.h);
       vmax_ = std::max(vmax_, c.v);
     }
-    mcusX_ = (width_ + 8 * hmax_ - 1) / (8 * hmax_);
-    mcusY_ = (height_ + 8 * vmax_ - 1) / (8 * vmax_);
+    // jdsample.c: only integral ratios (JERR_FRACT_SAMPLE_NOTIMPL)
+    for (auto& c : comps_)
+      if (hmax_ % c.h || vmax_ % c.v)
+        corrupt("JPEG with fractional sampling ratios, which libjpeg does not read");
+    const int unit = lossless_ ? 1 : 8;
+    mcusX_ = (width_ + unit * hmax_ - 1) / (unit * hmax_);
+    mcusY_ = (height_ + unit * vmax_ - 1) / (unit * vmax_);
     for (auto& c : comps_) {
       c.width = static_cast<int>((int64_t(width_) * c.h + hmax_ - 1) / hmax_);
       c.height = static_cast<int>((int64_t(height_) * c.v + vmax_ - 1) / vmax_);
-      c.realBlocksW = (c.width + 7) / 8;
-      c.realBlocksH = (c.height + 7) / 8;
+      c.realBlocksW = (c.width + unit - 1) / unit;
+      c.realBlocksH = (c.height + unit - 1) / unit;
       c.blocksW = mcusX_ * c.h;
       c.blocksH = mcusY_ * c.v;
-      c.coefs.assign(static_cast<size_t>(c.blocksW) * c.blocksH * 64, 0);
+      if (lossless_) c.diffs.assign(static_cast<size_t>(c.blocksW) * c.blocksH, 0);
+      else c.coefs.assign(static_cast<size_t>(c.blocksW) * c.blocksH * 64, 0);
       std::fill(c.coefBits, c.coefBits + 64, -1);
     }
     frame_ = true;
+  }
+
+  // jdapimin.c::default_decompress_parms, and the conversions libjpeg-turbo
+  // refuses in lossless mode
+  void colorSpace() {
+    if (comps_.size() == 1) {
+      space_ = kGray;
+    } else if (comps_.size() == 3) {
+      if (sawJfif_) space_ = kYcc;
+      else if (sawAdobe_) space_ = adobeTransform_ == 0 ? kRgb : kYcc;
+      else space_ = comps_[0].id == 82 && comps_[1].id == 71 && comps_[2].id == 66 ? kRgb : kYcc;
+    } else {
+      space_ = sawAdobe_ && adobeTransform_ != 0 ? kYcck : kCmyk;
+    }
+    if (lossless_ && (space_ == kYcc || space_ == kYcck))
+      corrupt("lossless JPEG in YCbCr or YCCK (SOF marker 0xFFC3): libjpeg-turbo converts no colour "
+              "in lossless mode");
   }
 
   void huffmanTables(const uint8_t* p, size_t n) {
@@ -608,6 +818,22 @@ class Decoder {
       if (count > 256 || i + 17 + count > n) corrupt("bad DHT segment");
       buildHuffTable(huff_[tc][th], bits, p + i + 17, count);
       i += 17 + count;
+    }
+  }
+
+  // jdmarker.c::get_dac
+  void arithConditioning(const uint8_t* p, size_t n) {
+    if (n % 2) corrupt("bad DAC segment");
+    for (size_t i = 0; i < n; i += 2) {
+      int index = p[i], value = p[i + 1];
+      if (index >= 32) corrupt("bad DAC table index");  // Tc << 4 | Tb, NUM_ARITH_TBLS 16
+      if (index >= 16) {
+        acK_[index - 16] = value;
+      } else {
+        dcL_[index] = value & 15;
+        dcU_[index] = value >> 4;
+        if (dcL_[index] > dcU_[index]) corrupt("bad DAC value");
+      }
     }
   }
 
@@ -628,6 +854,36 @@ class Decoder {
     }
   }
 
+  // Calls unit(component, index in scan, block or sample index) for every
+  // unit of a scan in order, and between(last) after each MCU.
+  template <class Unit, class Between>
+  void forEachMcu(const std::vector<Component*>& scanComps, Unit&& unit, Between&& between) {
+    const size_t count = scanComps.size();
+    if (count == 1) {  // non-interleaved: one block per MCU over the real blocks
+      Component& c = *scanComps[0];
+      int total = c.realBlocksW * c.realBlocksH, done = 0;
+      for (int by = 0; by < c.realBlocksH; ++by)
+        for (int bx = 0; bx < c.realBlocksW; ++bx) {
+          unit(c, 0, static_cast<size_t>(by) * c.blocksW + bx);
+          between(++done == total);
+        }
+      return;
+    }
+    int total = mcusX_ * mcusY_, done = 0;
+    for (int my = 0; my < mcusY_; ++my)
+      for (int mx = 0; mx < mcusX_; ++mx) {
+        for (size_t i = 0; i < count; ++i) {
+          Component& c = *scanComps[i];
+          for (int y = 0; y < c.v; ++y)
+            for (int x = 0; x < c.h; ++x) {
+              size_t by = static_cast<size_t>(my) * c.v + y, bx = mx * c.h + x;
+              unit(c, static_cast<int>(i), by * c.blocksW + bx);
+            }
+        }
+        between(++done == total);
+      }
+  }
+
   void scan() {
     size_t length = segmentLength();
     const uint8_t* p = data_ + pos_ + 2;
@@ -637,6 +893,7 @@ class Decoder {
     if (count < 1 || count > 4 || n < static_cast<size_t>(1 + 2 * count + 3))
       corrupt("bad SOS segment");
     std::vector<Component*> scanComps;
+    int blocksInMcu = 0;
     for (int i = 0; i < count; ++i) {
       int id = p[1 + 2 * i];
       Component* found = nullptr;
@@ -647,9 +904,19 @@ class Decoder {
       found->acTable = p[2 + 2 * i] & 15;
       if (found->dcTable > 3 || found->acTable > 3) corrupt("bad SOS table index");
       scanComps.push_back(found);
+      blocksInMcu += found->h * found->v;
     }
+    // jdinput.c::per_scan_setup: D_MAX_BLOCKS_IN_MCU
+    if (count > 1 && blocksInMcu > 10)
+      corrupt("interleaved scan of " + std::to_string(blocksInMcu) +
+              " blocks per MCU; libjpeg reads at most 10");
     int ss = p[1 + 2 * count], se = p[2 + 2 * count], ah = p[3 + 2 * count] >> 4,
         al = p[3 + 2 * count] & 15;
+    pos_ += length;
+    if (lossless_) {
+      losslessScan(scanComps, ss, se, ah, al);
+      return;
+    }
     if (!progressive_ && (ss != 0 || se != 63 || ah != 0 || al != 0))
       corrupt("sequential scan with Ss, Se, Ah/Al " + std::to_string(ss) + ", " +
               std::to_string(se) + ", " + std::to_string(p[3 + 2 * count]));
@@ -658,13 +925,17 @@ class Decoder {
     for (auto* c : scanComps) {
       if (!quantDefined_[c->tq]) corrupt("quantization table not defined");
       bool needDc = !progressive_ || (dcBand && ah == 0), needAc = !progressive_ || !dcBand;
-      if ((needDc && !huff_[0][c->dcTable].defined) || (needAc && !huff_[1][c->acTable].defined))
+      if (!arith_ &&
+          ((needDc && !huff_[0][c->dcTable].defined) || (needAc && !huff_[1][c->acTable].defined)))
         corrupt("Huffman table not defined");
       if (!c->seen) std::memcpy(c->quant, quant_[c->tq], sizeof c->quant);
       c->seen = true;
     }
-    pos_ += length;
+    if (arith_) arithScan(scanComps, ss, se, ah, al);
+    else huffmanScan(scanComps, ss, se, ah, al);
+  }
 
+  void huffmanScan(const std::vector<Component*>& scanComps, int ss, int se, int ah, int al) {
     BitReader reader(data_, size_, pos_);
     int dcPred[4] = {0, 0, 0, 0};
     int eobrun = 0;
@@ -767,7 +1038,7 @@ class Decoder {
         --eobrun;
       }
     };
-    auto restartCheck = [&](bool last) {
+    auto between = [&](bool last) {
       if (!restartInterval_ || last) return;
       if (--restartsLeft == 0) {
         reader.restart(0xD0 + nextRestart);
@@ -778,36 +1049,259 @@ class Decoder {
       }
     };
     auto run = [&](auto&& unit) {
-      if (count == 1) {  // non-interleaved: one block per MCU over the real blocks
-        Component& c = *scanComps[0];
-        int total = c.realBlocksW * c.realBlocksH, done = 0;
-        for (int by = 0; by < c.realBlocksH; ++by)
-          for (int bx = 0; bx < c.realBlocksW; ++bx) {
-            unit(c, 0, &c.coefs[(static_cast<size_t>(by) * c.blocksW + bx) * 64]);
-            restartCheck(++done == total);
-          }
-      } else {
-        int total = mcusX_ * mcusY_, done = 0;
-        for (int my = 0; my < mcusY_; ++my)
-          for (int mx = 0; mx < mcusX_; ++mx) {
-            for (int i = 0; i < count; ++i) {
-              Component& c = *scanComps[i];
-              for (int y = 0; y < c.v; ++y)
-                for (int x = 0; x < c.h; ++x) {
-                  size_t by = static_cast<size_t>(my) * c.v + y, bx = mx * c.h + x;
-                  unit(c, i, &c.coefs[(by * c.blocksW + bx) * 64]);
-                }
-            }
-            restartCheck(++done == total);
-          }
-      }
+      forEachMcu(scanComps,
+                 [&](Component& c, int i, size_t block) { unit(c, i, &c.coefs[block * 64]); }, between);
     };
+    bool dcBand = ss == 0;
     if (!progressive_) run(decodeBlock);
     else if (dcBand && ah == 0) run(dcFirst);
     else if (dcBand) run(dcRefine);
     else if (ah == 0) run(acFirst);
     else run(acRefine);
     pos_ = reader.finish();
+  }
+
+  // jdarith.c: decode_mcu and the four progressive kinds
+  void arithScan(const std::vector<Component*>& scanComps, int ss, int se, int ah, int al) {
+    ArithReader reader(data_, size_, pos_);
+    const bool dcScan = !progressive_ || (ss == 0 && ah == 0), acScan = !progressive_ || ss != 0;
+    auto resetStats = [&]() {
+      for (auto* c : scanComps) {
+        if (dcScan) std::memset(dcStats_[c->dcTable], 0, sizeof dcStats_[0]);
+        if (acScan) std::memset(acStats_[c->acTable], 0, sizeof acStats_[0]);
+      }
+    };
+    resetStats();
+    int lastDc[4] = {0, 0, 0, 0}, dcContext[4] = {0, 0, 0, 0};
+    uint8_t fixedBin = 113;
+    int restartsLeft = restartInterval_, nextRestart = 0;
+    // Figures F.19-F.24: a DC difference, into lastDc[i]
+    auto dcDiff = [&](Component& c, int i) {
+      uint8_t* stats = dcStats_[c.dcTable];
+      uint8_t* st = stats + dcContext[i];
+      if (reader.decode(st) == 0) {
+        dcContext[i] = 0;
+        return true;
+      }
+      int sign = reader.decode(st + 1);
+      st += 2 + sign;
+      int m = reader.decode(st);
+      if (m != 0) {
+        st = stats + 20;
+        while (reader.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            reader.fail();  // magnitude overflow
+            return false;
+          }
+          st += 1;
+        }
+      }
+      if (m < ((1 << dcL_[c.dcTable]) >> 1)) dcContext[i] = 0;
+      else if (m > ((1 << dcU_[c.dcTable]) >> 1)) dcContext[i] = 12 + sign * 4;
+      else dcContext[i] = 4 + sign * 4;
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (reader.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      lastDc[i] = (lastDc[i] + v) & 0xFFFF;
+      return true;
+    };
+    // Figures F.20-F.24: AC coefficients k0..k1 into block, shifted by al
+    auto acBand = [&](Component& c, int16_t* block, int k0, int k1, int shift) {
+      uint8_t* stats = acStats_[c.acTable];
+      for (int k = k0; k <= k1; ++k) {
+        uint8_t* st = stats + 3 * (k - 1);
+        if (reader.decode(st)) break;  // EOB
+        while (reader.decode(st + 1) == 0) {
+          st += 3;
+          if (++k > k1) {
+            reader.fail();  // spectral overflow
+            return;
+          }
+        }
+        int sign = reader.decode(&fixedBin);
+        st += 2;
+        int m = reader.decode(st);
+        if (m != 0) {
+          if (reader.decode(st)) {
+            m <<= 1;
+            st = stats + (k <= acK_[c.acTable] ? 189 : 217);
+            while (reader.decode(st)) {
+              if ((m <<= 1) == 0x8000) {
+                reader.fail();  // magnitude overflow
+                return;
+              }
+              st += 1;
+            }
+          }
+        }
+        int v = m;
+        st += 14;
+        while (m >>= 1)
+          if (reader.decode(st)) v |= m;
+        v += 1;
+        if (sign) v = -v;
+        block[kNaturalOrder[k]] = static_cast<int16_t>(static_cast<uint32_t>(v) << shift);
+      }
+    };
+    auto sequential = [&](Component& c, int i, int16_t* block) {
+      if (!dcDiff(c, i)) return;
+      block[0] = static_cast<int16_t>(lastDc[i]);
+      acBand(c, block, 1, 63, 0);
+    };
+    auto dcFirst = [&](Component& c, int i, int16_t* block) {
+      if (!dcDiff(c, i)) return;
+      block[0] = static_cast<int16_t>(static_cast<uint32_t>(lastDc[i]) << al);
+    };
+    auto dcRefine = [&](Component&, int, int16_t* block) {
+      if (reader.decode(&fixedBin)) block[0] = static_cast<int16_t>(block[0] | (1 << al));
+    };
+    auto acFirst = [&](Component& c, int, int16_t* block) { acBand(c, block, ss, se, al); };
+    const int p1 = 1 << al, m1 = -(1 << al);
+    auto acRefine = [&](Component& c, int, int16_t* block) {
+      uint8_t* stats = acStats_[c.acTable];
+      int kex = se;
+      for (; kex > 0; --kex)
+        if (block[kNaturalOrder[kex]]) break;
+      for (int k = ss; k <= se; ++k) {
+        uint8_t* st = stats + 3 * (k - 1);
+        if (k > kex && reader.decode(st)) break;  // EOB
+        while (true) {
+          int16_t& coef = block[kNaturalOrder[k]];
+          if (coef) {
+            if (reader.decode(st + 2)) coef = static_cast<int16_t>(coef + (coef < 0 ? m1 : p1));
+            break;
+          }
+          if (reader.decode(st + 1)) {
+            coef = static_cast<int16_t>(reader.decode(&fixedBin) ? m1 : p1);
+            break;
+          }
+          st += 3;
+          if (++k > se) {
+            reader.fail();  // spectral overflow
+            return;
+          }
+        }
+      }
+    };
+    auto between = [&](bool last) {
+      if (!restartInterval_ || last) return;
+      if (--restartsLeft == 0) {
+        reader.restart(0xD0 + nextRestart);
+        nextRestart = (nextRestart + 1) & 7;
+        restartsLeft = restartInterval_;
+        resetStats();
+        for (int i = 0; i < 4; ++i) {
+          if (dcScan) lastDc[i] = dcContext[i] = 0;
+        }
+      }
+    };
+    auto run = [&](auto&& unit) {
+      forEachMcu(
+          scanComps,
+          [&](Component& c, int i, size_t block) {
+            // after an overflow libjpeg decodes nothing more until a restart
+            if (!reader.failed()) unit(c, i, &c.coefs[block * 64]);
+          },
+          between);
+    };
+    bool dcBand = ss == 0;
+    if (!progressive_) run(sequential);
+    else if (dcBand && ah == 0) run(dcFirst);
+    else if (dcBand) run(dcRefine);
+    else if (ah == 0) run(acFirst);
+    else run(acRefine);
+    pos_ = reader.finish();
+  }
+
+  // jdlhuff.c, jddiffct.c and jdlossls.c: one lossless scan
+  void losslessScan(const std::vector<Component*>& scanComps, int psv, int se, int ah, int pt) {
+    if (psv < 1 || psv > 7 || se != 0 || ah != 0 || pt > 7)
+      corrupt("bad lossless scan: Ss " + std::to_string(psv) + ", Se " + std::to_string(se) +
+              ", Ah " + std::to_string(ah) + ", Al " + std::to_string(pt));
+    for (auto* c : scanComps) {
+      if (!huff_[0][c->dcTable].defined) corrupt("Huffman table not defined");
+      c->seen = true;
+    }
+    const int mcusPerRow = scanComps.size() == 1 ? scanComps[0]->realBlocksW : mcusX_;
+    if (restartInterval_ && restartInterval_ % mcusPerRow)
+      corrupt("lossless JPEG whose restart interval (" + std::to_string(restartInterval_) +
+              " MCUs) is not a whole number of MCU rows (" + std::to_string(mcusPerRow) +
+              "), which libjpeg-turbo refuses");
+    BitReader reader(data_, size_, pos_);
+    int restartsLeft = restartInterval_, nextRestart = 0;
+    // the component rows that start after a restart take the first-row rule
+    std::vector<std::vector<uint8_t>> firstRow(scanComps.size());
+    for (size_t i = 0; i < scanComps.size(); ++i) {
+      firstRow[i].assign(scanComps[i]->blocksH, 0);
+      firstRow[i][0] = 1;
+    }
+    int mcuRow = 0, mcuInRow = 0;
+    auto unit = [&](Component& c, int, size_t sample) {
+      int s = reader.decode(huff_[0][c.dcTable]);
+      if (s > 16) corrupt("bad lossless difference size");
+      int diff = s == 16 ? 32768 : (s ? extend(reader.bits(s), s) : 0);
+      c.diffs[sample] = static_cast<uint16_t>(diff);
+    };
+    auto between = [&](bool last) {
+      if (++mcuInRow == mcusPerRow) {
+        mcuInRow = 0;
+        ++mcuRow;
+      }
+      if (!restartInterval_ || last) return;
+      if (--restartsLeft == 0) {
+        reader.restart(0xD0 + nextRestart);
+        nextRestart = (nextRestart + 1) & 7;
+        restartsLeft = restartInterval_;
+        for (size_t i = 0; i < scanComps.size(); ++i) {
+          int v = scanComps.size() == 1 ? 1 : scanComps[i]->v;
+          size_t row = static_cast<size_t>(mcuRow) * v;
+          if (row < firstRow[i].size()) firstRow[i][row] = 1;
+        }
+      }
+    };
+    forEachMcu(scanComps, unit, between);
+    pos_ = reader.finish();
+    for (size_t i = 0; i < scanComps.size(); ++i) undifference(*scanComps[i], psv, pt, firstRow[i]);
+  }
+
+  // jdlossls.c: the predictors over the real samples, in place, then the
+  // point transform's scaling to 8 bits
+  void undifference(Component& c, int psv, int pt, const std::vector<uint8_t>& firstRow) {
+    const int W = c.width, H = c.height;
+    std::vector<int> prev(W), cur(W);
+    for (int y = 0; y < H; ++y) {
+      const uint16_t* diff = &c.diffs[static_cast<size_t>(y) * c.blocksW];
+      if (firstRow[y]) {
+        int ra = (diff[0] + (1 << (8 - pt - 1))) & 0xFFFF;
+        cur[0] = ra;
+        for (int x = 1; x < W; ++x) cur[x] = ra = (diff[x] + ra) & 0xFFFF;
+      } else {
+        int rb = prev[0];
+        int ra = (diff[0] + rb) & 0xFFFF;
+        cur[0] = ra;
+        for (int x = 1; x < W; ++x) {
+          int rc = rb;
+          rb = prev[x];
+          int pred;
+          switch (psv) {
+            case 1: pred = ra; break;
+            case 2: pred = rb; break;
+            case 3: pred = rc; break;
+            case 4: pred = ra + rb - rc; break;
+            case 5: pred = ra + ((rb - rc) >> 1); break;
+            case 6: pred = rb + ((ra - rc) >> 1); break;
+            default: pred = (ra + rb) >> 1; break;
+          }
+          cur[x] = ra = (diff[x] + pred) & 0xFFFF;
+        }
+      }
+      uint16_t* out = &c.diffs[static_cast<size_t>(y) * c.blocksW];
+      for (int x = 0; x < W; ++x) out[x] = static_cast<uint16_t>(static_cast<uint8_t>(cur[x] << pt));
+      std::swap(prev, cur);
+    }
   }
 
   // jdphuff.c::start_pass_phuff_decoder: the scan's parameters, then each
@@ -833,28 +1327,157 @@ class Decoder {
     }
   }
 
-  // After the last scan: the coefficients libjpeg would decode without
-  // block smoothing, every bit sent.
-  void checkComplete() const {
-    for (const auto& c : comps_)
-      for (int k = 0; k < 64; ++k)
-        if (c.coefBits[k] > 0 || (k < 10 && c.coefBits[k] < 0))
-          unsupported("incomplete progressive scans: coefficient " + std::to_string(k) +
-                      " of component " + std::to_string(c.id) +
-                      (c.coefBits[k] < 0 ? " is never sent"
-                                         : " ends at Al " + std::to_string(c.coefBits[k])) +
-                      " (SOF marker 0xFFC2); libjpeg smooths such files");
+  // jdcoefct.c::smoothing_ok, with the bits of the last scan (the whole file
+  // is read before the output pass)
+  bool smoothingOk() const {
+    if (!progressive_) return false;
+    bool useful = false;
+    for (const auto& c : comps_) {
+      const int16_t* q = c.quant;
+      if (q[0] == 0 || q[kQ01] == 0 || q[kQ10] == 0 || q[kQ20] == 0 || q[kQ11] == 0 ||
+          q[kQ02] == 0 || q[kQ03] == 0 || q[kQ12] == 0 || q[kQ21] == 0 || q[kQ30] == 0)
+        return false;
+      if (c.coefBits[0] < 0) return false;
+      for (int k = 1; k < 10; ++k)
+        if (c.coefBits[k] != 0) useful = true;
+    }
+    return useful;
   }
 
-  // The component's real samples, [height rows][stride], after the IDCT.
+  // jdcoefct.c::decompress_smooth_data for one block row: each block's
+  // estimates from the DC values of its 5x5 neighbourhood, then the IDCT.
+  void smoothRow(const Component& c, int by, uint8_t* out, int stride) const {
+    const int* bits = c.coefBits;
+    const bool changeDc = bits[1] == -1 && bits[2] == -1 && bits[3] == -1 && bits[4] == -1 &&
+                          bits[5] == -1 && bits[6] == -1 && bits[7] == -1 && bits[8] == -1 &&
+                          bits[9] == -1;
+    const int16_t* qt = c.quant;
+    const int64_t Q00 = qt[0], Q01 = qt[kQ01], Q10 = qt[kQ10], Q20 = qt[kQ20], Q11 = qt[kQ11],
+                  Q02 = qt[kQ02], Q03 = qt[kQ03], Q12 = qt[kQ12], Q21 = qt[kQ21], Q30 = qt[kQ30];
+    // the rows above and below, as libjpeg-turbo picks them: it counts
+    // block rows as block_rows (the iMCU row's real rows) times the iMCU
+    // rows, so below the last real row it may read the DC values of the
+    // padding blocks an interleaved DC scan decoded
+    const int v = c.v, lastImcu = mcusY_ - 1, imcu = by / v, blockRow = by % v;
+    int blockRows = v;
+    if (imcu == lastImcu) {
+      blockRows = c.realBlocksH % v;
+      if (blockRows == 0) blockRows = v;
+    }
+    const int64_t image = int64_t(imcu) * blockRows + blockRow, imageRows = int64_t(blockRows) * mcusY_;
+    auto rowAt = [&](int r) { return &c.coefs[static_cast<size_t>(r) * c.blocksW * 64]; };
+    const int16_t* cur = rowAt(by);
+    const int16_t* prev = image > 0 ? rowAt(by - 1) : cur;
+    const int16_t* prevPrev = image > 1 ? rowAt(by - 2) : prev;
+    const int16_t* next = image < imageRows - 1 ? rowAt(by + 1) : cur;
+    const int16_t* nextNext = image < imageRows - 2 ? rowAt(by + 2) : next;
+    const int16_t* rows[5] = {prevPrev, prev, cur, next, nextNext};
+    int DC[26];  // DC[1..25]: the 5x5 neighbourhood, row by row
+    const int lastCol = c.realBlocksW - 1;
+    int16_t ws[64];
+    auto estimate = [&](int al, int64_t q, int64_t num) {
+      int pred;
+      if (num >= 0) {
+        pred = static_cast<int>(((q << 7) + num) / (q << 8));
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      } else {
+        pred = static_cast<int>(((q << 7) - num) / (q << 8));
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+        pred = -pred;
+      }
+      return static_cast<int16_t>(pred);
+    };
+    for (int bx = 0; bx <= lastCol; ++bx) {
+      std::memcpy(ws, cur + static_cast<size_t>(bx) * 64, sizeof ws);
+      // columns past the edges repeat the edge column
+      for (int g = 0; g < 5; ++g)
+        for (int j = 1; j <= 5; ++j)
+          DC[g * 5 + j] = rows[g][static_cast<size_t>(std::min(std::max(bx + j - 3, 0), lastCol)) * 64];
+      int al;
+      if ((al = bits[1]) != 0 && ws[1] == 0) {
+        int64_t num = Q00 * (changeDc ? (-DC[1] - DC[2] + DC[4] + DC[5] - 3 * DC[6] + 13 * DC[7] -
+                                         13 * DC[9] + 3 * DC[10] - 3 * DC[11] + 38 * DC[12] -
+                                         38 * DC[14] + 3 * DC[15] - 3 * DC[16] + 13 * DC[17] -
+                                         13 * DC[19] + 3 * DC[20] - DC[21] - DC[22] + DC[24] + DC[25])
+                                      : (-7 * DC[11] + 50 * DC[12] - 50 * DC[14] + 7 * DC[15]));
+        ws[1] = estimate(al, Q01, num);
+      }
+      if ((al = bits[2]) != 0 && ws[8] == 0) {
+        int64_t num = Q00 * (changeDc ? (-DC[1] - 3 * DC[2] - 3 * DC[3] - 3 * DC[4] - DC[5] - DC[6] +
+                                         13 * DC[7] + 38 * DC[8] + 13 * DC[9] - DC[10] + DC[16] -
+                                         13 * DC[17] - 38 * DC[18] - 13 * DC[19] + DC[20] + DC[21] +
+                                         3 * DC[22] + 3 * DC[23] + 3 * DC[24] + DC[25])
+                                      : (-7 * DC[3] + 50 * DC[8] - 50 * DC[18] + 7 * DC[23]));
+        ws[8] = estimate(al, Q10, num);
+      }
+      if ((al = bits[3]) != 0 && ws[16] == 0) {
+        int64_t num = Q00 * (changeDc ? (DC[3] + 2 * DC[7] + 7 * DC[8] + 2 * DC[9] - 5 * DC[12] -
+                                         14 * DC[13] - 5 * DC[14] + 2 * DC[17] + 7 * DC[18] +
+                                         2 * DC[19] + DC[23])
+                                      : (-DC[3] + 13 * DC[8] - 24 * DC[13] + 13 * DC[18] - DC[23]));
+        ws[16] = estimate(al, Q20, num);
+      }
+      if ((al = bits[4]) != 0 && ws[9] == 0) {
+        int64_t num = Q00 * (changeDc ? (-DC[1] + DC[5] + 9 * DC[7] - 9 * DC[9] - 9 * DC[17] +
+                                         9 * DC[19] + DC[21] - DC[25])
+                                      : (DC[10] + DC[16] - 10 * DC[17] + 10 * DC[19] - DC[2] -
+                                         DC[20] + DC[22] - DC[24] + DC[4] - DC[6] + 10 * DC[7] -
+                                         10 * DC[9]));
+        ws[9] = estimate(al, Q11, num);
+      }
+      if ((al = bits[5]) != 0 && ws[2] == 0) {
+        int64_t num = Q00 * (changeDc ? (2 * DC[7] - 5 * DC[8] + 2 * DC[9] + DC[11] + 7 * DC[12] -
+                                         14 * DC[13] + 7 * DC[14] + DC[15] + 2 * DC[17] -
+                                         5 * DC[18] + 2 * DC[19])
+                                      : (-DC[11] + 13 * DC[12] - 24 * DC[13] + 13 * DC[14] - DC[15]));
+        ws[2] = estimate(al, Q02, num);
+      }
+      if (changeDc) {
+        if ((al = bits[6]) != 0 && ws[3] == 0)
+          ws[3] = estimate(al, Q03, Q00 * (DC[7] - DC[9] + 2 * DC[12] - 2 * DC[14] + DC[17] - DC[19]));
+        if ((al = bits[7]) != 0 && ws[10] == 0)
+          ws[10] =
+              estimate(al, Q12, Q00 * (DC[7] - 3 * DC[8] + DC[9] - DC[17] + 3 * DC[18] - DC[19]));
+        if ((al = bits[8]) != 0 && ws[17] == 0)
+          ws[17] =
+              estimate(al, Q21, Q00 * (DC[7] - DC[9] - 3 * DC[12] + 3 * DC[14] + DC[17] - DC[19]));
+        if ((al = bits[9]) != 0 && ws[24] == 0)
+          ws[24] =
+              estimate(al, Q30, Q00 * (DC[7] + 2 * DC[8] + DC[9] - DC[17] - 2 * DC[18] - DC[19]));
+        int64_t num =
+            Q00 * (-2 * DC[1] - 6 * DC[2] - 8 * DC[3] - 6 * DC[4] - 2 * DC[5] - 6 * DC[6] +
+                   6 * DC[7] + 42 * DC[8] + 6 * DC[9] - 6 * DC[10] - 8 * DC[11] + 42 * DC[12] +
+                   152 * DC[13] + 42 * DC[14] - 8 * DC[15] - 6 * DC[16] + 6 * DC[17] + 42 * DC[18] +
+                   6 * DC[19] - 6 * DC[20] - 2 * DC[21] - 6 * DC[22] - 8 * DC[23] - 6 * DC[24] -
+                   2 * DC[25]);
+        ws[0] = num >= 0 ? static_cast<int16_t>(((Q00 << 7) + num) / (Q00 << 8))
+                         : static_cast<int16_t>(-(((Q00 << 7) - num) / (Q00 << 8)));
+      }
+      idctIslow(ws, qt, out + bx * 8, stride);
+    }
+  }
+
+  // The component's real samples, [height rows][stride], after the IDCT (or
+  // the lossless predictors).
   std::vector<uint8_t> samples(const Component& c, int& stride) {
+    if (lossless_) {
+      stride = c.blocksW;
+      std::vector<uint8_t> plane(static_cast<size_t>(stride) * c.height);
+      for (size_t i = 0; i < plane.size(); ++i) plane[i] = static_cast<uint8_t>(c.diffs[i]);
+      return plane;
+    }
     stride = c.realBlocksW * 8;
     std::vector<uint8_t> plane(static_cast<size_t>(stride) * c.realBlocksH * 8);
     const int16_t* q = c.quant;
-    for (int by = 0; by < c.realBlocksH; ++by)
+    for (int by = 0; by < c.realBlocksH; ++by) {
+      uint8_t* row = &plane[static_cast<size_t>(by) * 8 * stride];
+      if (smoothing_) {
+        smoothRow(c, by, row, stride);
+        continue;
+      }
       for (int bx = 0; bx < c.realBlocksW; ++bx)
-        idctIslow(&c.coefs[(static_cast<size_t>(by) * c.blocksW + bx) * 64], q,
-                  &plane[static_cast<size_t>(by) * 8 * stride + bx * 8], stride);
+        idctIslow(&c.coefs[(static_cast<size_t>(by) * c.blocksW + bx) * 64], q, row + bx * 8, stride);
+    }
     return plane;
   }
 
@@ -862,8 +1485,7 @@ class Decoder {
   std::vector<uint8_t> upsample(const Component& c) {
     int stride;
     std::vector<uint8_t> in = samples(c, stride);
-    int hr = hmax_ / c.h, vr = vmax_ / c.v;
-    if (hmax_ % c.h || vmax_ % c.v) unsupported("JPEG with non-integral sampling ratios");
+    const int hr = hmax_ / c.h, vr = vmax_ / c.v;
     const int W = width_, H = height_, dw = c.width, dh = c.height;
     std::vector<uint8_t> out(static_cast<size_t>(W) * H);
     auto row = [&](int y) { return &in[static_cast<size_t>(std::min(std::max(y, 0), dh - 1)) * stride]; };
@@ -871,34 +1493,32 @@ class Decoder {
       for (int y = 0; y < H; ++y) std::memcpy(&out[static_cast<size_t>(y) * W], row(y), W);
       return out;
     }
-    std::vector<uint8_t> line(static_cast<size_t>(dw) * 2 + 2);
+    std::vector<uint8_t> line(static_cast<size_t>(dw) * hr + 8);
     auto store = [&](int y, const uint8_t* src) {
       if (y < H) std::memcpy(&out[static_cast<size_t>(y) * W], src, W);
     };
-    if (hr == 2 && vr == 1) {
+    // lossless files have no fancy upsampling (jdmaster.c: do_fancy needs a DCT)
+    const bool fancy = !lossless_;
+    if (fancy && hr == 2 && vr == 1 && dw > 2) {  // h2v1_fancy_upsample
       for (int y = 0; y < dh; ++y) {
         const uint8_t* p = row(y);
         uint8_t* o = line.data();
-        if (dw > 2) {  // h2v1_fancy_upsample
-          int v = p[0];
-          o[0] = static_cast<uint8_t>(v);
-          o[1] = static_cast<uint8_t>((v * 3 + p[1] + 2) >> 2);
-          for (int x = 1; x < dw - 1; ++x) {
-            v = p[x] * 3;
-            o[2 * x] = static_cast<uint8_t>((v + p[x - 1] + 1) >> 2);
-            o[2 * x + 1] = static_cast<uint8_t>((v + p[x + 1] + 2) >> 2);
-          }
-          v = p[dw - 1];
-          o[2 * dw - 2] = static_cast<uint8_t>((v * 3 + p[dw - 2] + 1) >> 2);
-          o[2 * dw - 1] = static_cast<uint8_t>(v);
-        } else {  // h2v1_upsample
-          for (int x = 0; x < dw; ++x) o[2 * x] = o[2 * x + 1] = p[x];
+        int v = p[0];
+        o[0] = static_cast<uint8_t>(v);
+        o[1] = static_cast<uint8_t>((v * 3 + p[1] + 2) >> 2);
+        for (int x = 1; x < dw - 1; ++x) {
+          v = p[x] * 3;
+          o[2 * x] = static_cast<uint8_t>((v + p[x - 1] + 1) >> 2);
+          o[2 * x + 1] = static_cast<uint8_t>((v + p[x + 1] + 2) >> 2);
         }
+        v = p[dw - 1];
+        o[2 * dw - 2] = static_cast<uint8_t>((v * 3 + p[dw - 2] + 1) >> 2);
+        o[2 * dw - 1] = static_cast<uint8_t>(v);
         store(y, o);
       }
       return out;
     }
-    if (hr == 1 && vr == 2) {  // h1v2_fancy_upsample
+    if (fancy && hr == 1 && vr == 2) {  // h1v2_fancy_upsample
       for (int y = 0; y < dh; ++y) {
         const uint8_t* p0 = row(y);
         for (int v = 0; v < 2; ++v) {
@@ -911,52 +1531,52 @@ class Decoder {
       }
       return out;
     }
-    if (hr == 2 && vr == 2) {
+    if (fancy && hr == 2 && vr == 2 && dw > 2) {  // h2v2_fancy_upsample
       for (int y = 0; y < dh; ++y) {
         const uint8_t* p0 = row(y);
         for (int v = 0; v < 2; ++v) {
           uint8_t* o = line.data();
-          if (dw > 2) {  // h2v2_fancy_upsample
-            const uint8_t* p1 = row(v == 0 ? y - 1 : y + 1);
-            int thiscol = p0[0] * 3 + p1[0];
-            int nextcol = p0[1] * 3 + p1[1];
-            o[0] = static_cast<uint8_t>((thiscol * 4 + 8) >> 4);
-            o[1] = static_cast<uint8_t>((thiscol * 3 + nextcol + 7) >> 4);
-            int lastcol = thiscol;
+          const uint8_t* p1 = row(v == 0 ? y - 1 : y + 1);
+          int thiscol = p0[0] * 3 + p1[0];
+          int nextcol = p0[1] * 3 + p1[1];
+          o[0] = static_cast<uint8_t>((thiscol * 4 + 8) >> 4);
+          o[1] = static_cast<uint8_t>((thiscol * 3 + nextcol + 7) >> 4);
+          int lastcol = thiscol;
+          thiscol = nextcol;
+          for (int x = 2; x < dw; ++x) {
+            nextcol = p0[x] * 3 + p1[x];
+            o[2 * x - 2] = static_cast<uint8_t>((thiscol * 3 + lastcol + 8) >> 4);
+            o[2 * x - 1] = static_cast<uint8_t>((thiscol * 3 + nextcol + 7) >> 4);
+            lastcol = thiscol;
             thiscol = nextcol;
-            for (int x = 2; x < dw; ++x) {
-              nextcol = p0[x] * 3 + p1[x];
-              o[2 * x - 2] = static_cast<uint8_t>((thiscol * 3 + lastcol + 8) >> 4);
-              o[2 * x - 1] = static_cast<uint8_t>((thiscol * 3 + nextcol + 7) >> 4);
-              lastcol = thiscol;
-              thiscol = nextcol;
-            }
-            o[2 * dw - 2] = static_cast<uint8_t>((thiscol * 3 + lastcol + 8) >> 4);
-            o[2 * dw - 1] = static_cast<uint8_t>((thiscol * 4 + 7) >> 4);
-          } else {  // h2v2_upsample
-            for (int x = 0; x < dw; ++x) o[2 * x] = o[2 * x + 1] = p0[x];
           }
+          o[2 * dw - 2] = static_cast<uint8_t>((thiscol * 3 + lastcol + 8) >> 4);
+          o[2 * dw - 1] = static_cast<uint8_t>((thiscol * 4 + 7) >> 4);
           store(2 * y + v, o);
         }
       }
       return out;
     }
-    unsupported("JPEG with sampling ratio " + std::to_string(hr) + "x" + std::to_string(vr));
+    // h2v1_upsample, h2v2_upsample and int_upsample: replication
+    for (int y = 0; y < dh; ++y) {
+      const uint8_t* p = row(y);
+      uint8_t* o = line.data();
+      for (int x = 0; x < dw; ++x) std::memset(o + x * hr, p[x], hr);
+      for (int v = 0; v < vr; ++v) store(y * vr + v, o);
+    }
+    return out;
   }
 
   void output(uint8_t* rgb) {
     const size_t pixels = static_cast<size_t>(width_) * height_;
-    if (comps_.size() == 1) {
+    if (space_ == kGray) {
       std::vector<uint8_t> gray = upsample(comps_[0]);
       for (size_t i = 0; i < pixels; ++i) rgb[3 * i] = rgb[3 * i + 1] = rgb[3 * i + 2] = gray[i];
       return;
     }
     std::vector<uint8_t> a = upsample(comps_[0]), b = upsample(comps_[1]), c = upsample(comps_[2]);
-    bool isRgb;
-    if (sawJfif_) isRgb = false;
-    else if (sawAdobe_) isRgb = adobeTransform_ == 0;
-    else isRgb = comps_[0].id == 82 && comps_[1].id == 71 && comps_[2].id == 66;
-    if (isRgb) {
+    const Tables& t = tables();
+    if (space_ == kRgb) {
       for (size_t i = 0; i < pixels; ++i) {
         rgb[3 * i] = a[i];
         rgb[3 * i + 1] = b[i];
@@ -964,25 +1584,49 @@ class Decoder {
       }
       return;
     }
-    const Tables& t = tables();
-    for (size_t i = 0; i < pixels; ++i) {  // jdcolor.c::ycc_rgb_convert
-      int y = a[i], cb = b[i], cr = c[i];
-      rgb[3 * i] = clampByte(y + t.crR[cr]);
-      rgb[3 * i + 1] = clampByte(y + static_cast<int>((t.cbG[cb] + t.crG[cr]) >> 16));
-      rgb[3 * i + 2] = clampByte(y + t.cbB[cb]);
+    if (space_ == kYcc) {
+      for (size_t i = 0; i < pixels; ++i) {  // jdcolor.c::ycc_rgb_convert
+        int y = a[i], cb = b[i], cr = c[i];
+        rgb[3 * i] = clampByte(y + t.crR[cr]);
+        rgb[3 * i + 1] = clampByte(y + static_cast<int>((t.cbG[cb] + t.crG[cr]) >> 16));
+        rgb[3 * i + 2] = clampByte(y + t.cbB[cb]);
+      }
+      return;
+    }
+    std::vector<uint8_t> k = upsample(comps_[3]);
+    for (size_t i = 0; i < pixels; ++i) {
+      int cmyk[4] = {a[i], b[i], c[i], k[i]};
+      if (space_ == kYcck) {  // jdcolor.c::ycck_cmyk_convert
+        int y = a[i], cb = b[i], cr = c[i];
+        cmyk[0] = clampByte(255 - (y + t.crR[cr]));
+        cmyk[1] = clampByte(255 - (y + static_cast<int>((t.cbG[cb] + t.crG[cr]) >> 16)));
+        cmyk[2] = clampByte(255 - (y + t.cbB[cb]));
+      }
+      // PIL: rawmode "CMYK;I" inverts each sample, then Convert.c::cmyk2rgb
+      int nk = cmyk[3];  // 255 - (255 - k)
+      for (int j = 0; j < 3; ++j) {
+        int tmp = (255 - cmyk[j]) * nk + 128;
+        rgb[3 * i + j] = clampByte(nk - (((tmp >> 8) + tmp) >> 8));
+      }
     }
   }
 
   const uint8_t* data_;
   size_t size_, pos_ = 0, scanStart_ = 0;
-  bool frame_ = false, progressive_ = false, sawJfif_ = false, sawAdobe_ = false;
+  bool frame_ = false, progressive_ = false, arith_ = false, lossless_ = false, smoothing_ = false;
+  bool sawJfif_ = false, sawAdobe_ = false;
   int adobeTransform_ = -1;
+  Space space_ = kGray;
   int height_ = 0, width_ = 0, hmax_ = 1, vmax_ = 1, mcusX_ = 0, mcusY_ = 0;
   int restartInterval_ = 0;
   std::vector<Component> comps_;
   HuffTable huff_[2][4];
   int16_t quant_[4][64] = {};
   bool quantDefined_[4] = {false, false, false, false};
+  // jdmarker.c::get_soi: the default conditioning
+  int dcL_[16] = {}, dcU_[16] = {1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1},
+      acK_[16] = {5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5, 5};
+  uint8_t dcStats_[4][64] = {}, acStats_[4][256] = {};
 };
 
 // ===================================================================== encoder

@@ -7,9 +7,8 @@
     augmentation runs on the device, `data/augment.py`).
   * `getValLoader` (`:70-89`): a folder, batch 1, aligned crop.
 
-The port reads PNG, JPEG and BMP (`data/dataset.py`). A training folder
-holding WebP images is refused with an error: training on a silent subset
-would be a different run.
+The port reads PNG, JPEG, BMP and WebP (`data/dataset.py`), every form the
+JAX package reads through PIL.
 """
 import logging
 import queue
@@ -17,7 +16,7 @@ import random
 import threading
 from typing import Iterable, Iterator
 
-from mcquic_tpu_torch.data.dataset import (UNREAD_EXTENSIONS, BasicFolder, TarShards, batched,
+from mcquic_tpu_torch.data.dataset import (BasicFolder, TarShards, batched,
                                            isShardPattern, listImages, randomResizedCrop,
                                            shuffled)
 from mcquic_tpu_torch.data.transforms import alignedCrop
@@ -53,20 +52,6 @@ def prefetched(gen: Iterable, depth: int = 4) -> Iterator:
         raise failure[0]
 
 
-def checkTrainSet(pattern) -> str:
-    """The training set, after refusing a folder that holds images the port
-    cannot read (WebP). Tar shards pass: their WebP members are skipped with
-    a warning as they stream."""
-    src = str(pattern)
-    if isShardPattern(src):
-        return src
-    others = [p for p in listImages(src) if p.suffix.lower() in UNREAD_EXTENSIONS]
-    if others:
-        raise ValueError(f"trainSet {src!r} holds {len(others)} WebP images (e.g. "
-                         f"{others[0]}); this package decodes PNG, JPEG and BMP only")
-    return src
-
-
 def getTrainLoader(pattern, batchSize: int, cropSize: int = 512, seed: int = 0,
                    shuffleBuffer: int = 500, prefetch: int = 4, hostId: int = 0,
                    hostCount: int = 1):
@@ -76,7 +61,7 @@ def getTrainLoader(pattern, batchSize: int, cropSize: int = 512, seed: int = 0,
     reads its share of the tar shards (`TarShards`); a folder is read whole
     on every host with the same seed, as the JAX loader reads it
     (`mcquic_tpu/data/__init__.py:55-57`)."""
-    src = checkTrainSet(pattern)
+    src = str(pattern)
     epochBox = [0]
 
     def loaderFn():

@@ -12,9 +12,8 @@ folder to webdataset-style tar shards (counterpart of
     OUTPUT as `mcquic_DATA_%05d.tar.gz` (`_mergeSplits`), and
     `metadata.json` with the sample count.
 For the same folder and `jobs`, the shards' tar bytes and `metadata.json`
-equal the JAX writer's. Inputs are PNG, JPEG and BMP; WebP files are
-skipped with a warning that names them, and a JPEG or BMP the port does not
-read raises.
+equal the JAX writer's. Inputs are PNG, JPEG, BMP and WebP in every form
+PIL reads; a file PIL cannot read is dropped, as the JAX writer drops it.
 """
 import gzip
 import io
@@ -29,7 +28,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from mcquic_tpu_torch.data.dataset import _decodeImage, listImages, skipUnread
+from mcquic_tpu_torch.data.dataset import _decodeImage, listImages
 from mcquic_tpu_torch.data.jpeg import encodeJpeg
 
 logger = logging.getLogger("mcquic_tpu_torch.data")
@@ -120,7 +119,7 @@ def main(images, output, jobs: int = 1, gen: bool = False) -> int:
     jobs = max(int(jobs), 1)
     output = Path(output)
     output.mkdir(parents=True, exist_ok=True)
-    files = [f for f in listImages(images) if not skipUnread(f)]
+    files = listImages(images)
     logger.info("scanning %d candidate images", len(files))
     start = time.time()
     with ThreadPoolExecutor(jobs) as pool:

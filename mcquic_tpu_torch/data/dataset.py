@@ -4,14 +4,11 @@ reference `mcquic/data/dataset.py:67-123` and the webdataset pipeline of
 `mcquic/data/__init__.py:96-151`).
 
 Images decode through the port's own codecs, chosen by the file's magic
-bytes: PNG in every form (`data/png.py`), sequential and progressive JPEG
-(`data/jpeg.py`) and BMP (`data/bmp.py`), each equal to PIL's
-`convert("RGB")`. A corrupt or truncated file decodes to None, as in the JAX
-package; a file of a kind the port does not read raises: `UnsupportedJpeg`
-(arithmetic, 12-bit, lossless, CMYK, progressive with unsent bits),
-`UnsupportedImage` (RLE or OS/2 1.x BMP, WebP). WebP files, which the JAX
-package reads through PIL, are listed and then skipped with a warning that
-names them.
+bytes: PNG in every form (`data/png.py`), JPEG in every form PIL reads
+(`data/jpeg.py`), BMP (`data/bmp.py`) and WebP (`data/webp.py`), each equal
+to PIL's `convert("RGB")`. A file PIL cannot read (corrupt, truncated, or
+of a kind libjpeg, libwebp or PIL refuses) decodes to None, as in the JAX
+package.
 """
 import glob
 import logging
@@ -26,17 +23,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mcquic_tpu_torch.data.bmp import MAGIC as BMP_MAGIC, UnsupportedBmp, decodeBmp
+from mcquic_tpu_torch.data.bmp import MAGIC as BMP_MAGIC, decodeBmp
 from mcquic_tpu_torch.data.jpeg import MAGIC as JPEG_MAGIC, UnsupportedJpeg, readJpeg
 from mcquic_tpu_torch.data.png import SIGNATURE as PNG_SIGNATURE, decodePng
+from mcquic_tpu_torch.data.webp import isWebp, readWebp
 
 IMG_EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
-UNREAD_EXTENSIONS = (".webp",)               # listed, then skipped with a warning
 logger = logging.getLogger("mcquic_tpu_torch.data")
-
-
-class UnsupportedImage(ValueError):
-    """An image format the port has no decoder for."""
 
 
 def listImages(root) -> List[Path]:
@@ -50,49 +43,35 @@ def isShardPattern(source) -> bool:
     return any(ch in src for ch in "*?[") or src.endswith((".tar", ".tar.gz"))
 
 
-def skipUnread(name) -> bool:
-    """True, with a warning naming it, for a WebP file or member."""
-    if Path(str(name)).suffix.lower() in UNREAD_EXTENSIONS:
-        logger.warning("%s is WebP; this package decodes PNG, JPEG and BMP only; skipped", name)
-        return True
-    return False
-
-
 def _decodeImage(data: bytes, name: str = "") -> Optional[np.ndarray]:
-    """RGB uint8 [h, w, 3] of a PNG, JPEG or BMP file's bytes, by their
-    magic; None for a corrupt or truncated file
-    (`mcquic_tpu/data/dataset.py:27-34`). A JPEG the port does not read
-    raises `UnsupportedJpeg`, an RLE or OS/2 1.x BMP or a WebP
-    `UnsupportedImage`, each naming `name`."""
+    """RGB uint8 [h, w, 3] of a PNG, JPEG, BMP or WebP file's bytes, by
+    their magic; None for a file PIL cannot read either
+    (`mcquic_tpu/data/dataset.py:27-34`). A valid JPEG of a kind the port
+    does not read would raise `UnsupportedJpeg` naming `name`; no branch of
+    the decoder raises it."""
     data = bytes(data)
     if data.startswith(PNG_SIGNATURE):
         try:
             return decodePng(data)
         except (ValueError, zlib.error, struct.error):
             return None
-    if data.startswith(JPEG_MAGIC):
-        try:
+    try:
+        if data.startswith(JPEG_MAGIC):
             return readJpeg(data, name)
-        except UnsupportedJpeg:
-            raise
-        except ValueError:
-            return None
-    if data.startswith(BMP_MAGIC):
-        try:
+        if data.startswith(BMP_MAGIC):
             return decodeBmp(data)
-        except UnsupportedBmp as e:
-            raise UnsupportedImage(f"{name}: {e}; this package reads BMP without RLE and "
-                                   "with Windows headers only") from None
-        except ValueError:
-            return None
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        raise UnsupportedImage(f"{name}: WebP; this package decodes PNG, JPEG and BMP only")
+        if isWebp(data):
+            return readWebp(data, name)
+    except UnsupportedJpeg:
+        raise
+    except ValueError:
+        return None
     return None
 
 
 def readImage(path) -> np.ndarray:
-    """RGB uint8 [h, w, 3] of a PNG, JPEG or BMP file; a file that does not
-    decode raises (`mcquic_tpu/demo.py:151-154` and
+    """RGB uint8 [h, w, 3] of a PNG, JPEG, BMP or WebP file; a file that does
+    not decode raises (`mcquic_tpu/demo.py:151-154` and
     `mcquic_tpu/data/dataset.py:72-76` read what PIL reads)."""
     img = _decodeImage(Path(path).read_bytes(), str(path))
     if img is None:
@@ -101,17 +80,14 @@ def readImage(path) -> np.ndarray:
 
 
 class BasicFolder:
-    """The PNG, JPEG and BMP images under `root`, sorted by path, as uint8
-    [h, w, 3]; a file that does not decode raises, as in
-    `mcquic_tpu/data/dataset.py:61-80`. WebP files are listed as the JAX
-    package lists them, then skipped with a warning, so a folder that mixes
-    formats is never read silently as a subset."""
+    """The PNG, JPEG, BMP and WebP images under `root`, sorted by path, as
+    uint8 [h, w, 3]; a file that does not decode raises, as in
+    `mcquic_tpu/data/dataset.py:61-80`."""
 
     def __init__(self, root):
-        files = listImages(root)
-        if not files:
+        self._files = listImages(root)
+        if not self._files:
             raise FileNotFoundError(f"No images under {root}")
-        self._files = [p for p in files if not skipUnread(p)]
 
     def __len__(self):
         return len(self._files)
@@ -125,14 +101,11 @@ class BasicFolder:
 
 
 def shardMembers(shard: str):
-    """(member name, bytes) of a shard's image files, in member order; WebP
-    members are skipped with a warning."""
+    """(member name, bytes) of a shard's image files, in member order."""
     mode = "r:gz" if shard.endswith(".gz") else "r"
     with tarfile.open(shard, mode) as tf:
         for member in tf:
             if not member.isfile() or Path(member.name).suffix.lower() not in IMG_EXTENSIONS:
-                continue
-            if skipUnread(f"{shard}:{member.name}"):
                 continue
             yield member.name, tf.extractfile(member).read()
 

@@ -8,9 +8,8 @@ JAX package, no table is hard-coded; a folder with every class gets the
 canonical ids, and the labels come from the folder names.
 
 `getGenLoader` reads an imagenet-style folder (`root/<wnid>/*.JPEG`, PNG,
-JPEG or BMP) or wnid-keyed tar shards (a glob, `.tar` or `.tar.gz`), as the
-JAX package's does. A class folder holding WebP images is refused, as
-`data/__init__.py::checkTrainSet` refuses one for stage 1.
+JPEG, BMP or WebP) or wnid-keyed tar shards (a glob, `.tar` or `.tar.gz`),
+as the JAX package's does.
 """
 import glob
 import json
@@ -22,7 +21,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from mcquic_tpu_torch.data.dataset import (IMG_EXTENSIONS, UNREAD_EXTENSIONS, _decodeImage,
+from mcquic_tpu_torch.data.dataset import (IMG_EXTENSIONS, _decodeImage,
                                            isShardPattern, randomResizedCrop, shardMembers,
                                            shuffled)
 
@@ -142,12 +141,7 @@ def getGenLoader(root, batchSize: int, cropSize: int = 256, seed: int = 0, hostI
     index on (`mcquic_tpu/data/imagenet_classes.py:85-87`, `:154`)."""
     if isShardPattern(root):
         return _genShardLoader(str(root), batchSize, cropSize, seed, hostId, hostCount)
-    allFiles = classFiles(root)
-    others = [f for f, _ in allFiles if f.suffix.lower() in UNREAD_EXTENSIONS]
-    if others:
-        raise ValueError(f"trainSet {str(root)!r} holds {len(others)} WebP images (e.g. "
-                         f"{others[0]}); this package decodes PNG, JPEG and BMP only")
-    files = allFiles[hostId::hostCount]
+    files = classFiles(root)[hostId::hostCount]
     if not files:
         raise FileNotFoundError(f"No class-labeled images under {root}")
     epochBox = [0]

@@ -1,14 +1,16 @@
-"""JPEG reading and writing through the port's own baseline codec
-(`csrc/jpeg.cpp`, built with g++ into `mcquic_tpu_torch/_build/` at first use
-and bound through ctypes, as `coding/rans.py` binds the rANS runtime).
+"""JPEG reading and writing through the port's own codec (`csrc/jpeg.cpp`,
+built with g++ into `mcquic_tpu_torch/_build/` at first use and bound through
+ctypes, as `coding/rans.py` binds the rANS runtime).
 
 `readJpeg(bytes)` returns RGB uint8 [H, W, 3], bit-identical to
-`PIL.Image.open(f).convert("RGB")` on libjpeg-turbo for sequential and
-progressive Huffman files (SOF0, SOF1, SOF2) of 1 or 3 components with
-sampling factors up to 2x2. A progressive file whose scans leave
-coefficient bits unsent (which libjpeg decodes with block smoothing),
-arithmetic-coded, lossless, 12-bit and CMYK / YCCK files raise
-`UnsupportedJpeg`; truncated or corrupt data raises `ValueError`.
+`PIL.Image.open(f).convert("RGB")` on libjpeg-turbo for every file PIL
+reads: sequential, progressive (with libjpeg's block smoothing where scans
+leave bits unsent) and lossless files, Huffman or arithmetic-coded, of 1, 3
+or 4 components (gray, YCbCr, RGB, CMYK, YCCK) with sampling factors up to
+4. A file PIL refuses (12-bit, 2 components, hierarchical, lossless with a
+colour conversion, and the like) or truncated or corrupt data raises
+`ValueError`. `UnsupportedJpeg`, a `ValueError` for a valid file the
+decoder does not read, is raised by no branch of the decoder today.
 
 `encodeJpeg(rgb, quality)` returns the bytes `PIL.Image.save(f, "JPEG",
 quality=quality)` writes for an RGB image: 4:2:0, the standard tables.
@@ -62,8 +64,7 @@ def _raise(status: int, err, name: str):
     message = err.value.decode(errors="replace")
     where = f"{name}: " if name else ""
     if status == _UNSUPPORTED:
-        raise UnsupportedJpeg(f"{where}{message}; this package reads sequential and "
-                              "progressive Huffman JPEG only")
+        raise UnsupportedJpeg(f"{where}{message}")
     raise ValueError(f"{where}cannot decode the JPEG: {message}")
 
 

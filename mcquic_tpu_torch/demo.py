@@ -2,7 +2,8 @@
 reference `mcquic/demo.py:45-77`): an image becomes a `.mcq`, whole or as a
 grid of tiles; a `.mcq` becomes a PNG. Models come from the zoo, by `-qp`
 (and `--mse`), or from a local exported model file, a v1 Compressor or a
-Neon tokenizer. The input image is a PNG, a JPEG or a BMP (`readImage`).
+Neon tokenizer. The input image is a PNG, a JPEG, a BMP or a WebP, in every
+form PIL reads (`readImage`).
 
 A zoo slot resolves as `mcquic_tpu/demo.py:36-129` resolves it, under the
 same environment variables, so both packages find the same files:

@@ -8,7 +8,7 @@ branch for branch the JAX page's (`:38-66`):
     whole, and offered as a PNG (`data/png.py::encodePng`) under the
     upload's stem;
   * anything else is read as an image by the package's decoders
-    (`data/dataset.py`: PNG, JPEG, BMP); an image of more than MAX_PIXELS
+    (`data/dataset.py`: PNG, JPEG, BMP, WebP); an image of more than MAX_PIXELS
     pixels is refused with the JAX page's text, the others are compressed,
     offered as `.mcq` bytes and previewed as restored.
 It returns the text shown, the bytes offered, their file name and the

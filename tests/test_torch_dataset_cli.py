@@ -4,10 +4,9 @@
 and with more jobs than images, every shard's tar bytes (compared after
 gzip decompression: the deflate bytes depend on the zlib build) and
 `metadata.json` are equal. The folder holds 512x512 crops of the photo as
-PNG, JPEG and BMP (the BMP passes into the shards as in the JAX writer, which
-reads it through PIL), an image under the filter's 512 px, a corrupt JPEG,
-and a WebP the port skips with a warning (the JAX writer fails to decode
-this one, so both sets agree).
+PNG, JPEG, BMP, a CMYK JPEG, a WebP with alpha and an RLE8 BMP (the port
+reads each as the JAX writer reads it through PIL), an image under the
+filter's 512 px, a corrupt JPEG and a corrupt WebP, which both writers drop.
 
 `tests/golden/torch_jpeg/photo.json` holds what `chip_smoke.py` holds the
 card host to: the digests of PIL's q95 bytes of the photo and of its decode
@@ -30,6 +29,7 @@ from PIL import Image
 
 from mcquic_tpu_torch.data import cli as portCli
 from mcquic_tpu_torch.data.png import readPng, writePng
+from test_torch_images import encodeRle8
 
 ROOT = Path(__file__).resolve().parent.parent
 PHOTO_JSON = ROOT / "tests" / "golden" / "torch_jpeg" / "photo.json"
@@ -45,6 +45,10 @@ def images(tmp_path_factory):
     writePng(folder / "small.png", photo[:300, :600])
     (folder / "broken.jpg").write_bytes(b"\xff\xd8\xff\xe0\x00\x10JFIF")
     Image.fromarray(photo[:, 100:612]).save(folder / "crop_bmp.bmp")
+    Image.fromarray(photo[:, 150:662]).convert("CMYK").save(folder / "crop_cmyk.jpg", quality=95)
+    alpha = np.dstack([photo[:, 30:542], (np.arange(512)[None].repeat(512, 0) % 256).astype(np.uint8)])
+    Image.fromarray(alpha, "RGBA").save(folder / "crop_alpha.webp", quality=80)
+    (folder / "crop_rle8.bmp").write_bytes(encodeRle8(photo[:, 220:732]))
     (folder / "skipped.webp").write_bytes(b"RIFF")
     return folder
 
@@ -61,37 +65,37 @@ def _both(images: Path, tmp: Path, jobs: int, gen: bool):
     return nOurs, nTheirs, ours, theirs
 
 
-@pytest.mark.parametrize("jobs,gen", [(1, False), (3, False), (2, True), (9, False)],
+@pytest.mark.parametrize("jobs,gen", [(1, False), (3, False), (2, True), (12, False)],
                          ids=["j1", "j3", "j2 -G", "more jobs than images"])
 def test_shards_equal_the_jax_writers(images, tmp_path, jobs, gen):
     nOurs, nTheirs, ours, theirs = _both(images, tmp_path, jobs, gen)
-    assert nOurs == nTheirs == 6
+    assert nOurs == nTheirs == 9
     a, b = _tars(ours), _tars(theirs)
-    assert list(a) == list(b) == [f"mcquic_DATA_{i:05d}.tar.gz" for i in range(min(jobs, 6))]
+    assert list(a) == list(b) == [f"mcquic_DATA_{i:05d}.tar.gz" for i in range(min(jobs, 9))]
     for name in a:
         assert a[name] == b[name], name
     assert (ours / "metadata.json").read_text() == (theirs / "metadata.json").read_text()
     assert json.loads((ours / "metadata.json").read_text()) == {
-        "count": 6, "shards": min(jobs, 6), "imageText": gen}
+        "count": 9, "shards": min(jobs, 9), "imageText": gen}
     assert not list(ours.glob("split*"))
 
 
 def test_dataset_command_writes_shards_and_names_what_it_skips(images, tmp_path):
     """`python -m mcquic_tpu_torch dataset -j 2 IMAGES OUTPUT` in a
-    subprocess: it prints the count, warns about the WebP by name, and its
-    members are `{key}.jpg` in key order across the shards."""
+    subprocess: it prints the count (the corrupt WebP and JPEG dropped, as
+    the JAX writer drops them; the CMYK JPEG, the WebP and the RLE8 BMP
+    kept), and its members are `{key}.jpg` in key order across the shards."""
     import tarfile
     proc = subprocess.run([sys.executable, "-m", "mcquic_tpu_torch", "dataset", "-j", "2",
                            str(images), str(tmp_path / "out")], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert proc.stdout.strip().splitlines()[-1] == "6"
-    assert "skipped.webp" in proc.stderr and "skipped" in proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "9"
     names = []
     for shard in sorted((tmp_path / "out").glob("*.tar.gz")):
         with tarfile.open(shard, "r:gz") as tf:
             names += [m.name for m in tf]
-    assert names == [f"{k:09d}.jpg" for k in range(6)]
+    assert names == [f"{k:09d}.jpg" for k in range(9)]
     first = tarfile.open(sorted((tmp_path / "out").glob("*.tar.gz"))[0], "r:gz")
     data = first.extractfile(first.getmember("000000000.jpg")).read()
     assert np.asarray(Image.open(io.BytesIO(data))).shape == (512, 512, 3)

@@ -4,7 +4,7 @@ sorted wnids, the class-folder loader's labels and epoch order
 resizes: the port's are held within one level), the generator's transform
 (`augment.trainingTransform(gen=True)`: the gamma and the jitter, no flips)
 on the same draws, tar shards and JPEG class folders read as the JAX loader
-reads them, and the refusal of BMP, WebP and progressive JPEG files."""
+reads them, with BMP, CMYK JPEG, WebP and progressive JPEG files among them."""
 from pathlib import Path
 
 import jax
@@ -80,12 +80,13 @@ def test_gen_transform_equals_jax_and_never_flips():
 def test_shards_and_jpeg_are_refused(classes, tmp_path):
     """Tar shards and JPEG class folders are read and match the JAX loader
     (labels equal, crops within one level), a progressive JPEG and a BMP
-    among them; WebP files are refused naming one, and a progressive JPEG
-    whose scans leave bits unsent raises `UnsupportedJpeg` naming it."""
+    among them; a progressive JPEG whose scans leave bits unsent (libjpeg
+    smooths its blocks), a CMYK JPEG and a WebP are read as the JAX loader
+    reads them, and a corrupt WebP is skipped as it skips it."""
     import io
     import tarfile
     from PIL import Image
-    from mcquic_tpu_torch.data.jpeg import UnsupportedJpeg, encodeJpeg
+    from mcquic_tpu_torch.data.jpeg import encodeJpeg
     img = readPng(ROOT / "assets" / "photo_768x512.png")
     (tmp_path / "shards").mkdir()
     with tarfile.open(tmp_path / "shards" / "a.tar.gz", "w:gz") as tf:
@@ -119,16 +120,22 @@ def test_shards_and_jpeg_are_refused(classes, tmp_path):
     for (imgA, lblA), (imgB, lblB) in zip(ours, theirs):
         np.testing.assert_array_equal(lblA, lblB)
         assert np.abs(imgA.astype(int) - imgB.astype(int)).max() <= 1
-    # one whose scans leave bits unsent is refused, naming it
+    # one whose scans leave bits unsent, a CMYK JPEG and a WebP are read; a
+    # corrupt WebP is skipped
     data = progressive.getvalue()
     (jpeg / WNIDS[1] / "p.JPEG").write_bytes(data[:data.rindex(b"\xff\xda")] + b"\xff\xd9")
-    with pytest.raises(UnsupportedJpeg, match=r"p.JPEG: incomplete progressive scans"):
-        for _ in imagenet_classes.getGenLoader(jpeg, 2, seed=1)():
-            pass
-    (jpeg / WNIDS[1] / "p.JPEG").unlink()
+    cmyk, webp = io.BytesIO(), io.BytesIO()
+    Image.fromarray(img[300:500, 400:640]).convert("CMYK").save(cmyk, format="JPEG", quality=90)
+    Image.fromarray(img[200:400, 500:740]).save(webp, format="WEBP", quality=70)
+    (jpeg / WNIDS[2] / "c.JPEG").write_bytes(cmyk.getvalue())
+    (jpeg / WNIDS[0] / "w.webp").write_bytes(webp.getvalue())
     (jpeg / WNIDS[0] / "b.webp").write_bytes(b"RIFF")
-    with pytest.raises(ValueError, match=r"1 WebP images \(e.g. .*b.webp\)"):
-        imagenet_classes.getGenLoader(jpeg, 2)
+    ours = list(imagenet_classes.getGenLoader(jpeg, 2, cropSize=128, seed=1)())
+    theirs = list(jaxClasses.getGenLoader(str(jpeg), 2, cropSize=128, seed=1)())
+    assert len(ours) == len(theirs) == 4
+    for (imgA, lblA), (imgB, lblB) in zip(ours, theirs):
+        np.testing.assert_array_equal(lblA, lblB)
+        assert np.abs(imgA.astype(int) - imgB.astype(int)).max() <= 1
     (tmp_path / "empty").mkdir()
     with pytest.raises(FileNotFoundError):
         imagenet_classes.getGenLoader(tmp_path / "empty", 2)

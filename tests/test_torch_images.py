@@ -12,8 +12,10 @@
     1 or L), 16, 24 and 32 bits, BI_RGB and BI_BITFIELDS in every layout PIL
     knows, bottom-up and top-down, at header sizes 40, 56, 108 and 124,
     written by `writeBmp`, and the files PIL writes (modes 1, L, P, RGB,
-    RGBA); RLE8, RLE4 and OS/2 1.x files raise `UnsupportedImage` naming the
-    file through `_decodeImage`, and a truncated one decodes to None;
+    RGBA); RLE8 and RLE4 files (`writeRle`, `encodeRle8`: runs, absolute
+    runs, deltas, early ends) and OS/2 1.x files (`writeOs2`) decode as PIL
+    reads them, or to None through `_decodeImage` where PIL fails, as does
+    a truncated file;
   * the card's fixture `tests/golden/torch_images/`: PIL's decode of every
     committed file hashes to its manifest entry (`writeFixture` writes both),
     and so does the port's.
@@ -30,7 +32,7 @@ import pytest
 from PIL import Image
 
 from mcquic_tpu_torch.data.bmp import decodeBmp
-from mcquic_tpu_torch.data.dataset import UnsupportedImage, _decodeImage, readImage
+from mcquic_tpu_torch.data.dataset import _decodeImage, readImage
 from mcquic_tpu_torch.data.png import SIGNATURE, decodePng, readPng
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -232,6 +234,135 @@ def _rle(data: bytes, compression: int) -> bytes:
     return bytes(b)
 
 
+def writeRle(width, height, rle4, seed, *, palette=None, colors=16, topDown=False, delta=False,
+             stop=None, header=40) -> bytes:
+    """An RLE8 or RLE4 BMP of random runs: each row a mix of encoded runs
+    and absolute runs (padded to 16 bits), ended by end of line, then end of
+    bitmap. `delta` puts a delta escape (00 02 dx dy) in the second row,
+    `stop` ends the bitmap after that many rows."""
+    rng = np.random.default_rng(seed)
+    if palette is None:
+        palette = rng.integers(0, 256, (colors, 4)).astype(np.uint8).tobytes()
+    stream = bytearray()
+    for y in range(height if stop is None else stop):
+        x = 0
+        if delta and y == 1:
+            stream += bytes([0, 2, 2, 1])
+        while x < width:
+            n = int(rng.integers(1, min(width - x, 20) + 1))
+            if n >= 3 and rng.random() < 0.5:
+                body = rng.integers(0, 256 if rle4 else colors, (n + 1) // 2 if rle4 else n)
+                body = body.astype(np.uint8).tobytes()
+                stream += bytes([0, n]) + body + bytes(len(body) % 2)
+            else:
+                stream += bytes([n, int(rng.integers(0, 256 if rle4 else colors))])
+            x += n
+        stream += b"\0\0"
+    stream += b"\0\1"
+    data = bytearray(writeBmp(width, height, 4 if rle4 else 8, bytes(stream), compression=2 if rle4 else 1,
+                              palette=palette, colors=colors, topDown=topDown, header=header))
+    return bytes(data)
+
+
+def encodeRle8(img: np.ndarray) -> bytes:
+    """An RLE8 BMP of RGB `img`, quantized to PIL's 256-colour palette:
+    each row (bottom-up) as encoded runs of equal indices and absolute runs
+    of differing ones (word padded), end of line, then end of bitmap, as
+    Windows writes RLE8."""
+    quantized = Image.fromarray(img).quantize(256)
+    indices = np.asarray(quantized)
+    rgb = np.asarray(quantized.getpalette()[:768], np.uint8).reshape(-1, 3)
+    palette = np.zeros((256, 4), np.uint8)
+    palette[:len(rgb), :3] = rgb[:, ::-1]
+    stream = bytearray()
+    for row in indices[::-1]:
+        x, width = 0, len(row)
+        while x < width:
+            run = 1
+            while x + run < width and run < 255 and row[x + run] == row[x]:
+                run += 1
+            if run >= 2:
+                stream += bytes([run, row[x]])
+                x += run
+                continue
+            end = x + 1
+            while end < width and end - x < 255 and (end + 1 >= width or row[end] != row[end + 1]):
+                end += 1
+            if end - x >= 3:
+                stream += bytes([0, end - x]) + row[x:end].tobytes() + bytes((end - x) & 1)
+            else:
+                stream += b"".join(bytes([1, v]) for v in row[x:end])
+            x = end
+        stream += b"\0\0"
+    stream += b"\0\1"
+    return writeBmp(img.shape[1], img.shape[0], 8, bytes(stream), compression=1,
+                    palette=palette.tobytes(), colors=256)
+
+
+def writeOs2(width, height, bits, seed, gray=False) -> bytes:
+    """An OS/2 1.x BMP (BITMAPCOREHEADER: 16-bit sizes, 3-byte palette)."""
+    rng = np.random.default_rng(seed)
+    colors = 1 << bits if bits <= 8 else 0
+    palette = (b"".join(bytes([v, v, v]) for v in range(256)) if gray
+               else rng.integers(0, 256, (colors, 3)).astype(np.uint8).tobytes())
+    stride = ((width * bits + 31) >> 3) & ~3
+    pixels = rng.integers(0, 256, (height, stride)).astype(np.uint8).tobytes()
+    offset = 14 + 12 + len(palette)
+    return (b"BM" + struct.pack("<IHHI", offset + len(pixels), 0, 0, offset)
+            + struct.pack("<IHHHH", 12, width, height, 1, bits) + palette + pixels)
+
+
+def rleAndOs2Cases():
+    cases = []
+    for rle4 in (False, True):
+        tag = "RLE4" if rle4 else "RLE8"
+        for w, h in ((1, 1), (7, 5), (13, 9), (40, 3)):
+            cases.append((f"{tag} {w}x{h}", writeRle(w, h, rle4, w * h)))
+        cases.append((f"{tag} top-down", writeRle(13, 9, rle4, 1, topDown=True)))
+        cases.append((f"{tag} header 124", writeRle(13, 9, rle4, 2, header=124)))
+        cases.append((f"{tag} delta", writeRle(13, 9, rle4, 3, delta=True)))
+        cases.append((f"{tag} end of bitmap early", writeRle(13, 9, rle4, 4, stop=5)))
+        cases.append((f"{tag} 3 colors", writeRle(13, 9, rle4, 5, colors=3)))
+    ramp = b"".join(bytes([v, v, v, 0]) for v in range(256))
+    cases.append(("RLE8 gray ramp", writeRle(13, 9, False, 6, palette=ramp, colors=256)))
+    cases.append(("RLE8 black and white", writeRle(13, 9, False, 7, palette=b"\0\0\0\0\xff\xff\xff\0",
+                                                   colors=2)))
+    data = writeRle(13, 9, False, 8)
+    cases.append(("RLE8 truncated", data[:len(data) // 2]))
+    cases.append(("RLE8 at 24 bits", data[:28] + struct.pack("<H", 24) + data[30:]))
+    for bits in (1, 4, 8, 24):
+        for w, h in ((1, 1), (7, 5), (13, 9)):
+            cases.append((f"OS/2 1.x {bits} bits {w}x{h}", writeOs2(w, h, bits, bits * w + h)))
+    cases.append(("OS/2 1.x gray ramp", writeOs2(13, 9, 8, 9, gray=True)))
+    cases.append(("RLE8 of the photo", encodeRle8(PHOTO[100:160, 200:283])))
+    return cases
+
+
+def test_rle_and_os2_bmp_decode_equal_pil_or_none_where_pil_fails():
+    """PIL's reading of every RLE and OS/2 1.x form, bit for bit; where PIL
+    fails (an early end of bitmap, truncated data, RLE at 24 bits or over a
+    2-colour gray palette) the port's `_decodeImage` returns None."""
+    failed = 0
+    for name, data in rleAndOs2Cases():
+        try:
+            want = pilDecode(data)
+        except (OSError, ValueError):
+            want = None
+        got = _decodeImage(data, name)
+        if want is None:
+            failed += 1
+            assert got is None, name
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=name)
+    assert 3 <= failed <= 7
+
+
+def _rle(data: bytes, compression: int) -> bytes:
+    b = bytearray(data)
+    b[30:34] = struct.pack("<I", compression)
+    return bytes(b)
+
+
 @pytest.mark.parametrize("kind,make,text", [
     ("RLE8", lambda: _rle(pilSave(Image.fromarray(PHOTO[:8, :8]).convert("P"), "BMP"), 1), "RLE8"),
     ("RLE4", lambda: _rle(writeBmp(4, 4, 4, bytes(16), palette=bytes(64), colors=16), 2), "RLE4"),
@@ -239,8 +370,19 @@ def _rle(data: bytes, compression: int) -> bytes:
      + struct.pack("<IHHHH", 12, 2, 2, 1, 24) + bytes(16), "OS/2"),
 ])
 def test_bmp_forms_the_port_does_not_read_raise_naming_the_file(kind, make, text):
-    with pytest.raises(UnsupportedImage, match=f"member.bmp: .*{text}"):
-        _decodeImage(make(), "member.bmp")
+    """The files once refused, each a form the reader now takes: the port
+    decodes each to PIL's RGB, or to None where PIL fails on the bytes (the
+    RLE8 case is uncompressed pixels relabelled RLE8)."""
+    data = make()
+    try:
+        want = pilDecode(data)
+    except (OSError, ValueError):
+        want = None
+    got = _decodeImage(data, "member.bmp")
+    if want is None:
+        assert got is None
+    else:
+        np.testing.assert_array_equal(got, want)
 
 
 def test_truncated_bmp_decodes_to_none_and_readimage_reads_bmp(tmp_path):
@@ -250,9 +392,12 @@ def test_truncated_bmp_decodes_to_none_and_readimage_reads_bmp(tmp_path):
         pilDecode(data[:-7])
     (tmp_path / "a.bmp").write_bytes(data)
     np.testing.assert_array_equal(readImage(tmp_path / "a.bmp"), PHOTO[:20, :30])
+    # a RIFF WEBP header without chunks: PIL does not identify it, and the port's
+    # WebP decoder refuses it
     webp = b"RIFF" + struct.pack("<I", 4) + b"WEBP"
-    with pytest.raises(UnsupportedImage, match="b.webp: WebP"):
-        _decodeImage(webp, "b.webp")
+    with pytest.raises(OSError):
+        pilDecode(webp)
+    assert _decodeImage(webp, "b.webp") is None
 
 
 # ------------------------------------------------------------------ fixture
@@ -290,6 +435,7 @@ def writeFixture(folder: Path = FIXTURE):
 
 
 def test_fixture_manifest_is_pils_decode_and_the_ports():
+    from mcquic_tpu.data.dataset import _decodeImage as jaxDecodeImage
     manifest = json.loads((FIXTURE / "manifest.json").read_text())
     assert sorted(manifest) == sorted(fixtureFiles())
     assert sum(p.stat().st_size for p in FIXTURE.iterdir()) < 60_000
@@ -298,3 +444,4 @@ def test_fixture_manifest_is_pils_decode_and_the_ports():
         theirs = pilDecode(data)
         assert list(theirs.shape) == entry["shape"] and _sha(theirs) == entry["sha256"], name
         assert _sha(_decodeImage(data, name)) == entry["sha256"], name
+        np.testing.assert_array_equal(_decodeImage(data, name), jaxDecodeImage(data), err_msg=name)

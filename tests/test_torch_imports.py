@@ -221,16 +221,19 @@ def test_dataset_and_shards_run_without_the_jax_package_and_its_dependencies(tmp
 
 def test_service_and_decoders_run_without_the_jax_package_and_its_dependencies(tmp_path):
     """In the guarded process (streamlit blocked too): a progressive JPEG, a
-    BMP and a 16-bit RGB PNG through the codec CLI, and `handleUpload` on
-    the tiny model for the BMP and its `.mcq`."""
+    BMP, a 16-bit RGB PNG, a WebP and a CMYK JPEG through the codec CLI, and
+    `handleUpload` on the tiny model for the BMP and its `.mcq`."""
     from PIL import Image
     from test_torch_images import pngForm
     photo = readPng(ROOT / "assets" / "photo_768x512.png")[:64, :96]
     Image.fromarray(photo).save(tmp_path / "p.jpg", quality=90, progressive=True)
     Image.fromarray(photo).save(tmp_path / "b.bmp")
     (tmp_path / "g.png").write_bytes(pngForm(2, 16, shape=(40, 48)))
+    Image.fromarray(photo).save(tmp_path / "w.webp", quality=80)
+    Image.fromarray(photo).convert("CMYK").save(tmp_path / "k.jpg", quality=95)
+    names = ("p.jpg", "b.bmp", "g.png", "w.webp", "k.jpg")
     runs = [["--device", "cpu", "--local", str(TINY), str(tmp_path / name),
-             str(tmp_path / (name + ".mcq"))] for name in ("p.jpg", "b.bmp", "g.png")]
+             str(tmp_path / (name + ".mcq"))] for name in names]
     extra = textwrap.dedent(f"""
         from pathlib import Path
         from mcquic_tpu_torch.demo import loadModel
@@ -250,7 +253,7 @@ def test_service_and_decoders_run_without_the_jax_package_and_its_dependencies(t
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "round trip ok" in proc.stdout and "handler ok" in proc.stdout
-    for name in ("p.jpg", "b.bmp", "g.png"):
+    for name in names:
         assert (tmp_path / (name + ".mcq")).stat().st_size > 0, name
 
 

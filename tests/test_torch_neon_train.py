@@ -174,7 +174,8 @@ def test_every_parameter_gradient_agrees(run):
 
 
 def test_remat_and_plain_give_identical_gradients(run):
-    rematted, rGrads = portStep(run["flat"], run["x"], run["recorder"].draw(run["drawn"]), True)
+    # the fixture's step is the remat one (portStep's default), on the same draws
+    rematted, rGrads = run["stepMetrics"], run["stepGrads"]
     plain, pGrads = portStep(run["flat"], run["x"], run["recorder"].draw(run["drawn"]), False)
     assert float(rematted["loss"]) == float(plain["loss"])
     for key in rGrads:

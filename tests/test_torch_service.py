@@ -3,9 +3,10 @@ against the JAX package's page (`mcquic_tpu/service/stCompressService.py`),
 both driven on the CPU with the tiny demo model through a stub streamlit
 (`tests/test_service.py`'s; streamlit is not installed here).
 
-Held: for an uploaded PNG, the `.mcq` bytes offered equal the JAX page's
-(which are `engine.compressImage(img).serialize()`), and so does the text
-shown; for an uploaded `.mcq`, whole or tiled, the restored PNG decodes to
+Held: for an uploaded PNG, WebP (with alpha) or CMYK JPEG, the `.mcq`
+bytes offered equal the JAX page's (which are
+`engine.compressImage(img).serialize()` of PIL's decode), and so does the
+text shown; for an uploaded `.mcq`, whole or tiled, the restored PNG decodes to
 the JAX page's restore, and the preview of either branch is its restore.
 Both pages run the model in fp32, where the decoder's convolutions sum in a
 different order in XLA and in torch: a restored value may land one level
@@ -68,6 +69,28 @@ def test_an_image_compresses_to_the_jax_pages_mcq(engines):
     data = encodePng(PHOTO[64:192, 128:320])
     texts, downloads, images, _ = _jaxPage(jaxPage, stub, "photo.png", data)
     answer = service.handleUpload(engine, "photo.png", data)
+    assert downloads == [("Download .mcq", answer.data, "photo.mcq")] and answer.fileName == "photo.mcq"
+    assert texts == [answer.text]
+    _assertRestore(answer.preview, images[0])
+
+
+def _upload(kind: str) -> bytes:
+    crop = PHOTO[96:224, 160:352]
+    buffer = io.BytesIO()
+    if kind == "webp":
+        alpha = (np.arange(crop.shape[1])[None].repeat(crop.shape[0], 0) % 256).astype(np.uint8)
+        Image.fromarray(np.dstack([crop, alpha]), "RGBA").save(buffer, format="WEBP", quality=80)
+    else:
+        Image.fromarray(crop).convert("CMYK").save(buffer, format="JPEG", quality=95)
+    return buffer.getvalue()
+
+
+@pytest.mark.parametrize("kind,name", [("webp", "photo.webp"), ("cmyk", "photo.jpg")])
+def test_a_webp_and_a_cmyk_jpeg_compress_to_the_jax_pages_mcq(engines, kind, name):
+    jaxPage, stub, engine, _ = engines
+    data = _upload(kind)
+    texts, downloads, images, _ = _jaxPage(jaxPage, stub, name, data)
+    answer = service.handleUpload(engine, name, data)
     assert downloads == [("Download .mcq", answer.data, "photo.mcq")] and answer.fileName == "photo.mcq"
     assert texts == [answer.text]
     _assertRestore(answer.preview, images[0])

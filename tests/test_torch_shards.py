@@ -11,7 +11,10 @@ states for `randomResizedCrop` (one level, under a quarter of the values):
     pixel-exact against the JAX package's (PIL) decode;
   * `getGenLoader` on wnid-keyed shards (`{wnid}_{n}.jpg`; the JAX writer
     keys samples by number, so these are written here) with and without a
-    `classes.json` sidecar, and on class folders of `.JPEG` files.
+    `classes.json` sidecar, and on class folders of `.JPEG` files, a CMYK
+    `.JPEG` and a `.webp` among them;
+  * a folder and a shard mixing PNG, a CMYK JPEG, a WebP with alpha and an
+    RLE8 BMP: `getTrainLoader`'s batches, and `TarShards` pixel-exact.
 """
 import io
 import json
@@ -25,6 +28,7 @@ from PIL import Image
 from mcquic_tpu_torch.data import TarShards, getTrainLoader
 from mcquic_tpu_torch.data.imagenet_classes import getGenLoader, shardClassIndex
 from mcquic_tpu_torch.data.png import readPng, writePng
+from test_torch_images import encodeRle8
 
 ROOT = Path(__file__).resolve().parent.parent
 PHOTO = readPng(ROOT / "assets" / "photo_768x512.png")
@@ -98,6 +102,53 @@ def test_train_loader_on_a_jpeg_and_png_folder_equals_jax(tmp_path):
             _close(x, y, f"epoch {epoch} batch {i}")
 
 
+def _mixed(i: int):
+    """(name, bytes) of crop i in the forms the JAX package reads through
+    PIL: PNG, CMYK JPEG, WebP with alpha, RLE8 BMP."""
+    from mcquic_tpu_torch.data.png import encodePng
+    crop = np.ascontiguousarray(PHOTO[i * 50:i * 50 + 200, i * 90:i * 90 + 260])
+    buffer = io.BytesIO()
+    kind = i % 4
+    if kind == 0:
+        return f"{i}.png", encodePng(crop)
+    if kind == 1:
+        Image.fromarray(crop).convert("CMYK").save(buffer, format="JPEG", quality=90)
+        return f"{i}.jpg", buffer.getvalue()
+    if kind == 2:
+        alpha = (np.arange(crop.shape[1])[None].repeat(crop.shape[0], 0) % 256).astype(np.uint8)
+        Image.fromarray(np.dstack([crop, alpha]), "RGBA").save(buffer, format="WEBP", quality=80)
+        return f"{i}.webp", buffer.getvalue()
+    return f"{i}.bmp", encodeRle8(crop)
+
+
+def test_train_loader_on_a_mixed_folder_equals_jax(tmp_path):
+    from mcquic_tpu.data import getTrainLoader as jaxGetTrainLoader
+    for i in range(6):
+        name, data = _mixed(i)
+        (tmp_path / name).write_bytes(data)
+    ours = getTrainLoader(tmp_path, 2, cropSize=48, seed=5)
+    theirs = jaxGetTrainLoader(str(tmp_path), 2, cropSize=48, seed=5)
+    for epoch in range(2):
+        a, b = list(ours()), list(theirs())
+        assert len(a) == len(b) == 3
+        for i, (x, y) in enumerate(zip(a, b)):
+            _close(x, y, f"epoch {epoch} batch {i}")
+
+
+def test_tar_shards_of_mixed_members_equal_jax(tmp_path):
+    from mcquic_tpu.data.dataset import TarShards as JaxTarShards
+    with tarfile.open(tmp_path / "mixed.tar", "w") as tf:
+        for i in range(4):
+            name, data = _mixed(i)
+            info = tarfile.TarInfo(name)
+            info.size = len(data)
+            tf.addfile(info, io.BytesIO(data))
+    ours, theirs = list(TarShards(str(tmp_path / "mixed.tar"))), list(JaxTarShards(str(tmp_path / "mixed.tar")))
+    assert len(ours) == len(theirs) == 4
+    for x, y in zip(ours, theirs):
+        np.testing.assert_array_equal(x, y)
+
+
 @pytest.fixture(scope="module")
 def genShards(tmp_path_factory):
     """Two wnid-keyed shards: `{wnid}_{n}.jpg` members, a `.txt` member and
@@ -146,6 +197,11 @@ def test_gen_loader_on_jpeg_class_folders_equals_jax(tmp_path):
         for i in range(2 + c):
             crop = PHOTO[c * 100 + i * 30:c * 100 + i * 30 + 160, i * 90:i * 90 + 200]
             (tmp_path / wnid / f"{wnid}_{i}.JPEG").write_bytes(_jpeg(crop))
+    cmyk, webp = io.BytesIO(), io.BytesIO()
+    Image.fromarray(PHOTO[300:480, 400:620]).convert("CMYK").save(cmyk, format="JPEG", quality=92)
+    Image.fromarray(PHOTO[250:420, 500:700]).save(webp, format="WEBP")
+    (tmp_path / WNIDS[0] / f"{WNIDS[0]}_cmyk.JPEG").write_bytes(cmyk.getvalue())
+    (tmp_path / WNIDS[1] / f"{WNIDS[1]}_w.webp").write_bytes(webp.getvalue())
     ours = getGenLoader(tmp_path, 3, cropSize=64, seed=7)
     theirs = jaxClasses.getGenLoader(str(tmp_path), 3, cropSize=64, seed=7)
     for epoch in range(2):
@@ -159,11 +215,10 @@ def test_gen_loader_on_jpeg_class_folders_equals_jax(tmp_path):
 def test_tar_shards_skip_what_is_corrupt_and_name_what_is_unsupported(tmp_path):
     """A truncated JPEG, a truncated PNG and a non-image member are skipped, as
     the JAX package's `TarShards` skips them; BMP and palette PNG members
-    are read and equal the JAX `TarShards`' (PIL's); an RLE8 BMP (valid,
-    which this package does not read) raises `UnsupportedImage` naming the
-    member."""
+    are read and equal the JAX `TarShards`' (PIL's); a BMP whose
+    uncompressed pixels are labelled RLE8, which PIL cannot read either, is
+    skipped as the JAX `TarShards` skips it."""
     from mcquic_tpu.data.dataset import TarShards as JaxTarShards
-    from mcquic_tpu_torch.data.dataset import UnsupportedImage
     from mcquic_tpu_torch.data.png import encodePng
     good = [PHOTO[:120, :160], PHOTO[200:320, 300:460]]
     members = [("0.jpg", _jpeg(good[0])), ("1.jpg", _jpeg(good[1])[:300]),
@@ -196,9 +251,10 @@ def test_tar_shards_skip_what_is_corrupt_and_name_what_is_unsupported(tmp_path):
     Image.fromarray(good[0]).convert("P").save(rle, format="BMP")
     rle = bytearray(rle.getvalue())
     rle[30:34] = (1).to_bytes(4, "little")               # BI_RLE8
-    shard(tmp_path / "c.tar", (("7.bmp", bytes(rle)),))
-    with pytest.raises(UnsupportedImage, match=r"c.tar:7.bmp: RLE8-compressed BMP"):
-        list(TarShards(str(tmp_path / "c.tar")))
+    shard(tmp_path / "c.tar", (("7.bmp", bytes(rle)), ("8.jpg", _jpeg(good[1]))))
+    ours, theirs = list(TarShards(str(tmp_path / "c.tar"))), list(JaxTarShards(str(tmp_path / "c.tar")))
+    assert len(ours) == len(theirs) == 1
+    np.testing.assert_array_equal(ours[0], theirs[0])
 
 
 # ------------------------------------------------------------ split by host

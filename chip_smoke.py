@@ -70,13 +70,17 @@ ends:
      and K1 twice per compress; K1b's codes equal the plain version's on its
      real latents, and the card's codes the CPU's on a crop);
      `compressMany` / `decompressMany` against per-batch calls; a `--tile
-     256` round trip through the CLI against the same tiles coded whole.
+     256` round trip through the CLI against the same tiles coded whole, the
+     compress in TILED_PROCESSES fresh processes beside the phase's other
+     work, each `.mcq` equal to the in-process one and to the tiles coded
+     one at a time (ROADMAP C8);
   8. the Neon codec: a seeded Neon export at configs/rd5/neon_v2_60k.yaml's
      geometry goes through `demo.loadModel(local=...)` and compresses and
      restores a 256x256 crop of the photo through a `.mcq` (9 K1 launches
      per compress, K1's codes equal to the plain version's on its real
      latents, the card's codes to the CPU's on CODES_MIN_AGREEMENT of the
-     tokens, as phase 4), and the `--local` CLI writes the same file;
+     tokens, as phase 4), and the `--local` CLI, started beside the phase's
+     in-process work, writes the same file;
   9. stage-1 training at full width: 512x512 crops of the photo go through
      `python -m mcquic_tpu_torch dataset -j 2` in a subprocess (tar shards of
      q95 JPEGs), whose tar bytes must equal the JAX writer's and whose
@@ -121,8 +125,10 @@ ends:
      norm equal the CPU's (TRAIN_CPU_RTOL); in process, K1 launches 9 times
      per step with codes equal to the plain version's, K3 never, and the
      tokenizer stays bit-identical; GEN_TRAIN_STEPS steps through
-     `python -m mcquic_tpu_torch train -G` keep the tokenizer identical to
-     phase 10's; sampling from the trained checkpoint launches K3 72 times,
+     `python -m mcquic_tpu_torch.train CONFIG -G` (started first, beside the
+     in-process build and the CPU's first step), whose config's
+     `externalLib` plugin registers a hook that sees every step, keep the
+     tokenizer identical to phase 10's; sampling from the trained checkpoint launches K3 72 times,
      each held to its plain version, and the generate CLI writes 2 PNGs.
      Both phases print steps/s, images/s, idle share, device busy per step
      and peak memory.
@@ -139,11 +145,13 @@ ends:
      the ranks (ZeRO): the first step's loss and gradient norm within
      TRAIN_CPU_RTOL, the ranks' parameter checksums equal after every step,
      each rank's optimizer state the one process's less half the sharded
-     parameters' slots, K1 equal to its plain version on the codebooks after
+     parameters' slots, the rd_qp2 ranks saving DCP steps
+     (MCQUIC_CKPT_BACKEND=orbax) that this process resumes at world 1, the
+     resumed state through the npz route bit-identical to the ranks' own, K1 equal to its plain version on the codebooks after
      every sharded step (its norm cache must see the step's writes), rank 0's
      validation K1 3 and K2 1 per image (rank 1 none), K1 9 per generator
      step on each rank; steps/s and peak per rank (two ranks on one card
-     measure no scaling); (c) NCCL at world 2 on the one card, its outcome
+     measure no scaling); (c) NCCL at world 2 on the one card, beside (b), its outcome
      printed verbatim;
  13. GeneratorVAR at the JAX package's defaults (depth 24, width 1536, 16
      heads, about 1.0 B transformer parameters) over the neonA tokenizer,
@@ -172,7 +180,13 @@ ends:
      card and on the CPU (TRAIN_CPU_RTOL; the CPU's in a thread); a seeded
      text-conditioned generator at gen_stage2_neonA's geometry (capDim 512)
      sampling greedily from seeded caption embeddings (K3 72), its depth-2
-     cut held to the CPU's as in phase 6.
+     cut held to the CPU's as in phase 6;
+ 16. serving over a device list: the qp-2 zoo engine over ["cuda:0",
+     "cuda:0"], one replica each, on the speed batch (split 5 and 5) and a
+     batch of 3 (whole on the first), `.mcq` bytes equal to the one-device
+     engine's, K1 3 and K2 1 per replica, the wall times beside one
+     device's; the seeded past-budget model over the same list, K1b once
+     and K1 twice per replica, every search equal to the plain version.
      The CPU reference steps of phases 10 and 15 run in a thread while the
      card works (`startCpuStep`), and phase 13's generate CLI runs on through
      phases 14 and 15 (`finishVarCli`), to keep the run inside its limit.
@@ -182,8 +196,9 @@ ends:
 `python3 chip_smoke.py --multi-card` needs two cards or more (at most four
 are used): after the environment (with `nvidia-smi topo -m` and NCCL's
 version) and the build, it runs phase 12 (b)'s cases with a card per rank
-over NCCL, and VAR-d24's `train -G` at batch 8 per rank against one card
-(`multiCard`). `chip_smoke.py --ddp-worker ...` is one
+over NCCL, the rd_qp2 ranks' DCP steps resumed at worlds 2 and 1, the
+engine over every card against one, and VAR-d24's `train -G` at batch 8
+per rank against one card (`multiCard`). `chip_smoke.py --ddp-worker ...` is one
 rank of phase 12 or of `--multi-card`, started by it.
 
 Any failure ends the run with a non-zero exit and no result line. The last
@@ -243,6 +258,7 @@ GEN_TRAIN_STEPS = 5              # through the CLI, cut from 10000 (and from 30,
 GEN_TIMED_STEPS = 5              # in process, counted step by step (cut from 8)
 GEN_SAMPLE_CLASSES = [1, 207]
 TILE = 256
+TILED_PROCESSES = 3              # phase 7: the tiled CLI compress in this many fresh processes
 JPEG_FIXTURE = ROOT / "tests" / "golden" / "torch_jpeg"
 IMAGE_FIXTURE = ROOT / "tests" / "golden" / "torch_images"   # the PNG and BMP forms
 PHOTO_PROGRESSIVE = JPEG_FIXTURE / "photo_progressive.jpg"   # PIL's progressive q90 of the photo
@@ -273,6 +289,21 @@ TILE_BATCH_MAX_DIFF = 1          # uint8 levels: cuDNN picks algorithms by batch
 # TF32 on the tensor cores (K3 takes three TF32 products per fp32 product)
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+COUNTING_PLUGIN = '''"""A config's externalLib file: a hook that writes each step it sees."""
+from pathlib import Path
+
+from mcquic_tpu_torch.utils.registry import HookRegistry
+
+
+@HookRegistry.register(key="SmokeCountSteps")
+class CountSteps:
+    def __init__(self, path):
+        self.path = Path(path)
+
+    def __call__(self, trainer, step):
+        with self.path.open("a") as f:
+            f.write(f"{step}\\n")
+'''
 PEAK_TF32_FLOPS = 495e12
 
 
@@ -1181,11 +1212,14 @@ def train10(torch, np, tmp: Path, img, smi: str) -> dict:
             "checkpoint": checkpoint}
 
 
-def train11(torch, np, tmp: Path, img, smi: str, neonCheckpoint: Path, lengths) -> dict:
+def train11(torch, np, tmp: Path, img, smi: str, neonCheckpoint: Path, lengths,
+            stopAtExit) -> dict:
     """Phase 11: the generator of configs/rd5/gen_stage2_neonA.yaml trained
-    over phase 10's tokenizer: the first step against the CPU and the
-    instrumented steps in process, GEN_TRAIN_STEPS steps through the CLI,
-    then sampling from the trained checkpoint through K3."""
+    over phase 10's tokenizer: GEN_TRAIN_STEPS steps through the CLI in a
+    subprocess (`stopAtExit` stops it should the phase fail), beside the
+    in-process build and the CPU's first step; then the card's first step
+    against the CPU's and the instrumented steps in process, then sampling
+    from the CLI's checkpoint through K3."""
     import mcquic_tpu_torch.models.generator as generatorModule
     import mcquic_tpu_torch.models.quantizer as quantizerModule
     from mcquic_tpu_torch.config import Config
@@ -1220,6 +1254,19 @@ def train11(torch, np, tmp: Path, img, smi: str, neonCheckpoint: Path, lengths) 
     data["train"].update(totalStep=GEN_TRAIN_STEPS, trainSet=str(classes), valSet=str(classes),
                          saveDir=str(tmp / "gen"))
     levels = len(lengths)
+
+    # GEN_TRAIN_STEPS steps through the train module's entry, with a plugin file whose
+    # hook counts the steps it sees: started now, beside the in-process build and the
+    # CPU's first step, and joined before the card's steps in process
+    plugin, seen = tmp / "smoke_plugin.py", tmp / "plugin_steps.txt"
+    plugin.write_text(COUNTING_PLUGIN)
+    config = writeConfig(tmp / "gen_stage2_neonA.yaml", dict(data, train=dict(
+        data["train"], externalLib=[str(plugin)],
+        hooks=[{"key": "SmokeCountSteps", "params": {"path": str(seen)}}])))
+    cliStart = time.perf_counter()
+    cli = subprocess.Popen([sys.executable, "-m", "mcquic_tpu_torch.train", str(config), "-G"],
+                           cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    stopAtExit.callback(stopProcess, cli)          # should the phase fail before its join
     inProcess = dict(data, train=dict(data["train"], totalStep=GEN_TIMED_STEPS,
                                       saveDir=str(tmp / "gen_in_process")))
     trainer = GenTrainer(Config.deserialize(inProcess), device="cuda")
@@ -1260,8 +1307,12 @@ def train11(torch, np, tmp: Path, img, smi: str, neonCheckpoint: Path, lengths) 
               + f", {time.perf_counter() - start:.1f} s", flush=True)
         del copy, keep
 
-    for dev in (torch.device("cpu"), device):
-        firstStep(dev)
+    firstStep(torch.device("cpu"))
+    cliOut, cliErr = cli.communicate(timeout=CLI_TIMEOUT)
+    cliS = time.perf_counter() - cliStart
+    if cli.returncode != 0:
+        raise RuntimeError(f"train -G exited {cli.returncode}:\n{cliErr[-4000:]}")
+    firstStep(device)
     gaps = {key: relativeGap(first["cuda"][key], first["cpu"][key]) for key in first["cpu"]
             if key != "skipped"}
     print(f"  first step card vs CPU: largest relative gap {max(gaps.values()):.2e} "
@@ -1325,22 +1376,20 @@ def train11(torch, np, tmp: Path, img, smi: str, neonCheckpoint: Path, lengths) 
     del trainer, model, trainStep
     torch.cuda.empty_cache()
 
-    # GEN_TRAIN_STEPS steps through the CLI
-    config = writeConfig(tmp / "gen_stage2_neonA.yaml", data)
-    start = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "mcquic_tpu_torch", "train", "-G", str(config)],
-                          cwd=ROOT, capture_output=True, text=True, timeout=CLI_TIMEOUT)
-    if proc.returncode != 0:
-        raise RuntimeError(f"train -G exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-    checkpoint = Path(proc.stdout.strip().splitlines()[-1])
+    # the CLI's run, joined above
+    hookSteps = [int(line) for line in seen.read_text().split()] if seen.exists() else []
+    checkpoint = Path(cliOut.strip().splitlines()[-1])
     flat, _ = readExport(checkpoint)
     neon, _ = readExport(neonCheckpoint)
     tokenizerSame = all(np.array_equal(flat[k.replace("/", "/compressor/", 1)], v)
                         for k, v in neon.items() if k.startswith(("params/", "coder/")))
-    print(f"  python -m mcquic_tpu_torch train -G: {int(flat['step'])} steps in "
-          f"{time.perf_counter() - start:.1f} s (process included), checkpoint {checkpoint.name}; "
-          f"its tokenizer bit-identical to phase 10's checkpoint: {tokenizerSame}", flush=True)
-    if int(flat["step"]) != GEN_TRAIN_STEPS or not tokenizerSame:
+    print(f"  python -m mcquic_tpu_torch.train CONFIG -G: {int(flat['step'])} steps in "
+          f"{cliS:.1f} s (process included, beside the in-process build and the CPU's first "
+          f"step), checkpoint {checkpoint.name}; "
+          f"its tokenizer bit-identical to phase 10's checkpoint: {tokenizerSame}; the plugin's "
+          f"hook (externalLib) saw steps {hookSteps}", flush=True)
+    if (int(flat["step"]) != GEN_TRAIN_STEPS or not tokenizerSame
+            or hookSteps != list(range(1, GEN_TRAIN_STEPS + 1))):
         raise AssertionError("the CLI's generator training did not run as it should")
 
     # sampling from the trained checkpoint: K3 on every call, held to its plain version
@@ -1399,7 +1448,9 @@ def ddpCase(torch, np, case: str, config: Path, device: str = "cuda") -> dict:
     outside a process group): DDP_STEPS steps through the trainer on this
     rank's rows of the same DDP_GLOBAL_BATCH images per step; per step the
     metrics, the parameters' checksum, the seconds and the K1 launches;
-    rank 0's validation's K1 and K2 launches per image (rd_qp2)."""
+    rank 0's validation's K1 and K2 launches per image (rd_qp2). Under
+    MCQUIC_CKPT_BACKEND=orbax the run saves DCP steps, and rank 0 writes the
+    gathered checkpoint of the end state (the npz route) beside them."""
     from mcquic_tpu_torch import parallel
     from mcquic_tpu_torch.config import Config
     from mcquic_tpu_torch.ops.subpixel_cuda import conv3x3SubpixelThin
@@ -1482,6 +1533,11 @@ def ddpCase(torch, np, case: str, config: Path, device: str = "cuda") -> dict:
         trainer.train(lambda: iter([b[rows] for b in batches]),
                       valLoader=getValLoader(cfg.Train.ValSet))
         out.setdefault("peak_gib", torch.cuda.max_memory_allocated() / 2 ** 30)
+        if trainer._dcp is not None:           # MCQUIC_CKPT_BACKEND=orbax: the npz route beside
+            out["dcp_steps"] = trainer._dcp.steps()
+            flat = trainer.checkpoint()
+            if flat is not None:
+                np.savez(Path(cfg.Train.SaveDir) / "npz_route.npz", **flat)
     del trainer
     torch.cuda.empty_cache()
     return out
@@ -1491,7 +1547,9 @@ def ddpWorker(argv) -> int:
     """`chip_smoke.py --ddp-worker CASE BACKEND RANK WORLD PORT OUT [CONFIG]`:
     one rank of phase 12 or of `--multi-card`, started by it. CASE rd_qp2 or
     gen: `ddpCase` over BACKEND (gloo between ranks that share one card,
-    NCCL with a card each), its result as JSON in OUT. CASE var: `varCase`,
+    NCCL with a card each), its result as JSON in OUT. CASE dcp_resume:
+    `dcpResume` of CONFIG's DCP steps at WORLD, the npz route's checkpoint
+    beside OUT. CASE var: `varCase`,
     the train CLI's `main` joining the group itself (NCCL). CASE nccl: NCCL
     at world WORLD, one all-reduce; what happened, verbatim, in OUT."""
     import os
@@ -1517,6 +1575,12 @@ def ddpWorker(argv) -> int:
         return 0
     if case == "var":
         result = varCase(torch, Path(argv[6]))
+    elif case == "dcp_resume":
+        parallel.initDistributed("cuda", backend=backend)
+        try:
+            result = dcpResume(torch, np, Path(argv[6]), Path(out).with_suffix(".npz"))
+        finally:
+            parallel.destroy()
     else:
         parallel.initDistributed("cuda", backend=backend)
         try:
@@ -1527,15 +1591,18 @@ def ddpWorker(argv) -> int:
     return 0
 
 
-def startRanks(case: str, world: int, tmp: Path, config=None, backend: str = "gloo") -> list:
+def startRanks(case: str, world: int, tmp: Path, config=None, backend: str = "gloo",
+               env: dict = None) -> list:
     """`world` ranks of `case`, each with its share of the host's cores for
-    torch's threads (the VAR ranks draw a billion parameters on the host)."""
+    torch's threads (the VAR ranks draw a billion parameters on the host),
+    and `env` added to their environment."""
     import os
     import socket
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
-    env = dict(os.environ, OMP_NUM_THREADS=str(max((os.cpu_count() or world) // world, 1)))
+    env = dict(os.environ, OMP_NUM_THREADS=str(max((os.cpu_count() or world) // world, 1)),
+               **(env or {}))
     return [(subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--ddp-worker", case,
                                backend, str(r), str(world), str(port),
                                str(tmp / f"{case}_rank{r}.json")]
@@ -1583,7 +1650,7 @@ def ddpConfigs(tmp: Path, case: str, base: dict, world: int, trainSet, val: Path
 
 
 def ddpCompare(torch, np, tmp: Path, smi: str, case: str, configs: dict, backend: str,
-               how: str, note: str) -> dict:
+               how: str, note: str, env: dict = None) -> dict:
     """The ranks of `configs` (its larger world, over `backend`) against one
     process at the global batch, DDP_STEPS steps each. Gates: the first
     step's loss and gradient norm within TRAIN_CPU_RTOL, the ranks'
@@ -1595,7 +1662,7 @@ def ddpCompare(torch, np, tmp: Path, smi: str, case: str, configs: dict, backend
     generator step."""
     world = max(configs)
     start = time.perf_counter()
-    started = startRanks(case, world, tmp, configs[world], backend)
+    started = startRanks(case, world, tmp, configs[world], backend, env)
     try:
         one = ddpCase(torch, np, case, configs[1])   # the reference, while the ranks run
     finally:
@@ -1647,7 +1714,40 @@ def ddpCompare(torch, np, tmp: Path, smi: str, case: str, configs: dict, backend
             "ranks_peak_gib": [r["peak_gib"] for r in ranks], "gaps": gaps,
             "checksums_equal": sameRanks, "K1": ranks[0]["K1"], "val": ranks[0]["val"],
             "state_bytes": [r["state_bytes"] for r in ranks], "one_state_bytes": one["state_bytes"],
-            "one_steps_per_s": 1 / statistics.median(one["seconds"][1:])}
+            "one_steps_per_s": 1 / statistics.median(one["seconds"][1:]),
+            "dcp_steps": ranks[0].get("dcp_steps")}
+
+
+def dcpAcrossWorlds(torch, np, tmp: Path, smi: str, config: Path, saved: int, worlds) -> dict:
+    """The rd_qp2 ranks' DCP steps (MCQUIC_CKPT_BACKEND=orbax, saved at world
+    `saved` by `ddpCompare`) resumed at each world of `worlds`: at 1 in this
+    process, above 1 as NCCL ranks with a card each (`dcpResume`). Gates:
+    the resumed step is the run's last, and the resumed state through the
+    npz route is bit-identical to the ranks' own npz route of their end
+    state."""
+    from mcquic_tpu_torch.config import Config
+    saveDir = Path(Config.load(str(config)).Train.SaveDir)
+    results = {}
+    for world in worlds:
+        start = time.perf_counter()
+        out = tmp / f"dcp_resume_{world}.npz"
+        if world == 1:
+            result = dcpResume(torch, np, config, out)
+        else:
+            result = joinRanks(startRanks("dcp_resume", world, tmp, config, "nccl"),
+                               DDP_TIMEOUT)[0]
+            out = tmp / "dcp_resume_rank0.npz"
+        differ = checkpointsDiffer(np, out, saveDir / "npz_route.npz")
+        print(f"  DCP steps {result['steps']} saved by {saved} ranks (MCQUIC_CKPT_BACKEND=orbax, "
+              f"{sum(f.stat().st_size for f in (saveDir / 'dcp').rglob('*') if f.is_file()) / 1e6:.1f} "
+              f"MB on disk) resumed at world {world} at step {result['step']} in "
+              f"{result['resume_s']:.2f} s ({time.perf_counter() - start:.1f} s with the processes): "
+              f"the state through the npz route differs from the ranks' npz route in "
+              f"{len(differ)} arrays {differ[:5]} ({smi})", flush=True)
+        if differ or result["step"] != DDP_STEPS:
+            raise AssertionError(f"the DCP resume at world {world} differs: {differ}")
+        results[world] = result
+    return results
 
 
 def ddp12(torch, np, tmp: Path, smi: str, shards: str, val: Path, classes: Path,
@@ -1657,7 +1757,9 @@ def ddp12(torch, np, tmp: Path, smi: str, shards: str, val: Path, classes: Path,
     the same run without them, in one process so that cuDNN's algorithm
     choices are the same; (b) two ranks sharing the card over gloo against
     one process at the global batch, rd_qp2 and gen_stage2_neonA at full
-    width; (c) NCCL at world 2 on the one card."""
+    width, the rd_qp2 ranks saving DCP steps (MCQUIC_CKPT_BACKEND=orbax)
+    that this process resumes at world 1 (`dcpAcrossWorlds`); (c) NCCL at
+    world 2 on the one card, beside (b)."""
     import logging
     import os
     import socket
@@ -1712,24 +1814,36 @@ def ddp12(torch, np, tmp: Path, smi: str, shards: str, val: Path, classes: Path,
             "over nccl" in m for m in joined):
         raise AssertionError("the NCCL world-1 run differs from the run without the variables")
 
+    # (c) NCCL at world 2 on the one card, its outcome verbatim: started now, beside (b)
+    ncclStart = time.perf_counter()
+    ncclRanks = startRanks("nccl", 2, tmp, backend="nccl")
+
     # (b) two ranks on the one card over gloo against one process at batch 8
     results = {}
     gen = Config.load(str(GEN_NEON_A_CONFIG)).serialize()
     gen["model"]["params"]["loadFrom"] = str(neonCheckpoint)
-    for case, base in (("rd_qp2", data), ("gen", gen)):
-        configs = ddpConfigs(tmp, case, base, 2, shards if case == "rd_qp2" else classes, val)
-        results[case] = ddpCompare(torch, np, tmp, smi, case, configs, "gloo",
-                                   "over gloo on the one card",
-                                   "Two ranks sharing one card measure no scaling")
-
-    # (c) NCCL at world 2 on the one card: the outcome, verbatim
-    start = time.perf_counter()
     try:
-        outcome = joinRanks(startRanks("nccl", 2, tmp, backend="nccl"), NCCL_TIMEOUT)
+        for case, base in (("rd_qp2", data), ("gen", gen)):
+            configs = ddpConfigs(tmp, case, base, 2, shards if case == "rd_qp2" else classes, val)
+            results[case] = ddpCompare(torch, np, tmp, smi, case, configs, "gloo",
+                                       "over gloo on the one card",
+                                       "Two ranks sharing one card measure no scaling",
+                                       {"MCQUIC_CKPT_BACKEND": "orbax"} if case == "rd_qp2"
+                                       else None)
+            if case == "rd_qp2":
+                results["dcp"] = dcpAcrossWorlds(torch, np, tmp, smi, configs[2], 2, [1])
+    except BaseException:
+        for proc, _ in ncclRanks:
+            stopProcess(proc)
+        raise
+
+    # (c), joined
+    try:
+        outcome = joinRanks(ncclRanks, NCCL_TIMEOUT)
     except RuntimeError as err:
         outcome = [str(err)]
-    print(f"  (c) NCCL at world 2 on the one card ({time.perf_counter() - start:.1f} s): "
-          f"{outcome}", flush=True)
+    print(f"  (c) NCCL at world 2 on the one card ({time.perf_counter() - ncclStart:.1f} s, beside "
+          f"(b)): {outcome}", flush=True)
     results["nccl_world2"] = outcome
     return results
 
@@ -2137,10 +2251,17 @@ def multiCard() -> int:
           rank against one process at DDP_GLOBAL_BATCH on card 0, gated as
           phase 12 (b) (`ddpCompare`): the first step's gaps, the checksums,
           the sharded optimizer state, K1 after every sharded step;
+          The rd_qp2 ranks save DCP steps (MCQUIC_CKPT_BACKEND=orbax);
       M3. VAR-d24 through `train -G`'s `main` at batch 8 per rank for
           VAR_TRAIN_STEPS steps against one process at batch 8: steps/s per
           rank, images/s in all against one card's, the peak per rank, the
-          optimizer state per rank and the save of the gathered checkpoint.
+          optimizer state per rank and the save of the gathered checkpoint;
+      M6. those DCP steps resumed at world 2 (NCCL ranks) and at world 1,
+          each resumed state through the npz route bit-identical to the
+          ranks' own (`dcpAcrossWorlds`);
+      M7. the qp-2 zoo engine over cuda:0..N-1 against one card on a seeded
+          [8, 768, 512, 3] batch: equal `.mcq` bytes, K1 and K2 on every
+          card, images/s against one card's (`servingOverDevices`).
     The data are crops of the photo; the tokenizer is a seeded Neon export at
     neon_v2_60k's geometry. The last line is the `{"ok": true, ...}` JSON
     with the count of cards."""
@@ -2212,8 +2333,20 @@ def multiCard() -> int:
             for case, base, trainSet in (("rd_qp2", rd, tmp / "crops"),
                                          ("gen", gen, tmp / "classes")):
                 configs = ddpConfigs(tmp, case, base, world, trainSet, tmp / "val")
-                results[case] = ddpCompare(torch, np, tmp, smi, case, configs, "nccl",
-                                           "over NCCL, a card each", "One process runs on card 0")
+                results[case] = ddpCompare(
+                    torch, np, tmp, smi, case, configs, "nccl", "over NCCL, a card each",
+                    "One process runs on card 0",
+                    {"MCQUIC_CKPT_BACKEND": "orbax"} if case == "rd_qp2" else None)
+                if case == "rd_qp2":
+                    rdConfig = configs[world]
+        with Phase(f"M6 DCP steps of world {world} resumed at worlds 2 and 1"):
+            results["dcp"] = dcpAcrossWorlds(torch, np, tmp, smi, rdConfig, world, [2, 1])
+        with Phase(f"M7 the qp-{QP} engine over {world} cards"):
+            from mcquic_tpu_torch.demo import loadModel
+            one = loadModel(qp=QP, device="cuda")
+            results["serving"] = servingOverDevices(torch, np, smi, one.model,
+                                                    [f"cuda:{i}" for i in range(world)], one, 8)
+            del one
         with Phase(f"M5 VAR-d24 at world {world}"):
             results["var"] = varWorld(torch, np, tmp, smi, neon, world)
     print(json.dumps({"multi_card": results}), flush=True)
@@ -2464,6 +2597,193 @@ def web15(torch, np, tmp: Path, img, smi: str, engine, cliMcq: bytes, cliRestore
         raise AssertionError(f"the denseNorm Neon's step: {gaps}")
     trace["seconds"] = seconds
     return trace
+
+
+class ReplicaLaunches:
+    """Counts K1, K1b and K2 launches per replica of a device-list engine
+    while it is entered: a search by the replica whose codebook it takes, a
+    thin head by the replica it belongs to. With `plain`, every search's
+    codes are also held to the plain version on its tokens."""
+
+    def __init__(self, torch, engine, plain: bool = False):
+        self.torch, self.engine, self.plain = torch, engine, plain
+        self.counts = [{"K1": 0, "K1b": 0, "K2": 0} for _ in engine.replicas]
+        self.searches = self.differ = 0
+
+    def __enter__(self):
+        import mcquic_tpu_torch.models.quantizer as quantizerModule
+        from mcquic_tpu_torch.nn.convs import PixelShuffleConv
+        from mcquic_tpu_torch.ops.subpixel_cuda import conv3x3SubpixelThin
+        from mcquic_tpu_torch.ops.vq import latentTokens, vqEncodePlain
+        from mcquic_tpu_torch.ops.vq_cuda import vqNearest
+        from mcquic_tpu_torch.ops.vq_grouped_cuda import vqNearestGrouped
+        owners = {id(replica._quantizer.codebook(level)): i
+                  for i, replica in enumerate(self.engine.replicas)
+                  for level in range(len(replica.k))}
+        self.module, self.original = quantizerModule, quantizerModule.vqEncode
+
+        def counted(x, codebook):
+            k1, k1b = vqNearest.launches, vqNearestGrouped.launches
+            codes = self.original(x, codebook)
+            count = self.counts[owners[id(codebook)]]
+            count["K1"] += vqNearest.launches - k1
+            count["K1b"] += vqNearestGrouped.launches - k1b
+            if self.plain:
+                n, m, _, h, w = x.shape
+                plain = vqEncodePlain(latentTokens(x), codebook.float().contiguous())
+                self.differ += int((plain.reshape(m, n, h, w).permute(1, 0, 2, 3) != codes).sum())
+            self.searches += 1
+            return codes
+
+        quantizerModule.vqEncode = counted
+        self.hooks = []
+        for i, replica in enumerate(self.engine.replicas):
+            for module in replica.modules():
+                if isinstance(module, PixelShuffleConv) and module.thin:
+                    self.hooks.append(module.register_forward_pre_hook(
+                        lambda mod, args: setattr(self, "k2", conv3x3SubpixelThin.launches)))
+                    self.hooks.append(module.register_forward_hook(
+                        lambda mod, args, out, i=i: self.counts[i].__setitem__(
+                            "K2", self.counts[i]["K2"] + conv3x3SubpixelThin.launches - self.k2)))
+        return self
+
+    def __exit__(self, *exc):
+        self.module.vqEncode = self.original
+        for hook in self.hooks:
+            hook.remove()
+        return False
+
+
+def wallMs(torch, fn, iters: int = 3) -> float:
+    """The median host-clock ms of `fn`, synchronized on every card."""
+    times = []
+    for _ in range(iters):
+        start = time.perf_counter()
+        fn()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+        times.append((time.perf_counter() - start) * 1e3)
+    return statistics.median(times)
+
+
+def enqueueMs(torch, fn, iters: int = 3) -> float:
+    """The median host-clock ms until `fn` returns, before the cards finish
+    (each run is synchronized on every card after its reading)."""
+    times = []
+    for _ in range(iters):
+        start = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - start) * 1e3)
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+    return statistics.median(times)
+
+
+def servingOverDevices(torch, np, smi: str, model, devices: list, one, batchSize: int) -> dict:
+    """`model` served by one engine over `devices` against `one`, the engine
+    of the same model on one device: a seeded speed batch of `batchSize`
+    rows (split among the replicas) and a batch of 3 (whole on the first)
+    must give `one`'s `.mcq` bytes; every replica launches K1 per level in
+    its compress and K2 once in its restore; the wall times of compress and
+    restore of the batch on both engines, and the host's time to enqueue the
+    compress (until the engine starts waiting for the cards), as a
+    measurement only."""
+    from mcquic_tpu_torch.models.engine import CompressorEngine
+    engine = CompressorEngine(model, qp=one.QuantizationParameter, devices=devices)
+    batch = np.random.default_rng(0).uniform(-1, 1, (batchSize, 768, 512, 3)).astype(np.float32)
+    engine.decompress(*engine.compress(batch)[1:])             # the replicas' autotuning
+    one.decompress(*one.compress(batch)[1:])
+    with ReplicaLaunches(torch, engine) as launches:
+        _, binaries, headers = engine.compress(batch)
+        restored = engine.decompress(binaries, headers)
+    _, oneBinaries, _ = one.compress(batch)
+    oneRestored = one.decompress(oneBinaries, headers)
+    small = batch[:3]
+    sameSmall = engine.compress(small)[1] == one.compress(small)[1]
+    sameBytes = binaries == oneBinaries
+    levels = len(model.k)
+    times = {"compress_ms": wallMs(torch, lambda: engine.compress(batch)),
+             "one_compress_ms": wallMs(torch, lambda: one.compress(batch)),
+             "restore_ms": wallMs(torch, lambda: engine.decompress(binaries, headers)),
+             "one_restore_ms": wallMs(torch, lambda: one.decompress(binaries, headers)),
+             "enqueue_ms": enqueueMs(torch, lambda: engine._encodeDispatch(batch)),
+             "one_enqueue_ms": enqueueMs(torch, lambda: one._encodeDispatch(batch))}
+    print(f"  the qp-{one.QuantizationParameter} zoo engine over {devices} against one device, "
+          f"[{batchSize}, 768, 512, 3] split {batchSize // len(devices)} per replica: .mcq bytes "
+          f"equal {sameBytes}, restored max |diff| {float(np.abs(restored - oneRestored).max()):.3g}; "
+          f"a batch of 3 (whole on the first replica) equal {sameSmall}; launches per replica "
+          f"{launches.counts}; compress {times['compress_ms']:.1f} ms against "
+          f"{times['one_compress_ms']:.1f} ({batchSize * 1e3 / times['compress_ms']:.2f} against "
+          f"{batchSize * 1e3 / times['one_compress_ms']:.2f} images/s), restore "
+          f"{times['restore_ms']:.1f} ms against {times['one_restore_ms']:.1f} "
+          f"({batchSize * 1e3 / times['restore_ms']:.2f} against "
+          f"{batchSize * 1e3 / times['one_restore_ms']:.2f} images/s); the compress enqueued in "
+          f"{times['enqueue_ms']:.1f} ms against {times['one_enqueue_ms']:.1f}; host clock, a "
+          f"measurement only ({smi})", flush=True)
+    if not (sameBytes and sameSmall) or any(c != {"K1": levels, "K1b": 0, "K2": 1}
+                                            for c in launches.counts):
+        raise AssertionError(f"the engine over {devices} differs from one device: bytes "
+                             f"{sameBytes}, batch of 3 {sameSmall}, launches {launches.counts}")
+    del engine
+    torch.cuda.empty_cache()
+    return {"devices": devices, "batch": batchSize, "launches": launches.counts, **times}
+
+
+def devices16(torch, np, img, smi: str, engine) -> dict:
+    """Phase 16: the qp-2 zoo engine over ["cuda:0", "cuda:0"] against
+    `engine` on the speed batch (`servingOverDevices`), then the seeded
+    past-budget model over the same list: the photo and its mirror, one per
+    replica, every search (K1b at level 0, K1 at levels 1 and 2) held to the
+    plain version on its tokens."""
+    from mcquic_tpu_torch.models.compressor import seededCompressor
+    from mcquic_tpu_torch.models.engine import CompressorEngine
+    devices = ["cuda:0", "cuda:0"]
+    trace = servingOverDevices(torch, np, smi, engine.model, devices, engine, 10)
+    past = CompressorEngine(seededCompressor(*PAST_BUDGET), devices=devices)
+    with ReplicaLaunches(torch, past, plain=True) as launches:
+        past.encode(np.stack([img, img[:, ::-1]]))
+    print(f"  the past-budget model {PAST_BUDGET} (seeded) over {devices}, the photo and its "
+          f"mirror: launches per replica {launches.counts}; {launches.differ} codes of "
+          f"{launches.searches} searches differ from the plain version's", flush=True)
+    if launches.differ or launches.searches != 6 or any(
+            c != {"K1": 2, "K1b": 1, "K2": 0} for c in launches.counts):
+        raise AssertionError("the past-budget model over the device list did not run as it should")
+    del past
+    torch.cuda.empty_cache()
+    return dict(trace, past_budget=launches.counts)
+
+
+def dcpResume(torch, np, config: Path, out: Path) -> dict:
+    """The DCP steps of `config`'s run (MCQUIC_CKPT_BACKEND=orbax) resumed at
+    this process's world, and the resumed state through the npz route
+    (`Trainer.checkpoint`, gathered on rank 0) written to `out`."""
+    from mcquic_tpu_torch import parallel
+    from mcquic_tpu_torch.config import Config
+    from mcquic_tpu_torch.models.compressor import buildModel
+    from mcquic_tpu_torch.train.trainer import Trainer, resolveStage1Model
+    cfg = Config.load(str(config))
+    # the weights come from the checkpoint: the model's own initialization is enough
+    trainer = Trainer(cfg, model=buildModel(resolveStage1Model(cfg)[1]), device="cuda",
+                      lpipsFn=False, ckptBackend="orbax")
+    try:
+        start = time.perf_counter()
+        if not trainer.tryResume():
+            raise AssertionError(f"no DCP step to resume under {config}")
+        seconds = time.perf_counter() - start
+        flat = trainer.checkpoint()
+    finally:
+        trainer.close()
+    if flat is not None:
+        np.savez(out, **flat)
+    return {"step": trainer.step, "world": parallel.world(), "resume_s": seconds,
+            "steps": trainer._dcp.steps()}
+
+
+def checkpointsDiffer(np, a: Path, b: Path) -> list:
+    """The keys whose arrays differ between two npz checkpoints."""
+    x, y = np.load(a), np.load(b)
+    return sorted(k for k in set(x) | set(y)
+                  if k not in x or k not in y or not np.array_equal(x[k], y[k]))
 
 
 def buildAll():
@@ -3197,7 +3517,7 @@ def main() -> int:
         if len(pngs) != batch or any(sh != (256, 256, 3) for sh in shapes):
             raise AssertionError("the generate CLI did not write 4 256x256 PNGs")
 
-    with Phase("7 validation path"), tempfile.TemporaryDirectory() as tmp:
+    with Phase("7 validation path"), tempfile.TemporaryDirectory() as tmp, ExitStack() as stopAtExit:
         tmp = Path(tmp)
         folder = tmp / "val"
         folder.mkdir()
@@ -3243,6 +3563,16 @@ def main() -> int:
                 raise AssertionError(f"{cell}: the VQ searches did not all take K1")
         del qp12, validator, cellEngine
         torch.cuda.empty_cache()
+
+        # the tiled compress through the CLI in TILED_PROCESSES fresh processes, each choosing
+        # its own cuDNN algorithms, beside the in-process work below (ROADMAP C8)
+        tiledProcs = [(subprocess.Popen([sys.executable, "-m", "mcquic_tpu_torch", "-qp", str(QP),
+                                         "--tile", str(TILE), str(PHOTO), str(tmp / f"tiled{i}.mcq")],
+                                        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                        text=True), tmp / f"tiled{i}.mcq")
+                      for i in range(TILED_PROCESSES)]
+        for proc, _ in tiledProcs:
+            stopAtExit.callback(stopProcess, proc)          # should the phase fail before its join
 
         # the past-budget model: level 0 takes K1b, levels 1 and 2 take K1
         pastModel = seededCompressor(*PAST_BUDGET)
@@ -3308,54 +3638,67 @@ def main() -> int:
         del batches, many, once, restoredMany, restoredOnce
 
         # --tile through the CLI, against the same tiles coded whole
-        tiled, tiledPng = tmp / "tiled.mcq", tmp / "tiled.png"
-        for args in (["-qp", str(QP), "--tile", str(TILE), str(PHOTO), str(tiled)],
-                     [str(tiled), str(tiledPng)]):
-            proc = subprocess.run([sys.executable, "-m", "mcquic_tpu_torch", *args], cwd=ROOT,
-                                  capture_output=True, text=True, timeout=CLI_TIMEOUT)
+        for proc, _ in tiledProcs:
+            _, err = proc.communicate(timeout=CLI_TIMEOUT)
             if proc.returncode != 0:
-                raise RuntimeError(f"CLI {args} exited {proc.returncode}:\n{proc.stderr}")
-        data = tiled.read_bytes()
+                raise RuntimeError(f"the tiled CLI compress exited {proc.returncode}:\n{err}")
+        tiled, tiledPng = tiledProcs[0][1], tmp / "tiled.png"
+        proc = subprocess.run([sys.executable, "-m", "mcquic_tpu_torch", str(tiled), str(tiledPng)],
+                              cwd=ROOT, capture_output=True, text=True, timeout=CLI_TIMEOUT)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the tiled CLI restore exited {proc.returncode}:\n{proc.stderr}")
+        datas = [path.read_bytes() for _, path in tiledProcs]
+        data = datas[0]
         tf = TiledFile.deserialize(data)
         cliRestored = readPng(tiledPng)
         inProcess = compressTiled(engine, img, TILE)
-        sameFile = data == inProcess.serialize()
+        sameFiles = [d == inProcess.serialize() for d in datas]
+        sameFile = all(sameFiles)
         sameRestore = np.array_equal(cliRestored, decompressTiled(engine, tf))
         tiles, rows, cols = toTiles(img, TILE)
         files = [engine.compressImage(t) for t in tiles]
-        sameStreams = sum(f.Content == b for f, b in zip(files, tf.binaries))
+        streamsEqual = [sum(f.Content == b for f, b in zip(files, TiledFile.deserialize(d).binaries))
+                        for d in datas]
+        sameStreams = min(streamsEqual)
         together = fromTiles(engine.decompress([f.Content for f in files],
                                                [f.FileHeader for f in files], toImage=True),
                              rows, cols, *img.shape[:2])
         oneByOne = fromTiles(np.stack([engine.decompressImage(f) for f in files]), rows, cols,
                              *img.shape[:2])
         diff = np.abs(oneByOne.astype(np.int16) - cliRestored.astype(np.int16))
-        print(f"  --tile {TILE} CLI: {rows}x{cols} tiles, {tf.BPP:.4f} bpp, PSNR "
-              f"{psnr(img, cliRestored):.2f} dB; .mcq identical to in-process: {sameFile}; restore "
-              f"equal to in-process: {sameRestore}. The tiles coded whole: {sameStreams} of "
-              f"{len(files)} streams identical; restored as one batch, pixels equal: "
+        print(f"  --tile {TILE} CLI in {TILED_PROCESSES} fresh processes: {rows}x{cols} tiles, "
+              f"{tf.BPP:.4f} bpp, PSNR {psnr(img, cliRestored):.2f} dB; each .mcq identical to "
+              f"in-process: {sameFiles}; restore equal to in-process: {sameRestore}. The tiles "
+              f"coded whole (batch 1): {streamsEqual} of {len(files)} streams identical in each "
+              f"process's file; restored as one batch, pixels equal: "
               f"{np.array_equal(together, cliRestored)}; restored one by one, pixels equal on "
               f"{(diff == 0).mean():.6%}, max diff {int(diff.max())}"
               + ("" if sameFile else
                  f"; in-process against the CLI's: streams equal "
-                 f"{sum(a == b for a, b in zip(inProcess.binaries, tf.binaries))} of "
-                 f"{len(tf.binaries)}, fields equal "
+                 f"{[sum(a == b for a, b in zip(inProcess.binaries, TiledFile.deserialize(d).binaries)) for d in datas]} "
+                 f"of {len(tf.binaries)}, fields equal "
                  f"{[k for k in ('rows', 'cols', 'tile', 'height', 'width', 'qp', 'codeSize') if getattr(inProcess, k) == getattr(tf, k)]}"),
               flush=True)
         if not (TiledFile.isTiled(data) and sameFile and sameRestore and sameStreams == len(files)
                 and np.array_equal(together, cliRestored) and diff.max() <= TILE_BATCH_MAX_DIFF):
             raise AssertionError("the tiled round trip disagrees")
 
-    with Phase("8 Neon codec"), tempfile.TemporaryDirectory() as tmp:
+    with Phase("8 Neon codec"), tempfile.TemporaryDirectory() as tmp, ExitStack() as stopAtExit:
         tmp = Path(tmp)
         export = writeSeededExport(tmp / "neon_v2_60k.npz", "Neon", NEON_V2_60K, seed=0, qp="-1")
+        crop = img[128:384, 128:384]
+        writePng(tmp / "crop.png", crop)
+        # the --local CLI, in a subprocess beside the in-process work, joined at the end
+        neonCli = subprocess.Popen([sys.executable, "-m", "mcquic_tpu_torch", "--local",
+                                    str(export), str(tmp / "crop.png"), str(tmp / "cli.mcq")],
+                                   cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                   text=True)
+        stopAtExit.callback(stopProcess, neonCli)
         start = time.perf_counter()
         neonEngine = loadModel(local=export, device="cuda")
         print(f"  seeded Neon export at configs/rd5/neon_v2_60k.yaml's geometry {NEON_V2_60K}, "
               f"{export.stat().st_size / 1e6:.1f} MB, loaded in {time.perf_counter() - start:.2f} s",
               flush=True)
-        crop = img[128:384, 128:384]
-        writePng(tmp / "crop.png", crop)
         neonEngine.decompressImage(neonEngine.compressImage(crop))           # warm-up
         searches = []
         originalEncode = quantizerModule.vqEncode
@@ -3400,11 +3743,9 @@ def main() -> int:
                 or agreement < CODES_MIN_AGREEMENT):
             raise AssertionError("the Neon codec did not run as it should")
         del cpuEngine
-        proc = subprocess.run([sys.executable, "-m", "mcquic_tpu_torch", "--local", str(export),
-                               str(tmp / "crop.png"), str(tmp / "cli.mcq")],
-                              cwd=ROOT, capture_output=True, text=True, timeout=CLI_TIMEOUT)
-        if proc.returncode != 0:
-            raise RuntimeError(f"Neon CLI exited {proc.returncode}:\n{proc.stderr}")
+        _, err = neonCli.communicate(timeout=CLI_TIMEOUT)
+        if neonCli.returncode != 0:
+            raise RuntimeError(f"Neon CLI exited {neonCli.returncode}:\n{err}")
         sameNeonFile = (tmp / "cli.mcq").read_bytes() == neonMcq.read_bytes()
         print(f"  Neon CLI --local: .mcq identical to the in-process one: {sameNeonFile}", flush=True)
         if not sameNeonFile:
@@ -3420,8 +3761,9 @@ def main() -> int:
             trainTrace = train9(torch, np, tmp / "p9", img, smi, codec)
         with Phase("10 Neon training"):
             neonTrace = train10(torch, np, tmp / "p10", img, smi)
-        with Phase("11 generator training"):
-            genTrace = train11(torch, np, tmp / "p10", img, smi, neonTrace["checkpoint"], lengths)
+        with Phase("11 generator training"), ExitStack() as stopAtExit:
+            genTrace = train11(torch, np, tmp / "p10", img, smi, neonTrace["checkpoint"], lengths,
+                               stopAtExit)
         with Phase("12 data parallel"):
             ddpTrace = ddp12(torch, np, tmp / "p12", smi, str(tmp / "p9" / "shards" / "*.tar.gz"),
                              tmp / "p9" / "val", tmp / "p10" / "classes", neonTrace["checkpoint"])
@@ -3436,6 +3778,8 @@ def main() -> int:
                 (tmp / "p15").mkdir()
                 webTrace = web15(torch, np, tmp / "p15", img, smi, engine, photoCliMcq,
                                  photoCliRestored, progressiveMcq)
+            with Phase("16 serving over a device list"):
+                servingTrace = devices16(torch, np, img, smi, engine)
         finally:
             with Phase("13 GeneratorVAR, its generate CLI"):
                 finishVarCli(varTrace["cli"])
@@ -3458,6 +3802,9 @@ def main() -> int:
          "converted_reference_launches_per_compress": toolTrace["K1"],
          "handler_launches_per_compress": webTrace["handler"]["K1"],
          "dense_neon_launches_per_compress": webTrace["dense_neon"]["K1"],
+         "device_list_launches_per_replica": [c["K1"] for c in servingTrace["launches"]],
+         "past_budget_device_list_launches_per_replica":
+             [c["K1"] for c in servingTrace["past_budget"]],
          "neon_device_ms": neonK1["device_ms"], "neon_ms": neonK1["ms"],
          "neon_library_device_ms": neonK1["library_device_ms"],
          "qp12_device_ms": qp12K1["device_ms"],
@@ -3466,7 +3813,8 @@ def main() -> int:
          "replaces": "mcquic_tpu/ops/vq_pallas.py:75", "launches": pastLaunches["K1b"],
          "max_abs_err": k1b["err"], "ms": k1b["ms"], "plain_ms": k1b["plain_ms"],
          "bound_ms": k1b["bound_ms"], "bound_by": k1b["bound_by"], "library_ms": k1b["library_ms"],
-         "device_ms": k1b["device_ms"], "library_device_ms": k1b["library_device_ms"]},
+         "device_ms": k1b["device_ms"], "library_device_ms": k1b["library_device_ms"],
+         "device_list_launches_per_replica": [c["K1b"] for c in servingTrace["past_budget"]]},
         {"name": "thin_head", "route": "cuda", "source": "mcquic_tpu_torch/csrc/thin_head.cu",
          "replaces": "mcquic_tpu/ops/subpixel_pallas.py:118", "launches": launches["K2"],
          "max_abs_err": k2["err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
@@ -3478,6 +3826,7 @@ def main() -> int:
          "ddp_validation_launches_per_image": ddpTrace["rd_qp2"]["val"]["K2"],
          "converted_reference_launches_per_restore": toolTrace["K2"],
          "handler_launches_per_compress_and_preview": webTrace["handler"]["K2"],
+         "device_list_launches_per_replica": [c["K2"] for c in servingTrace["launches"]],
          "batch_library_device_ms": k2Batch["library_device_ms"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "mcquic_tpu_torch/csrc/flash_attention.cu",
@@ -3496,7 +3845,7 @@ def main() -> int:
          "var_library_ms": varTrace["k3"]["library_ms"],
          "var_library_device_ms": varTrace["k3"]["library_device_ms"]},
     ]
-    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - started:.1f} s", flush=True)
+    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

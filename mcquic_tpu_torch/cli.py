@@ -10,9 +10,13 @@ folder into tar shards of JPEGs (`mcquic_tpu/cli.py:116-127`); or, as
 images from a stage-2 generator (`mcquic_tpu/cli.py:130-147`); or, as
 `python -m mcquic_tpu_torch train [-G] config.yaml`, train a stage-1 model
 (the v1 Compressor or Neon) or, with `-G/--gen`, the stage-2 generator
-(`mcquic_tpu/cli.py:84-96`)."""
+(`mcquic_tpu/cli.py:84-96`). The console scripts `mcquic-torch`,
+`mcquic-torch-train`, `mcquic-torch-validate` and `mcquic-torch-dataset`
+(`pyproject.toml`, beside the JAX package's four) are `main`, `train`,
+`validate` and `dataset` here."""
 import argparse
 import logging
+import sys
 
 import mcquic_tpu_torch
 
@@ -46,6 +50,8 @@ def parser() -> argparse.ArgumentParser:
                    help="code the image as a grid of TILE x TILE tiles (0: whole image; "
                         "tiled .mcq files are recognized on restore)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--disable-gpu", action="store_true",
+                   help="run on the CPU, the same as --device cpu")
     p.add_argument("-V", "--version", action="version", version=mcquic_tpu_torch.__version__)
     p.add_argument("input")
     p.add_argument("output", nargs="?", default=None)
@@ -124,7 +130,6 @@ def datasetParser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    import sys
     argv = sys.argv[1:] if argv is None else list(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     if argv[:1] == ["generate"]:
@@ -165,6 +170,22 @@ def main(argv=None) -> int:
     if args.tile < 0:
         p.error("--tile must be >= 0")
     from mcquic_tpu_torch.demo import main as run
-    print(run(args.input, args.output, qp=args.qp, local=args.local, device=args.device,
-              crop=args.crop, tile=args.tile, mse=args.mse))
+    print(run(args.input, args.output, qp=args.qp, local=args.local,
+              device="cpu" if args.disable_gpu else args.device, crop=args.crop, tile=args.tile,
+              mse=args.mse))
     return 0
+
+
+def train() -> int:
+    """`mcquic-torch-train`: `python -m mcquic_tpu_torch train`."""
+    return main(["train", *sys.argv[1:]])
+
+
+def validate() -> int:
+    """`mcquic-torch-validate`: `python -m mcquic_tpu_torch validate`."""
+    return main(["validate", *sys.argv[1:]])
+
+
+def dataset() -> int:
+    """`mcquic-torch-dataset`: `python -m mcquic_tpu_torch dataset`."""
+    return main(["dataset", *sys.argv[1:]])

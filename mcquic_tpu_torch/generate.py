@@ -28,10 +28,12 @@ import torch
 from mcquic_tpu_torch.data.png import writePng
 from mcquic_tpu_torch.data.transforms import modelOutputToImage
 import mcquic_tpu_torch
-from mcquic_tpu_torch.models.generator_var import STAGE2_MODELS, GeneratorVAR
+import mcquic_tpu_torch.models.generator  # noqa: F401  (registers its generators)
+from mcquic_tpu_torch.models.generator_var import GeneratorVAR
 from mcquic_tpu_torch.utils import exactFp32, resolveDevice
 from mcquic_tpu_torch.utils.convert import (fromJaxGeneratorParams, halvingOf, readExport,
                                             toJaxGeneratorParams, writeExport)
+from mcquic_tpu_torch.utils.registry import GeneratorRegistry
 
 logger = logging.getLogger("mcquic_tpu_torch.generate")
 
@@ -58,9 +60,9 @@ def generatorConfig(meta: dict):
         raise RuntimeError("the checkpoint's sidecar lacks its config")
     model = meta["config"]["model"]
     key, params = model["key"], dict(model.get("params") or {})
-    if key not in STAGE2_MODELS:
+    if key not in GeneratorRegistry:
         raise NotImplementedError(f"generator `{key}` is not ported to mcquic_tpu_torch "
-                                  f"(ported: {sorted(STAGE2_MODELS)})")
+                                  f"(ported: {sorted(GeneratorRegistry)})")
     if key == "GeneratorVAR":
         dropped = sorted(set(params) - set(VAR_TAKEN) - set(DROPPED))
         if dropped:
@@ -78,7 +80,7 @@ def loadGenerator(path, device="cuda") -> torch.nn.Module:
     flat, meta = readExport(Path(path), ("params/", "coder/"))
     key, kwargs = generatorConfig(meta)
     with torch.device(device):                  # the default init runs on the card
-        model = STAGE2_MODELS[key](**kwargs)
+        model = GeneratorRegistry.get(key)(**kwargs)
     model.load_state_dict(fromJaxGeneratorParams(flat), strict=True)
     return model.to(device).eval().requires_grad_(False)
 
@@ -152,7 +154,7 @@ def seededGeneratorState(geometry: dict, seed: int = 0,
     the self-attention reaches the logits (the adaLN gates are not zero) and
     the Neon decoder's output stays finite. `key` names the generator."""
     with torch.device("meta"):
-        shapes = {k: tuple(v.shape) for k, v in STAGE2_MODELS[key](**geometry)
+        shapes = {k: tuple(v.shape) for k, v in GeneratorRegistry.get(key)(**geometry)
                   .state_dict().items()}
     rng = np.random.default_rng(seed)
     state = {}

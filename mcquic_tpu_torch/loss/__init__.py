@@ -1,12 +1,15 @@
 """The metric half of the losses, NCHW (counterpart of
 `mcquic_tpu/loss/__init__.py`, reference `mcquic/loss/__init__.py:27-62`):
 the distortions MS-SSIM and PSNR with their dB formatting, and the
-codebook-repulsion rate term. The perceptual term is `loss/lpips.py`.
+codebook-repulsion rate term. The distortions are registered in
+`utils/registry.py::LossRegistry`, where a config's `target` finds them.
+The perceptual term is `loss/lpips.py`.
 """
 from typing import Callable, Sequence
 
 import torch
 
+from mcquic_tpu_torch.utils.registry import LossRegistry
 from mcquic_tpu_torch.validate.metrics import msSSIM
 
 
@@ -27,6 +30,7 @@ class Distortion:
         raise NotImplementedError
 
 
+@LossRegistry.register
 class MsSSIM(Distortion):
     """1 - MS-SSIM of images in [-1, 1] (data range 2), shown in dB against 1."""
     formatDistortion = staticmethod(decibel(1.0))
@@ -35,6 +39,7 @@ class MsSSIM(Distortion):
         return 1.0 - msSSIM(restored + 1, image + 1, dataRange=2.0)
 
 
+@LossRegistry.register
 class PSNR(Distortion):
     """Mean squared error of images in [-1, 1], shown in dB against 2."""
     formatDistortion = staticmethod(decibel(2.0))

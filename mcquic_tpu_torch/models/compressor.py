@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from mcquic_tpu_torch.models.quantizer import ResidualBackwardQuantizer, UMGMQuantizer
 from mcquic_tpu_torch.nn import (AttentionBlock, ResidualBlock, ResidualBlockShuffle,
                                  ResidualBlockWithStride, conv3x3, pixelShuffle3x3)
+from mcquic_tpu_torch.utils.registry import ModelRegistry
 
 NEON_GROUPS = 32               # `g` of the JAX Neon's encoder and decoder
 
@@ -63,6 +64,7 @@ def _heads(c: int) -> dict:
     }
 
 
+@ModelRegistry.register
 class Compressor(nn.Module):
     """v1 multi-codebook codec: channel, m groups, per-level codebook sizes k."""
 
@@ -122,6 +124,7 @@ def _neonDecoder(c: int, denseNorm: bool = False) -> nn.Sequential:
         conv3x3(c, 3))
 
 
+@ModelRegistry.register
 class Neon(nn.Module):
     """v2 tokenizer: channel, one shared codebook of k codewords, per-level
     latent grids `size` (large -> small); `denseNorm` puts a GroupNorm in
@@ -173,7 +176,7 @@ class Neon(nn.Module):
 def buildModel(geometry: dict) -> nn.Module:
     """The stage-1 model of a geometry (`utils/convert.py::modelGeometry`):
     Neon where it has a `size` pyramid, the v1 Compressor otherwise."""
-    return Neon(**geometry) if "size" in geometry else Compressor(**geometry)
+    return ModelRegistry.get("Neon" if "size" in geometry else "Compressor")(**geometry)
 
 
 def seededModel(geometry: dict, seed: int = 0) -> nn.Module:

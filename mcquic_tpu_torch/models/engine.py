@@ -23,7 +23,19 @@ non-blocking copies, and a download is waited for through its own event,
 so `compressMany` / `decompressMany` can run the host rANS of one batch on
 a worker thread (the rANS library is a ctypes `CDLL`, whose calls release
 the GIL) while the card works on the next.
+
+Given a list of `devices`, one process serves a batch data-parallel over
+them, the counterpart of the JAX engine's `mesh=` (`engine.py:49-76`,
+`_putBatch` at `:101-110`): one replica of the model per entry (an entry may
+repeat, as in `["cuda:0", "cuda:0"]`), each on its own CUDA stream. A batch
+whose rows divide the list is split along its rows: every part is uploaded,
+encoded or decoded and downloaded on its replica, all of them launched
+before any is waited for, and the codes or images are gathered in order.
+Any other batch runs whole on the first replica, which gives the one-device
+result, as the JAX engine's replicated placement does.
 """
+import contextlib
+import copy
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -48,25 +60,37 @@ def _toU16Bits(codes: torch.Tensor) -> torch.Tensor:
 
 
 class _InFlight(NamedTuple):
-    """A device result on its way to the host: the host tensor it lands in,
-    and the event recorded after its copy (None on the CPU)."""
-    host: torch.Tensor
-    event: Optional[torch.cuda.Event]
+    """Device results on their way to the host, one per replica that took a
+    part of the batch: the host tensors they land in, and the events
+    recorded after their copies (None on the CPU). `wait` gathers them in
+    order along the rows."""
+    hosts: List[torch.Tensor]
+    events: List[Optional[torch.cuda.Event]]
 
     def wait(self) -> np.ndarray:
-        if self.event is not None:
-            self.event.synchronize()
-        return self.host.numpy()
+        for event in self.events:
+            if event is not None:
+                event.synchronize()
+        if len(self.hosts) == 1:
+            return self.hosts[0].numpy()
+        return np.concatenate([h.numpy() for h in self.hosts])
 
 
 class CompressorEngine:
-    """Owns a v1 `Compressor` or a `Neon` on a device; exposes encode/decode,
-    compress/decompress, their pipelined multi-batch forms and the
-    image-level compressImage/decompressImage."""
+    """Owns a v1 `Compressor` or a `Neon` on a device, or one replica of it
+    on each of a list of devices; exposes encode/decode, compress/decompress,
+    their pipelined multi-batch forms and the image-level
+    compressImage/decompressImage."""
 
-    def __init__(self, model, qp: str = "-1", device="cuda"):
-        self._device = resolveDevice(device)
-        self._model = model.to(self._device)
+    def __init__(self, model, qp: str = "-1", device="cuda", devices: Optional[Sequence] = None):
+        self._devices = [resolveDevice(d) for d in (devices or [device])]
+        self._device = self._devices[0]
+        self._replicas = [model.to(self._device)] + [copy.deepcopy(model).to(d)
+                                                     for d in self._devices[1:]]
+        self._model = self._replicas[0]
+        # with several replicas, each launches on a stream of its own
+        self._streams = [torch.cuda.Stream(d) if d.type == "cuda" and len(self._devices) > 1
+                         else None for d in self._devices]
         self._qp = qp
         if isinstance(model, Neon):
             self._m, self._k = [1] * len(model.size), [model.k] * len(model.size)
@@ -77,12 +101,16 @@ class CompressorEngine:
         if max(self._k) > 1 << 16:
             raise ValueError("codes are carried in 16 bits; k must be <= 65536")
         self._coder = RansCoder(self._m, self._k)
-        self._coder.updateFreq([f.detach().cpu().double().numpy()
-                                for f in model._quantizer.frequencies()])
+        self.refreshFreq()
 
     @property
     def model(self):
         return self._model
+
+    @property
+    def replicas(self) -> List[torch.nn.Module]:
+        """The model on each device of the list, the first being `model`."""
+        return list(self._replicas)
 
     @property
     def coder(self) -> RansCoder:
@@ -93,50 +121,98 @@ class CompressorEngine:
         return self._device
 
     @property
+    def devices(self) -> List[torch.device]:
+        return list(self._devices)
+
+    @property
     def QuantizationParameter(self) -> str:
         return self._qp
 
+    def updateModel(self, stateDict: dict):
+        """New weights into every replica, then the rANS tables from their
+        frequencies (`updateVariables`, `engine.py:139-145`)."""
+        for replica in self._replicas:
+            replica.load_state_dict(stateDict, strict=True)
+        self.refreshFreq()
+
+    def refreshFreq(self):
+        """Install a copy of the model's code frequencies as the rANS tables;
+        the CDFs are rebuilt at the next use (`engine.py:147-151`)."""
+        self._coder.updateFreq([f.detach().cpu().double().numpy().copy()
+                                for f in self._model._quantizer.frequencies()])
+
     # ------------------------------------------------------------ transfers
-    def _upload(self, array: np.ndarray) -> torch.Tensor:
+    def _parts(self, n: int) -> List[Tuple[int, slice]]:
+        """(replica, rows) of a batch of n: one part per replica where n
+        divides among them, else the whole batch on the first."""
+        count = len(self._replicas)
+        if count == 1 or n % count:
+            return [(0, slice(0, n))]
+        size = n // count
+        return [(i, slice(i * size, (i + 1) * size)) for i in range(count)]
+
+    @contextlib.contextmanager
+    def _on(self, i: int):
+        """Run on replica i's device and stream, which first waits for the
+        work already queued on its device (the weights' copies)."""
+        stream = self._streams[i]
+        if stream is None:
+            yield
+            return
+        stream.wait_stream(torch.cuda.current_stream(self._devices[i]))
+        with torch.cuda.device(self._devices[i]), torch.cuda.stream(stream):
+            yield
+
+    def _upload(self, array: np.ndarray, device: torch.device) -> torch.Tensor:
         host = torch.from_numpy(np.ascontiguousarray(array))
-        if self._device.type == "cuda":
-            return host.pin_memory().to(self._device, non_blocking=True)
+        if device.type == "cuda":
+            return host.pin_memory().to(device, non_blocking=True)
         return host
 
-    def _download(self, tensor: torch.Tensor) -> _InFlight:
-        if self._device.type != "cuda":
-            return _InFlight(tensor, None)
+    @staticmethod
+    def _download(tensor: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:
+        """Start the copy to the host on the current stream of the tensor's
+        device, and record an event there after it."""
+        if tensor.device.type != "cuda":
+            return tensor, None
         host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
         host.copy_(tensor, non_blocking=True)
         event = torch.cuda.Event()
-        event.record()
-        return _InFlight(host, event)
+        event.record(torch.cuda.current_stream(tensor.device))
+        return host, event
 
     # ----------------------------------------------------------------- codec
     def _encodeDispatch(self, x: np.ndarray) -> Tuple[_InFlight, List[Tuple[int, ...]]]:
-        """Upload, encode and start the download of the packed codes; returns
-        without waiting for the card."""
+        """Upload, encode and start the download of the packed codes, on
+        every replica that takes a part; returns without waiting for the
+        card."""
         x = np.asarray(x)
         if x.ndim != 4:
             raise ValueError(f"encode takes [n, h, w, c] images, got {x.shape}")
-        dtype = next(self._model.parameters()).dtype
-        with exactFp32(), torch.inference_mode():
-            if x.dtype == np.uint8:
-                xDev = self._upload(alignedPadding(x, ALIGN))
-                xDev = (xDev.float() / 255.0 - 0.5) * 2.0
-            else:
-                xDev = self._upload(alignedPadding(x.astype(np.float32, copy=False), ALIGN))
-            codes = self._model.encode(xDev.to(dtype).permute(0, 3, 1, 2))
-            packed = torch.cat([_toU16Bits(c.reshape(c.shape[0], -1)) for c in codes], 1)
-            return self._download(packed), [tuple(c.shape) for c in codes]
+        x = alignedPadding(x if x.dtype == np.uint8 else x.astype(np.float32, copy=False), ALIGN)
+        hosts, events = [], []
+        for i, rows in self._parts(x.shape[0]):
+            model, device = self._replicas[i], self._devices[i]
+            dtype = next(model.parameters()).dtype
+            with self._on(i), exactFp32(), torch.inference_mode():
+                xDev = self._upload(x[rows], device)
+                if xDev.dtype == torch.uint8:
+                    xDev = (xDev.float() / 255.0 - 0.5) * 2.0
+                codes = model.encode(xDev.to(dtype).permute(0, 3, 1, 2))
+                packed = torch.cat([_toU16Bits(c.reshape(c.shape[0], -1)) for c in codes], 1)
+                host, event = self._download(packed)
+            hosts.append(host)
+            events.append(event)
+        return _InFlight(hosts, events), [tuple(c.shape[1:]) for c in codes]
 
     @staticmethod
     def _splitCodes(packed: np.ndarray, shapes: Sequence[Tuple[int, ...]]) -> List[np.ndarray]:
+        """The packed codes [n, sum] -> per level [n, *shape]."""
         packed = packed.view(np.uint16)
         out, cur = [], 0
         for shape in shapes:
-            size = int(np.prod(shape[1:]))
-            out.append(packed[:, cur:cur + size].reshape(shape).astype(np.int32))
+            size = int(np.prod(shape))
+            out.append(packed[:, cur:cur + size].reshape(-1, *shape).astype(np.int32))
             cur += size
         return out
 
@@ -149,21 +225,27 @@ class CompressorEngine:
         return self._splitCodes(inFlight.wait(), shapes)
 
     def _decodeDispatch(self, codes: Sequence[np.ndarray], toImage: bool) -> _InFlight:
-        """Upload the packed codes, decode and start the download."""
+        """Upload the packed codes, decode and start the download, on every
+        replica that takes a part."""
         n = codes[0].shape[0]
         packed = np.concatenate([np.asarray(c).reshape(n, -1) for c in codes], 1)
         packed = packed.astype(np.uint16).view(np.int16)
-        with exactFp32(), torch.inference_mode():
-            flat = self._upload(packed).to(torch.int64) & 0xFFFF
-            levels, cur = [], 0
-            for c in codes:
-                size = int(np.prod(c.shape[1:]))
-                levels.append(flat[:, cur:cur + size].reshape(c.shape))
-                cur += size
-            y = self._model.decode(levels)
-            if toImage:
-                y = torch.clamp(torch.round((y * 0.5 + 0.5) * 255.0), 0, 255).to(torch.uint8)
-            return self._download(y.permute(0, 2, 3, 1).contiguous())
+        hosts, events = [], []
+        for i, rows in self._parts(n):
+            with self._on(i), exactFp32(), torch.inference_mode():
+                flat = self._upload(packed[rows], self._devices[i]).to(torch.int64) & 0xFFFF
+                levels, cur = [], 0
+                for c in codes:
+                    size = int(np.prod(c.shape[1:]))
+                    levels.append(flat[:, cur:cur + size].reshape(-1, *c.shape[1:]))
+                    cur += size
+                y = self._replicas[i].decode(levels)
+                if toImage:
+                    y = torch.clamp(torch.round((y * 0.5 + 0.5) * 255.0), 0, 255).to(torch.uint8)
+                host, event = self._download(y.permute(0, 2, 3, 1).contiguous())
+            hosts.append(host)
+            events.append(event)
+        return _InFlight(hosts, events)
 
     def decode(self, codes: Sequence[np.ndarray], toImage: bool = False) -> np.ndarray:
         """codes per level [n, m, h, w] -> restored NHWC, still padded: float

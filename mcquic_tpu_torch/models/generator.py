@@ -46,6 +46,7 @@ from mcquic_tpu_torch.nn.convs import conv3x3, pixelShuffle3x3
 from mcquic_tpu_torch.ops.attention import flashAttentionPlain
 from mcquic_tpu_torch.ops.attention_cuda import flashAttention
 from mcquic_tpu_torch.ops.vq import vqDequantizeCodes
+from mcquic_tpu_torch.utils.registry import GeneratorRegistry
 
 IMAGENET_CLASSES = 1000
 LAYER_NORM_EPS = 1e-6          # flax nn.LayerNorm's default
@@ -234,6 +235,7 @@ def topKFilter(logits: torch.Tensor, topK: int) -> torch.Tensor:
     return torch.where(logits < kth, torch.full_like(logits, -1e9), logits)
 
 
+@GeneratorRegistry.register
 class GeneratorV3SelfAttention(nn.Module):
     """Class-conditional next-scale generator over a frozen Neon
     (generator.py:282-529). `size` lists Neon's latent grids large -> small;
@@ -459,13 +461,10 @@ class GeneratorV3SelfAttention(nn.Module):
         return predictions
 
 
+@GeneratorRegistry.register
 class GeneratorV3SelfAttentionNoAda(GeneratorV3SelfAttention):
     """The ablation without adaLN (generator.py:532-538): sandwich-norm
     blocks and a plain final norm + linear."""
 
     def __init__(self, *args, useAda: bool = False, **kwargs):
         super().__init__(*args, useAda=useAda, **kwargs)
-
-
-GENERATORS = {"GeneratorV3SelfAttention": GeneratorV3SelfAttention,
-              "GeneratorV3SelfAttentionNoAda": GeneratorV3SelfAttentionNoAda}

@@ -40,9 +40,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from mcquic_tpu_torch.models.compressor import Neon
-from mcquic_tpu_torch.models.generator import GENERATORS
 from mcquic_tpu_torch.ops.attention import flashAttentionPlain
 from mcquic_tpu_torch.ops.attention_cuda import flashAttention
+from mcquic_tpu_torch.utils.registry import GeneratorRegistry
 
 IMAGENET_CLASSES = 1000
 NORM_EPS = 1e-6                 # the JAX package's normEps and flax's LayerNorm default
@@ -141,6 +141,7 @@ def filterLogits(logits: torch.Tensor, topK: int, topP: float) -> torch.Tensor:
     return logits
 
 
+@GeneratorRegistry.register
 class GeneratorVAR(nn.Module):
     """A frozen Neon tokenizer and a VAR transformer over its codes
     (`generator_var.py:128-284`). `size` lists Neon's latent grids large ->
@@ -306,6 +307,3 @@ class GeneratorVAR(nn.Module):
                 x = torch.cat([nxt, nxt], 0)
         return predictions
 
-
-# every stage-2 generator the port trains and samples, by registry key
-STAGE2_MODELS = {**GENERATORS, "GeneratorVAR": GeneratorVAR}

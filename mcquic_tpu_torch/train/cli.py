@@ -11,8 +11,12 @@ train.
     class folders of PNG or JPEG images or wnid-keyed tar shards
     (`data/imagenet_classes.py::getGenLoader`, 256x256 crops); it
     returns the checkpoint, which `generate` samples from.
-A config's `externalLib` (user files that extend the JAX package's
-registries) is refused: this package has no registries to extend.
+A config's `externalLib` lists plugin files, which run before the trainer
+is built (`registerExternal`, as `mcquic_tpu/train/cli.py:22-31` runs
+them): they add models, optimizers, schedules, losses, hooks, value tuners
+or generators to the registries of `utils/registry.py`, and the config
+names them by key. A plugin written for the JAX package registers flax
+modules into its registries and does not run here.
 
 Several processes train one model data-parallel when MCQUIC_COORDINATOR
 (`host:port`), MCQUIC_NUM_PROCESSES and MCQUIC_PROCESS_ID are set, one
@@ -23,7 +27,9 @@ each process reads its share of the tar shards or class files
 (`hostId`, `hostCount`), and only rank 0 writes the checkpoints and the
 deploy model.
 """
+import importlib.util
 import logging
+import sys
 from pathlib import Path
 
 from mcquic_tpu_torch import parallel
@@ -37,16 +43,25 @@ STAGE2 = ("GeneratorV3SelfAttention", "GeneratorV3SelfAttentionNoAda", "Generato
 GEN_CROP = 256                   # `mcquic_tpu/train/cli.py:88-90`
 
 
+def registerExternal(paths):
+    """Run each plugin file as a module named by its stem, which registers
+    what it defines (`mcquic_tpu/train/cli.py:22-31`)."""
+    for p in paths:
+        p = Path(p)
+        spec = importlib.util.spec_from_file_location(p.stem, p)
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[p.stem] = module
+        spec.loader.exec_module(module)
+        logger.info("registered external lib %s", p)
+
+
 def main(configPath, gen: bool = False, device="cuda") -> Path:
     """Train; returns the deploy model's path (stage 1) or the checkpoint's
     (stage 2)."""
     parallel.initDistributed(device)
     try:
         config = Config.load(str(configPath))
-        train = config.Train
-        if train.ExternalLib:
-            raise NotImplementedError(f"externalLib {train.ExternalLib} is not supported by this "
-                                      "package")
+        registerExternal(config.Train.ExternalLib)
         if gen:
             return trainGenerator(config, device)
         if config.Model.Key in STAGE2:

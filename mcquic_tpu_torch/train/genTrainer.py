@@ -39,7 +39,9 @@ The checkpoint is the JAX `GenTrainer`'s layout (`genTrainer.py:237-246`):
 `optax.masked`'s leaves (moments of the trainable parameters only, in flax
 order; `saver.py::OptaxLayout`) and `rng`; the port keeps its generator's
 state under `torch/rng`. Checkpoints resume across packages, and
-`python -m mcquic_tpu_torch generate` samples from them.
+`python -m mcquic_tpu_torch generate` samples from them. The JAX
+`GenTrainer` has no orbax backend, so MCQUIC_CKPT_BACKEND=orbax, which
+gives the stage-1 `Trainer` its sharded checkpoints, is refused here.
 """
 import inspect
 import logging
@@ -56,8 +58,8 @@ from mcquic_tpu_torch import parallel
 from mcquic_tpu_torch.config import Config
 from mcquic_tpu_torch.data.augment import augmentDraws, trainingTransform
 from mcquic_tpu_torch.models.compressor import initialize, truncatedNormal
-from mcquic_tpu_torch.models.generator import GENERATORS
-from mcquic_tpu_torch.models.generator_var import STAGE2_MODELS, GeneratorVAR
+from mcquic_tpu_torch.models.generator import GeneratorV3SelfAttention
+from mcquic_tpu_torch.models.generator_var import GeneratorVAR
 from mcquic_tpu_torch.ops.vq import draws
 from mcquic_tpu_torch.train.hooks import HookType, getAllHooks
 from mcquic_tpu_torch.train.lrSchedulers import getSchedule
@@ -68,6 +70,7 @@ from mcquic_tpu_torch.utils import exactFp32, resolveDevice
 from mcquic_tpu_torch.utils.convert import (_applyMap, convertReference, generatorMapOf,
                                             halvingOf, loadTorchStateDict, modelGeometry,
                                             neonMapOf, readExport, toJaxGeneratorParams)
+from mcquic_tpu_torch.utils.registry import GeneratorRegistry
 
 logger = logging.getLogger("mcquic_tpu_torch.train.gen")
 
@@ -110,9 +113,9 @@ def checkGenerator(key: str, params: dict):
     which its caption projection cannot take (`capProj` is [capDim,
     hidden]; flax raises ScopeParamShapeError), and neither package's
     loaders read captions, so no trainer of either package steps one."""
-    if key not in STAGE2_MODELS:
+    if key not in GeneratorRegistry:
         raise NotImplementedError(f"generator `{key}` does not train in this package (ported: "
-                                  f"{sorted(STAGE2_MODELS)})")
+                                  f"{sorted(GeneratorRegistry)})")
     if params.get("textConditioned"):
         raise ValueError(f"{key} with textConditioned=True takes [n, capDim] caption "
                          "embeddings; `train -G` feeds class ids from class folders or "
@@ -125,13 +128,13 @@ def constructGenerator(key: str, params: dict):
     (`genTrainer.py:79-94`)."""
     checkGenerator(key, params)
     # the NoAda class takes GeneratorV3SelfAttention's arguments
-    cls = GeneratorVAR if key == "GeneratorVAR" else GENERATORS["GeneratorV3SelfAttention"]
+    cls = GeneratorVAR if key == "GeneratorVAR" else GeneratorV3SelfAttention
     known = set(inspect.signature(cls.__init__).parameters)
     known.discard("self")
     dropped = sorted(set(params) - known - {"loadFrom"})
     if dropped:
         logger.info("ignoring config params not taken by %s: %s", key, dropped)
-    return STAGE2_MODELS[key](**{k: v for k, v in params.items() if k in known})
+    return GeneratorRegistry.get(key)(**{k: v for k, v in params.items() if k in known})
 
 
 def loadCompressorParams(ckptPath, modelParams: dict = None) -> dict:
@@ -239,6 +242,11 @@ def initializeVar(model: GeneratorVAR, generator: torch.Generator):
 
 class GenTrainer:
     def __init__(self, config: Config, model=None, device="cuda", seed: int = SEED):
+        if os.environ.get("MCQUIC_CKPT_BACKEND") == "orbax":
+            raise NotImplementedError(
+                "MCQUIC_CKPT_BACKEND=orbax selects the stage-1 Trainer's sharded checkpoints; "
+                "the stage-2 GenTrainer has no such backend, as the JAX package's GenTrainer has "
+                "none: it saves and resumes npz checkpoints in saveDir/latest")
         self._config = config
         train = config.Train
         self._device = parallel.localDevice(resolveDevice(device))

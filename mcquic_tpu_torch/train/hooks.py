@@ -6,6 +6,8 @@ import enum
 import logging
 from typing import Callable, Dict, List
 
+from mcquic_tpu_torch.utils.registry import HookRegistry
+
 logger = logging.getLogger("mcquic_tpu_torch.hooks")
 
 
@@ -18,6 +20,7 @@ class HookType(enum.Enum):
     StepFinishHook = "stepFinish"
 
 
+@HookRegistry.register
 class CodebookReassign:
     """Dead-codeword reassignment every `freq` steps (reference
     hooks.py:100-121), never on the terminal step: the checkpoint written
@@ -40,17 +43,14 @@ class CodebookReassign:
         logger.info("step %d: codebook reassigned, proportion=%.4f", step, prop)
 
 
-HOOKS = {"CodebookReassign": CodebookReassign}
-
-
 def getAllHooks(hookConfigs) -> Dict[HookType, List[Callable]]:
     """The config's `{key, params}` hooks grouped by phase; unknown keys are
     warned about and left out (`hooks.py:64-75`)."""
     out: Dict[HookType, List[Callable]] = {t: [] for t in HookType}
     for cfg in hookConfigs or []:
-        if cfg.Key not in HOOKS:
+        if cfg.Key not in HookRegistry:
             logger.warning("Unknown hook %s ignored", cfg.Key)
             continue
-        hook = HOOKS[cfg.Key](**cfg.Params)
+        hook = HookRegistry.get(cfg.Key)(**cfg.Params)
         out[getattr(hook, "hookType", HookType.StepFinishHook)].append(hook)
     return out

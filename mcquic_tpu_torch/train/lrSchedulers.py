@@ -9,13 +9,17 @@ import math
 
 import numpy as np
 
+from mcquic_tpu_torch.utils.registry import LrSchedulerRegistry
+
 logger = logging.getLogger("mcquic_tpu_torch.train")
 
 
+@LrSchedulerRegistry.register(key="Placeholder")
 def placeholder(baseLr: float, **_):
     return lambda step: float(baseLr)
 
 
+@LrSchedulerRegistry.register(key="MultiStepLRWithWarmUp")
 def multiStepLRWithWarmUp(baseLr: float, milestones=(), gamma: float = 0.1, **_):
     """Linear warmup until the first milestone, then step decay by gamma."""
     milestones = sorted(int(m) for m in milestones)
@@ -28,6 +32,7 @@ def multiStepLRWithWarmUp(baseLr: float, milestones=(), gamma: float = 0.1, **_)
     return schedule
 
 
+@LrSchedulerRegistry.register(key="CyclicLR")
 def cyclicLR(baseLr: float, max_lr: float = None, step_size_up: int = 2000,
              step_size_down: int = None, mode: str = "triangular", gamma: float = 1.0, **_):
     """Triangular cyclic lr (reference `lrSchedulers.py:71-302`)."""
@@ -44,6 +49,7 @@ def cyclicLR(baseLr: float, max_lr: float = None, step_size_up: int = 2000,
     return schedule
 
 
+@LrSchedulerRegistry.register(key="CosineAnnealingWarmupRestarts")
 def cosineAnnealingWarmupRestarts(baseLr: float, first_cycle_steps: int, cycle_mult: float = 1.0,
                                   lrScaleRatio: float = 0.001, warmup_steps: int = 0,
                                   gamma: float = 1.0, **_):
@@ -70,14 +76,8 @@ def cosineAnnealingWarmupRestarts(baseLr: float, first_cycle_steps: int, cycle_m
     return schedule
 
 
-SCHEDULES = {"Placeholder": placeholder, "MultiStepLRWithWarmUp": multiStepLRWithWarmUp,
-             "CyclicLR": cyclicLR, "CosineAnnealingWarmupRestarts": cosineAnnealingWarmupRestarts}
-
-
 def getSchedule(key: str, baseLr: float, params: dict):
-    if key not in SCHEDULES:
-        raise KeyError(f"unknown lr schedule {key!r}; registered: {sorted(SCHEDULES)}")
-    return SCHEDULES[key](baseLr, **params)
+    return LrSchedulerRegistry.get(key)(baseLr, **params)
 
 
 def scheduleFlatlineFraction(schedule, baseLr: float, startStep: int, totalStep: int,

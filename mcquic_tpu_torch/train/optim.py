@@ -39,6 +39,7 @@ from typing import Callable, Dict, List, Sequence
 import torch
 
 from mcquic_tpu_torch import parallel
+from mcquic_tpu_torch.utils.registry import OptimizerRegistry
 
 
 class Optimizer:
@@ -165,30 +166,30 @@ class SGD(Optimizer):
         return [t.clone() for t in trace]
 
 
+@OptimizerRegistry.register(key="Adam")
 def adam(params, schedule, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0, **_):
     return Adam(params, schedule, betas, eps, weight_decay)
 
 
+@OptimizerRegistry.register(key="AdamW")
 def adamw(params, schedule, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-2, **_):
     return Adam(params, schedule, betas, eps, weight_decay)
 
 
+@OptimizerRegistry.register(key="Lamb")
+@OptimizerRegistry.register(key="FusedLAMB")
 def lamb(params, schedule, betas=(0.9, 0.999), eps=1e-6, weight_decay=0.0, **_):
     return Adam(params, schedule, betas, eps, weight_decay, trustRatio=True)
 
 
+@OptimizerRegistry.register(key="SGD")
 def sgd(params, schedule, momentum=0.0, nesterov=False, weight_decay=0.0, **_):
     return SGD(params, schedule, momentum, nesterov, weight_decay)
-
-
-OPTIMIZERS = {"Adam": adam, "AdamW": adamw, "SGD": sgd, "Lamb": lamb, "FusedLAMB": lamb}
 
 
 def getOptimizer(key: str, schedule, params: dict, parameters: List[torch.Tensor]) -> Optimizer:
     """The optimizer of a config's `optim` section over `parameters`; its
     `lr` is the schedule's base and dropped here, and the apex-only
     `use_nvlamb` is ignored, as `mcquic_tpu/train/optim.py::getOptimizer` does."""
-    if key not in OPTIMIZERS:
-        raise KeyError(f"unknown optimizer {key!r}; registered: {sorted(OPTIMIZERS)}")
     kwargs = {k: v for k, v in params.items() if k not in ("lr", "use_nvlamb")}
-    return OPTIMIZERS[key](parameters, schedule, **kwargs)
+    return OptimizerRegistry.get(key)(parameters, schedule, **kwargs)

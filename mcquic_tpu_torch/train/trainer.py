@@ -8,10 +8,15 @@ or data-parallel over several processes (counterpart of `mcquic_tpu/train/traine
     validation through the real codec every valFreq with the best MS-SSIM
     kept, the CodebookReassign hook, auto-resume from the rotated `latest/`,
     and a save on SIGTERM;
-  * npz checkpoints only: MCQUIC_CKPT_BACKEND is read as the JAX trainer
-    reads it (`mcquic_tpu/train/trainer.py:113-124`), and `orbax`, an unknown
-    value, or a saveDir that holds only a JAX run's `orbax/` is refused
-    (`checkpointBackend`);
+  * npz checkpoints, or with MCQUIC_CKPT_BACKEND=orbax (or `ckptBackend`,
+    read as the JAX trainer reads them, `mcquic_tpu/train/trainer.py:113-124`)
+    sharded ones through `torch.distributed.checkpoint` under `saveDir/dcp`
+    (`train/dcp_saver.py`, the counterpart of the JAX package's orbax
+    saver): each rank writes its own shards of the optimizer's state
+    asynchronously, at most 25 steps are kept, and a resume reads the
+    latest step into the running sharding, at any world size. An unknown
+    value is refused, and so is a saveDir holding a JAX run's `orbax/`,
+    whose format needs tensorstore (`checkpointBackend`);
   * the learning rate of the world rule (`config.py::Train.scaledOptim`)
     at the global batch, `batchSize` x the number of processes.
 
@@ -64,10 +69,10 @@ import mcquic_tpu_torch
 from mcquic_tpu_torch import parallel
 from mcquic_tpu_torch.config import Config
 from mcquic_tpu_torch.data.augment import augmentDraws, trainingTransform
-from mcquic_tpu_torch.loss import MsSSIM, PSNR
 from mcquic_tpu_torch.loss.lpips import makeDefaultLpipsFn
-from mcquic_tpu_torch.models.compressor import Neon, buildModel, initialize
+from mcquic_tpu_torch.models.compressor import Neon, initialize
 from mcquic_tpu_torch.ops.vq import draws
+from mcquic_tpu_torch.train.dcp_saver import DcpSaver
 from mcquic_tpu_torch.train.hooks import HookType, getAllHooks
 from mcquic_tpu_torch.train.logging import MetricsLogger
 from mcquic_tpu_torch.train.lrSchedulers import checkScheduleCoversBudget, getSchedule
@@ -78,21 +83,21 @@ from mcquic_tpu_torch.train.state import (codeUsage, makeTrainStep, reassignShap
 from mcquic_tpu_torch.utils import exactFp32, resolveDevice
 from mcquic_tpu_torch.utils.convert import (compressorMap, modelGeometry, neonMapOf, stateDictOf,
                                             toJaxParams)
+from mcquic_tpu_torch.utils.registry import LossRegistry, ModelRegistry
 
 logger = logging.getLogger("mcquic_tpu_torch.train")
 
 SEED = 3407                 # reference train/utils.py:332
-DISTORTIONS = {"MsSSIM": MsSSIM, "PSNR": PSNR}
 
 
 def resolveStage1Model(config: Config):
     """(model key, constructor kwargs) of a stage-1 config, resolved as
     `mcquic_tpu/train/trainer.py:398-434` resolves them: a `size` pyramid
     means Neon whatever the key says, and a list-valued k is read at its
-    first entry; otherwise the v1 Compressor, a uniform list-valued m read
-    as its int."""
+    first entry; otherwise the config's key (the v1 Compressor, or a model
+    a plugin registered), a uniform list-valued m read as its int."""
     geometry = modelGeometry({"config": config.serialize()})
-    return ("Neon" if "size" in geometry else "Compressor"), geometry
+    return ("Neon" if "size" in geometry else config.Model.Key), geometry
 
 
 def modelMap(geometry: dict):
@@ -111,35 +116,38 @@ def geometryOf(model) -> dict:
     return {"channel": model.channel, "m": model.m, "k": list(model.k)}
 
 
-def checkpointBackend(saveDir) -> str:
-    """MCQUIC_CKPT_BACKEND (default npz), the only backend this package has.
-    `orbax` and unknown values raise, and so does a saveDir holding a JAX
-    run's `orbax/` and no `latest/`, which would otherwise start again from
-    step 0 without a word."""
-    backend = os.environ.get("MCQUIC_CKPT_BACKEND", "npz")
+def checkpointBackend(saveDir, backend: Optional[str] = None) -> str:
+    """`backend`, else MCQUIC_CKPT_BACKEND, else npz: `npz` (saveDir/latest)
+    or `orbax`, which this package writes through torch.distributed.checkpoint
+    (saveDir/dcp). Unknown values raise. A saveDir holding a JAX run's
+    `orbax/` raises too, where this backend would resume from it (orbax's
+    format needs tensorstore), and where npz finds no `latest/` beside it:
+    either would otherwise start again from step 0 without a word."""
+    backend = backend or os.environ.get("MCQUIC_CKPT_BACKEND", "npz")
     if backend not in ("npz", "orbax"):
         raise ValueError(f"unknown ckptBackend {backend!r}")
-    if backend == "orbax":
-        raise NotImplementedError("MCQUIC_CKPT_BACKEND=orbax: this package has no orbax "
-                                  "backend; it saves and resumes npz checkpoints in "
-                                  "saveDir/latest")
-    if saveDir and (Path(saveDir) / "orbax").is_dir() and not (Path(saveDir) / "latest").is_dir():
-        raise ValueError(f"saveDir {saveDir} holds an orbax checkpoint (orbax/) and no latest/; "
-                         "this package resumes npz checkpoints only")
+    if saveDir and (Path(saveDir) / "orbax").is_dir():
+        if backend == "orbax":
+            raise ValueError(f"saveDir {saveDir} holds an orbax checkpoint (orbax/), whose format "
+                             "needs tensorstore; this package resumes its own "
+                             "torch.distributed.checkpoint steps (dcp/) and npz checkpoints")
+        if not (Path(saveDir) / "latest").is_dir():
+            raise ValueError(f"saveDir {saveDir} holds an orbax checkpoint (orbax/) and no "
+                             "latest/; this package resumes npz checkpoints only")
     return backend
 
 
 class Trainer:
     def __init__(self, config: Config, model=None, device="cuda", inputShape=None,
-                 seed: int = SEED, lpipsFn=None):
+                 seed: int = SEED, lpipsFn=None, ckptBackend: Optional[str] = None):
         self._config = config
         train = config.Train
         self._device = parallel.localDevice(resolveDevice(device))
         self._world = parallel.world()
         self._main = parallel.isMain()
         if model is None:
-            _, params = resolveStage1Model(config)
-            model = initialize(buildModel(params), torch.Generator().manual_seed(seed))
+            key, params = resolveStage1Model(config)
+            model = initialize(ModelRegistry.get(key)(**params), torch.Generator().manual_seed(seed))
         self._geometry = geometryOf(model)
         self._model = model.to(self._device).train()
         self._dtype = next(self._model.parameters()).dtype      # fp32; fp64 in the tests
@@ -155,22 +163,22 @@ class Trainer:
         self._layout = OptaxLayout(modelMap(self._geometry), self._names)
         logger.debug("optimizer state on rank %d of %d: %d bytes", parallel.rank(), self._world,
                      self._optimizer.stateBytes())
-        if train.Target not in DISTORTIONS:
-            raise KeyError(f"unknown target {train.Target!r}; known: {sorted(DISTORTIONS)}")
         if lpipsFn is None:
             lpipsFn = makeDefaultLpipsFn(self._device)
         elif lpipsFn is False:
             lpipsFn = None
         self._lpipsFn = lpipsFn
-        self._stepFn = makeTrainStep(self._model, self._optimizer, DISTORTIONS[train.Target](),
+        self._stepFn = makeTrainStep(self._model, self._optimizer, LossRegistry.get(train.Target)(),
                                      lpipsFn)
         self._step = 0
         self._generator = torch.Generator(device=self._device).manual_seed(seed + 1)
 
         # rank 0's Saver rotates the previous `latest/` away; every rank
         # resumes from where it went
-        checkpointBackend(train.SaveDir)
+        backend = checkpointBackend(train.SaveDir, ckptBackend)
         self._saver = Saver(train.SaveDir) if train.SaveDir and self._main else None
+        self._dcp = DcpSaver(train.SaveDir) if backend == "orbax" and train.SaveDir else None
+        self._mesh = None
         self._resumePath = parallel.broadcastObject(
             self._saver.PreviousCkpt if self._saver else None)
         self._bestDistortion = float("-inf")
@@ -208,8 +216,11 @@ class Trainer:
 
     # ---------------------------------------------------------------- resume
     def tryResume(self) -> bool:
-        """Resume from the checkpoint the Saver rotated away, if any: the
-        port's or the JAX package's."""
+        """Resume from the latest DCP step under the orbax backend, else from
+        the checkpoint the Saver rotated away, if any: the port's or the JAX
+        package's."""
+        if self._dcp is not None:
+            return self._resumeDcp()
         path = self._resumePath
         if path is None or not Path(path).exists():
             return False
@@ -221,6 +232,48 @@ class Trainer:
         self._step = int(flat["step"])
         restoreGenerator(self._generator, flat)
         logger.info("Resumed from %s at step %d", path, self._step)
+        return True
+
+    def _sharded(self, tensor: torch.Tensor, i: int):
+        """Slot tensor `tensor` of parameter i as DCP keeps it: a DTensor
+        sharded as ZeRO shards it, so that every rank's slice is written and
+        a resume at another world size reshards; the tensor itself where it
+        is whole on every rank."""
+        axis = self._optimizer.axes[i]
+        if axis is None:
+            return tensor
+        from torch.distributed.tensor import DTensor, Shard
+        if self._mesh is None:
+            from torch.distributed.device_mesh import init_device_mesh
+            self._mesh = init_device_mesh(self._device.type, (self._world,))
+        shape = self._optimizer.params[i].shape
+        return DTensor.from_local(tensor, self._mesh, [Shard(axis)], run_check=False, shape=shape,
+                                  stride=torch.empty(shape, device="meta").stride())
+
+    def _dcpState(self) -> dict:
+        """What a DCP step holds, the npz checkpoint's state: the step, the
+        model's state dict (its parameters and code frequencies), the
+        optimizer's count and slots (this rank's shards) and the torch
+        generator's state."""
+        optimizer = self._optimizer
+        slots = {slot: {name: self._sharded(t, i)
+                        for i, (name, t) in enumerate(zip(self._names, tensors))}
+                 for slot, tensors in optimizer.state.items()}
+        return {"step": self._step, "model": self._model.state_dict(),
+                "optimizer": {"count": optimizer.count, **slots},
+                "rng": self._generator.get_state()}
+
+    def _resumeDcp(self) -> bool:
+        step = self._dcp.latestStep()
+        if step is None:
+            return False
+        # the template's tensors are the model's and the optimizer's own (views,
+        # and DTensors over this rank's slots): the load writes them in place
+        state = self._dcp.restore(self._dcpState(), step)
+        self._optimizer.count = int(state["optimizer"]["count"])
+        self._step = int(state["step"])
+        self._generator.set_state(state["rng"])
+        logger.info("Resumed from %s at step %d", self._dcp.root / str(step), self._step)
         return True
 
     def checkpoint(self) -> Optional[dict]:
@@ -235,17 +288,26 @@ class Trainer:
                 "rng": np.asarray([0, (SEED + 1 + self._step) & 0xFFFFFFFF], np.uint32),
                 "torch/rng": self._generator.get_state().numpy()}
 
-    def save(self):
-        """Every rank takes part (`checkpoint`) where the config names a
-        saveDir; rank 0 writes."""
+    def save(self, wait: bool = False):
+        """Every rank takes part where the config names a saveDir: each
+        writes its shards of a DCP step under the orbax backend (`wait`:
+        until it is on disk), else rank 0 writes the gathered checkpoint
+        (`checkpoint`)."""
         if not self._config.Train.SaveDir:
+            return
+        if self._dcp is not None:
+            self._dcp.save(self._step, self._dcpState())
+            if wait:
+                self._dcp.waitUntilFinished()
             return
         flat = self.checkpoint()
         if self._saver is not None:
             self._saver.save(flat, {"config": self._config.serialize()})
 
     def close(self):
-        """Release the save directory's lock."""
+        """Wait for a DCP save in flight; release the save directory's lock."""
+        if self._dcp is not None:
+            self._dcp.waitUntilFinished()
         if self._saver is not None:
             self._saver.close()
 
@@ -295,7 +357,7 @@ class Trainer:
                 stopRequested.append(signum)
                 return
             logger.warning("SIGTERM: saving checkpoint before exit")
-            self.save()
+            self.save(wait=True)
             raise SystemExit(143)
 
         try:
@@ -315,7 +377,7 @@ class Trainer:
                     metrics = self.trainStep(batch)
                     step = self._step
                     if self._world > 1 and parallel.anyRank(bool(stopRequested), self._device):
-                        self.save()
+                        self.save(wait=True)
                         raise SystemExit(143)
                     if step % 100 == 0:
                         m = {k: float(v) for k, v in metrics.items()}

@@ -3,9 +3,12 @@
 `mcquic/train/valueTuners.py:6-118`): CyclicValue, ExponentialValue,
 StepValue, CosineValue, CosineValueWithEnd, JumpValue and JumpAlter, each a
 function of the epoch (`calc`) with the reference's `.step()` / `.Value`
-interface. `VALUE_TUNERS` is the port's registry, by the JAX package's keys.
+interface, each registered in `utils/registry.py::ValueTunerRegistry` by the JAX
+package's keys.
 """
 import math
+
+from mcquic_tpu_torch.utils.registry import ValueTunerRegistry
 
 
 class ValueTuner:
@@ -26,6 +29,7 @@ class ValueTuner:
         return self.calc(self._epoch)
 
 
+@ValueTunerRegistry.register
 class CyclicValue(ValueTuner):
     def __init__(self, initValue: float = 2e-2, gamma: float = 1.0, cyclicInterval: int = 400,
                  boostInterval: int = 3, zeroOutRatio: float = 1. / 3.):
@@ -45,6 +49,7 @@ class CyclicValue(ValueTuner):
         return max(0.0, max(up, down))
 
 
+@ValueTunerRegistry.register
 class ExponentialValue(ValueTuner):
     def __init__(self, initValue: float = 2e-2, gamma: float = 0.9999):
         super().__init__()
@@ -54,6 +59,7 @@ class ExponentialValue(ValueTuner):
         return self._initValue * (self._gamma ** epoch)
 
 
+@ValueTunerRegistry.register
 class StepValue(ValueTuner):
     def __init__(self, initValue: float = 2e-2, gamma: float = 0.1, stepInterval: int = 1000):
         super().__init__()
@@ -63,6 +69,7 @@ class StepValue(ValueTuner):
         return self._initValue * (self._gamma ** (epoch // self._stepInterval))
 
 
+@ValueTunerRegistry.register
 class CosineValue(ValueTuner):
     def __init__(self, maxValue: float = 1.0, minValue: float = 0.0, stepInterval: int = 1,
                  totalStep: int = 1000, revert: bool = False):
@@ -75,6 +82,7 @@ class CosineValue(ValueTuner):
         return (nowCosine + 1) / 2.0 * (self._maxValue - self._minValue) + self._minValue
 
 
+@ValueTunerRegistry.register
 class CosineValueWithEnd(CosineValue):
     def calc(self, epoch):
         if epoch / self._stepInterval / self._totalStep >= 1:
@@ -85,6 +93,7 @@ class CosineValueWithEnd(CosineValue):
         return (nowCosine + 1) / 2.0 * (self._maxValue - self._minValue) + self._minValue
 
 
+@ValueTunerRegistry.register
 class JumpValue(ValueTuner):
     def __init__(self, initValue: float = 10.0, gamma: float = 0.9, stepInterval: int = 1000,
                  minValue: float = 0.01):
@@ -96,6 +105,7 @@ class JumpValue(ValueTuner):
         return self._initValue * (self._gamma ** ((epoch // self._stepInterval) % self._iteration))
 
 
+@ValueTunerRegistry.register
 class JumpAlter(JumpValue):
     def __init__(self, initValue: float = 10.0, gamma: float = 0.9, stepInterval: int = 10,
                  minValue: float = 0.01, milestone: int = 500, valueAfterMilestone: float = 0.01):
@@ -108,7 +118,3 @@ class JumpAlter(JumpValue):
             return super().calc(epoch)
         return self._valueAfterMilestone
 
-
-VALUE_TUNERS = {cls.__name__: cls for cls in (CyclicValue, ExponentialValue, StepValue,
-                                             CosineValue, CosineValueWithEnd, JumpValue,
-                                             JumpAlter)}

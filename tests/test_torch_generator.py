@@ -27,9 +27,10 @@ import torch
 from mcquic_tpu.models.generator import GeneratorV3SelfAttention as JaxGenerator
 from mcquic_tpu.models.generator import GeneratorV3SelfAttentionNoAda as JaxGeneratorNoAda
 from mcquic_tpu.models.generator import blockCausalMask as jaxBlockCausalMask
-from mcquic_tpu_torch.models.generator import (GENERATORS, GeneratorV3SelfAttention,
+from mcquic_tpu_torch.models.generator import (GeneratorV3SelfAttention,
                                                blockCausalMask, topKFilter)
 from mcquic_tpu_torch.utils.convert import fromJaxGeneratorParams, generatorGeometry
+from mcquic_tpu_torch.utils.registry import GeneratorRegistry
 
 TINY = dict(channel=8, k=16, size=(2, 1, 1), hiddenSize=32, depth=2, nHeads=4, numClasses=10)
 NEON_A = dict(channel=256, k=1024, size=(16, 8, 8, 4, 4, 2, 2, 1, 1), hiddenSize=512, depth=8,
@@ -236,7 +237,7 @@ def test_no_ada_variant_matches():
     assert not generatorGeometry(flat)["useAda"]
     module = JaxGeneratorNoAda(**TINY, dtype=jnp.float64)
     jaxCodes, jaxRestored, _ = jaxGenerate(module, unflattenTree(flat), CLASSES, False)
-    model = portGenerator(flat, TINY, GENERATORS["GeneratorV3SelfAttentionNoAda"])
+    model = portGenerator(flat, TINY, GeneratorRegistry.get("GeneratorV3SelfAttentionNoAda"))
     codes, restored, _ = portGenerate(model, CLASSES, True)
     for ours, theirs in zip(codes, jaxCodes):
         np.testing.assert_array_equal(ours, theirs.transpose(0, 3, 1, 2))

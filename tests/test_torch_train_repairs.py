@@ -5,9 +5,10 @@ denseNorm refusal's pointer, at the tiny geometry of
 
   * MCQUIC_SAVE_FREQ caps the save interval (`:240-243`);
   * MCQUIC_CKPT_BACKEND: an unknown value raises with the JAX trainer's
-    wording (`:118-124`), `orbax` raises (the port has no orbax backend), and
-    a saveDir holding only a JAX run's `orbax/` raises instead of starting
-    from step 0;
+    wording (`:118-124`), `orbax` selects the port's sharded checkpoints
+    through torch.distributed.checkpoint under `saveDir/dcp`
+    (`tests/test_torch_dcp.py` trains and resumes with them), and a saveDir
+    holding only a JAX run's `orbax/` raises instead of starting from step 0;
   * a validation logs the frequency histograms, `val/codeMaps`, `val/raw`
     and `val/restored`, in the order of `_logValObservability` (`:360-374`);
   * a denseNorm Neon is refused citing ROADMAP A10.
@@ -76,10 +77,14 @@ def test_ckpt_backend_unknown_and_orbax_are_refused(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="unknown ckptBackend 'zarr'"):
         _trainer(tmp_path)
     monkeypatch.setenv("MCQUIC_CKPT_BACKEND", "orbax")
-    with pytest.raises(NotImplementedError, match="no orbax backend"):
-        _trainer(tmp_path)
+    trainer = _trainer(tmp_path)
+    assert trainer._dcp.root == (tmp_path / "saved" / "dcp").absolute()
+    assert not trainer.tryResume() and trainer.step == 0
+    trainer.close()
     monkeypatch.setenv("MCQUIC_CKPT_BACKEND", "npz")
-    _trainer(tmp_path).close()
+    trainer = _trainer(tmp_path)
+    assert trainer._dcp is None
+    trainer.close()
 
 
 def test_ckpt_backend_refuses_a_save_dir_of_orbax_checkpoints_only(tmp_path, monkeypatch):

@@ -4,7 +4,8 @@ through `calc` and through `.step()` / `.Value`."""
 import pytest
 
 from mcquic_tpu.train import valueTuners as jaxTuners
-from mcquic_tpu_torch.train.valueTuners import VALUE_TUNERS
+from mcquic_tpu_torch.train import valueTuners  # noqa: F401  (fills the registry)
+from mcquic_tpu_torch.utils.registry import ValueTunerRegistry as VALUE_TUNERS
 
 PARAMS = {
     "CyclicValue": {"initValue": 0.5, "gamma": 0.999, "cyclicInterval": 40, "boostInterval": 2,

@@ -186,7 +186,17 @@ ends:
      batch of 3 (whole on the first), `.mcq` bytes equal to the one-device
      engine's, K1 3 and K2 1 per replica, the wall times beside one
      device's; the seeded past-budget model over the same list, K1b once
-     and K1 twice per replica, every search equal to the plain version.
+     and K1 twice per replica, every search equal to the plain version;
+ 17. captions: a seeded caption encoder (`utils/textEncoder.py`) at
+     openai/clip-vit-base-patch32's text geometry (hidden 512, 12 layers, 8
+     heads, 77 positions, vocabulary 49408, quick_gelu) over a byte-level
+     vocabulary written to a temporary folder encodes eight captions (one
+     cut at 77 tokens) on the card: K3 12 times per encode, each call held
+     to its plain version, the pooled [8, 512] held to the CPU plain path
+     (CAPTION_RTOL); phase 15's text-conditioned generator samples greedily
+     from them (K3 72), its depth-2 cut held to the CPU's; K3 at the
+     encoder's shape (B 8, H 8, T 77, D 64, causal) timed beside its plain
+     version and SDPA with `is_causal`, with its bound.
      The CPU reference steps of phases 10 and 15 run in a thread while the
      card works (`startCpuStep`), and phase 13's generate CLI runs on through
      phases 14 and 15 (`finishVarCli`), to keep the run inside its limit.
@@ -282,6 +292,15 @@ VAR_D24 = dict(channel=256, k=1024, size=[16, 8, 8, 4, 4, 2, 2, 1, 1], depth=24,
                nHeads=16, numClasses=1000)   # GeneratorVAR's defaults over the neonA tokenizer
 VAR_TRAIN_STEPS = 3              # train -G on the VAR config
 INCEPTION_CPU_RTOL = 1e-3        # phase 13: InceptionV3's logits, card vs CPU, of the largest
+CAPTIONS = ["a photo of a cat sitting on the grass in the sun",
+            "The quick brown fox jumps over the lazy dog.",
+            "A red car parked in front of an old house at night, 2024",
+            "two people walking along the beach with their dog!!!",
+            "Café crème, naïve façade, ΣΟΦΙΑ, 東京タワー",
+            "a bowl of fruit on a wooden table: apples, oranges & pears",
+            "",
+            " ".join(["a very long caption that runs past the context"] * 12)]   # cut at 77
+CAPTION_RTOL = 1e-4              # phase 17: pooled embeddings, card vs CPU, of the largest
 TILE_BATCH_MAX_DIFF = 1          # uint8 levels: cuDNN picks algorithms by batch size, so the same
                                  # codes decoded one by one and as a batch of 6 round differently
 
@@ -2574,8 +2593,8 @@ def web15(torch, np, tmp: Path, img, smi: str, engine, cliMcq: bytes, cliRestore
     if (textK3 != textGeometry["depth"] * levels or not finite
             or tuple(textRestored.shape) != (len(GEN_CLASSES), 3, 256, 256)):
         raise AssertionError(f"text-conditioned generation: K3 {textK3}, finite {finite}")
-    trace["text"] = {"K3": textK3}
-    del textModel, state
+    trace["text"] = {"K3": textK3, "state": state}        # phase 17 samples from it again
+    del textModel
     torch.cuda.empty_cache()
 
     # (c) the card's step, then the CPU's
@@ -2652,6 +2671,128 @@ class ReplicaLaunches:
         for hook in self.hooks:
             hook.remove()
         return False
+
+
+def captions17(torch, np, tmp: Path, smi: str, textState: dict) -> dict:
+    """Phase 17: (a) a seeded caption encoder (`utils/textEncoder.py`) at
+    openai/clip-vit-base-patch32's text geometry over a byte-level
+    vocabulary the phase writes encodes CAPTIONS on the card: K3 once per layer,
+    each call held to its plain version on its q/k/v, the pooled [8, 512]
+    held to the CPU plain path (CAPTION_RTOL); (b) phase 15's seeded
+    text-conditioned generator samples greedily from those embeddings (K3
+    72), its depth-2 cut held to the CPU's; (c) K3 at the encoder's shape
+    (B 8, H 8, T 77, D 64, causal) timed beside its plain version and SDPA
+    with `is_causal`."""
+    import mcquic_tpu_torch.models.clipText as clipText
+    from mcquic_tpu_torch.generate import GEN_STAGE2_NEON_A
+    from mcquic_tpu_torch.models.generator import GeneratorV3SelfAttention
+    from mcquic_tpu_torch.ops.attention import flashAttentionPlain
+    from mcquic_tpu_torch.ops.attention_cuda import flashAttention
+    from mcquic_tpu_torch.utils import exactFp32
+    from mcquic_tpu_torch.utils.textEncoder import ClipTextEncoder, writeSeededClipText
+    seconds, trace = {}, {}
+
+    # (a) the encoder on the card against the CPU
+    start = time.perf_counter()
+    folder = writeSeededClipText(tmp / "clip", dict(eos_token_id=2), seed=17)
+    encoder = ClipTextEncoder(str(folder), device="cuda")
+    layers = encoder._model.config["num_hidden_layers"]
+    ids, mask = encoder.tokenize(CAPTIONS)
+    truncated = int(mask.sum(1).max())
+    encoder(CAPTIONS)                                                        # warm-up
+    calls, original = [], clipText.flashAttention
+
+    def captured(q, k, v, causal, scale):
+        calls.append((q.clone(), k.clone(), v.clone(), causal, scale))
+        return original(q, k, v, causal, scale)
+    flashAttention.launches = 0
+    clipText.flashAttention = captured
+    try:
+        pooled = encoder(CAPTIONS)
+    finally:
+        clipText.flashAttention = original
+    launches = flashAttention.launches
+    with exactFp32(), torch.inference_mode():
+        worst = max(k3Check(torch, flashAttention, flashAttentionPlain, *call) for call in calls)
+    cpu = ClipTextEncoder(str(folder), device="cpu")(CAPTIONS)
+    gap = float(np.abs(pooled - cpu).max() / np.abs(cpu).max())
+    seconds["a"] = time.perf_counter() - start
+    print(f"  (a) seeded caption encoder at openai/clip-vit-base-patch32's text geometry "
+          f"({encoder._model.config}): {len(CAPTIONS)} captions, {truncated} tokens at the longest "
+          f"(truncated at 77: {truncated == 77}), K3 launches per encode {launches}, each within "
+          f"{worst:.2e} of its plain version (tolerance {K3_ATOL:g}); pooled {pooled.shape} against "
+          f"the CPU plain path: max gap {gap:.2e} of the largest (tolerance {CAPTION_RTOL:g}); "
+          f"{seconds['a']:.2f} s ({smi})", flush=True)
+    if (launches != layers or len(calls) != layers or truncated != 77
+            or pooled.shape != (len(CAPTIONS), 512) or not np.isfinite(pooled).all()
+            or not gap <= CAPTION_RTOL):
+        raise AssertionError(f"the caption encoder: K3 {launches}, gap {gap}")
+    trace["encoder"] = {"K3": launches, "gap": gap}
+    q, k, v, causal, scale = calls[0]
+    del encoder, calls
+
+    # (b) the text-conditioned generator on the encoder's embeddings
+    start = time.perf_counter()
+    textGeometry = dict(GEN_STAGE2_NEON_A, textConditioned=True, capDim=512)
+    with torch.device("cuda"):
+        textModel = GeneratorV3SelfAttention(**textGeometry)
+    textModel.load_state_dict(textState)
+    textModel.eval().requires_grad_(False)
+    embeddings = torch.from_numpy(pooled).cuda()
+    levels = len(textGeometry["size"])
+    with exactFp32(), torch.inference_mode():
+        textModel.generate(embeddings)                                       # warm-up
+        flashAttention.launches = 0
+        _, restored = textModel.generate(embeddings)
+        generateK3 = flashAttention.launches
+    finite = bool(torch.isfinite(restored).all())
+    agree = generatorVsCpu(torch, textState, textGeometry, embeddings, levels)
+    seconds["b"] = time.perf_counter() - start
+    print(f"  (b) phase 15's text-conditioned generator sampling greedily from the {len(CAPTIONS)} "
+          f"encoded captions: K3 launches {generateK3}, restored {tuple(restored.shape)} finite "
+          f"{finite}, depth-{GEN_CPU_DEPTH} codes card vs CPU agree on {agree:.4%}; "
+          f"{seconds['b']:.2f} s", flush=True)
+    if (generateK3 != textGeometry["depth"] * levels or not finite
+            or tuple(restored.shape) != (len(CAPTIONS), 3, 256, 256)):
+        raise AssertionError(f"generation from captions: K3 {generateK3}, finite {finite}")
+    trace["generate"] = {"K3": generateK3}
+    del textModel, restored
+    torch.cuda.empty_cache()
+
+    # (c) K3 at the encoder's shape against its plain version and SDPA
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
+    cycles = sleepCyclesPerMs(torch)
+    with exactFp32(), torch.inference_mode():
+        B, T, H, D = q.shape
+        pairs = T * (T + 1) // 2                          # the causal mask's attended pairs
+        flops = 4.0 * B * H * pairs * D
+        nbytes = 4.0 * 4 * q.numel() + causal.numel()
+        row = {"shape": [B, H, T, T, D],
+               "ms": medianMs(torch, lambda: flashAttention(q, k, v, causal, scale)),
+               "plain_ms": medianMs(torch, lambda: flashAttentionPlain(q, k, v, causal, scale)),
+               "library_ms": medianMs(torch, lambda: sdpa(qh, kh, vh, is_causal=True, scale=scale)),
+               "device_ms": deviceMs(torch, lambda: flashAttention(q, k, v, causal, scale),
+                                     cycles)[0],
+               "plain_device_ms": deviceMs(torch, lambda: flashAttentionPlain(
+                   q, k, v, causal, scale), cycles)[0],
+               "library_device_ms": deviceMs(torch, lambda: sdpa(qh, kh, vh, is_causal=True,
+                                                                 scale=scale), cycles)[0]}
+        row["bound_ms"], row["bound_by"] = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+        row["bound_fp32_ms"] = bound(flops, nbytes)[0]
+        sdpaErr = (sdpa(qh, kh, vh, is_causal=True, scale=scale).permute(0, 2, 1, 3)
+                   - flashAttention(q, k, v, causal, scale)).abs().max().item()
+    print(f"  (c) K3 at the caption encoder's shape (B {B}, H {H}, T {T}, D {D}, causal): "
+          f"{row['ms']:.4f} ms, device {row['device_ms']:.4f} ms; plain {row['plain_ms']:.4f}, "
+          f"device {row['plain_device_ms']:.4f}; SDPA (is_causal) {row['library_ms']:.4f}, device "
+          f"{row['library_device_ms']:.4f} (max gap to K3 {sdpaErr:.2e}); bound "
+          f"{row['bound_ms']:.5f} ms 3xTF32 ({row['bound_by']}; {pairs} of {T * T} pairs), "
+          f"{row['bound_fp32_ms']:.5f} fp32 ({smi})", flush=True)
+    if not sdpaErr <= K3_ATOL:
+        raise AssertionError(f"K3 and SDPA differ by {sdpaErr} at the caption encoder's shape")
+    trace["k3"] = row
+    trace["seconds"] = seconds
+    return trace
 
 
 def wallMs(torch, fn, iters: int = 3) -> float:
@@ -3780,6 +3921,9 @@ def main() -> int:
                                  photoCliRestored, progressiveMcq)
             with Phase("16 serving over a device list"):
                 servingTrace = devices16(torch, np, img, smi, engine)
+            with Phase("17 captions"):
+                (tmp / "p17").mkdir()
+                captionTrace = captions17(torch, np, tmp / "p17", smi, webTrace["text"].pop("state"))
         finally:
             with Phase("13 GeneratorVAR, its generate CLI"):
                 finishVarCli(varTrace["cli"])
@@ -3843,9 +3987,21 @@ def main() -> int:
          "var_bound_ms": varTrace["k3"]["bound_ms"], "var_bound_by": varTrace["k3"]["bound_by"],
          "var_bound_fp32_ms": varTrace["k3"]["bound_fp32_ms"],
          "var_library_ms": varTrace["k3"]["library_ms"],
-         "var_library_device_ms": varTrace["k3"]["library_device_ms"]},
+         "var_library_device_ms": varTrace["k3"]["library_device_ms"],
+         "caption_encoder_launches_per_encode": captionTrace["encoder"]["K3"],
+         "caption_generate_launches": captionTrace["generate"]["K3"],
+         "caption_shape_b_h_tq_tk_d": captionTrace["k3"]["shape"],
+         "caption_ms": captionTrace["k3"]["ms"],
+         "caption_device_ms": captionTrace["k3"]["device_ms"],
+         "caption_plain_ms": captionTrace["k3"]["plain_ms"],
+         "caption_plain_device_ms": captionTrace["k3"]["plain_device_ms"],
+         "caption_bound_ms": captionTrace["k3"]["bound_ms"],
+         "caption_bound_by": captionTrace["k3"]["bound_by"],
+         "caption_bound_fp32_ms": captionTrace["k3"]["bound_fp32_ms"],
+         "caption_library_ms": captionTrace["k3"]["library_ms"],
+         "caption_library_device_ms": captionTrace["k3"]["library_device_ms"]},
     ]
-    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - started:.1f} s", flush=True)
+    print(f"chip_smoke: phases 1-17 in {time.perf_counter() - started:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

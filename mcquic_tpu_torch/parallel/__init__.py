@@ -28,8 +28,12 @@ sharded axis by the JAX package's rule, from its shape and the world size
 alone, so every rank agrees on it without a word; the optimizer keeps its
 moments for its rank's slice only, updates that slice of the parameter and
 all-gathers the slices (`allGather_`, `train/optim.py`). The gradients are
-still all-reduced whole. The tensor-parallel specs (`generatorShardings`)
-are not ported: both JAX trainers build their mesh at `modelParallel=1`.
+still all-reduced whole.
+
+`generatorShardings` gives the Megatron-style tensor-parallel placement of
+each generator parameter, as the JAX package's does for its 'model' mesh
+axis. Nothing on the main path calls it: both JAX trainers build their mesh
+at `modelParallel=1`.
 """
 import logging
 import os
@@ -44,7 +48,8 @@ VARIABLES = ("MCQUIC_COORDINATOR", "MCQUIC_NUM_PROCESSES", "MCQUIC_PROCESS_ID")
 
 __all__ = ["VARIABLES", "initDistributed", "destroy", "initialized", "rank", "world", "isMain",
            "localDevice", "barrier", "allReduceSum_", "allReduceMean_", "anyRank",
-           "broadcastObject", "shardedRows", "zeroSpec", "shardOf", "allGather_"]
+           "broadcastObject", "shardedRows", "zeroSpec", "shardOf", "allGather_",
+           "generatorShardings"]
 
 
 def initDistributed(device="cuda", backend=None) -> bool:
@@ -225,3 +230,37 @@ def allGather_(tensors: Sequence[torch.Tensor], axes: Sequence[Optional[int]]):
                 if r != rank():
                     shard.copy_(part[offset:offset + shard.numel()].view(shard.shape))
                 offset += shard.numel()
+
+
+# Column-parallel (output dim sharded) / row-parallel (input dim sharded)
+# projection names in the generators' transformers
+# (`mcquic_tpu/parallel/__init__.py:76-80`).
+_COL_PARALLEL = {"wq", "wk", "wv", "wkY", "wvY", "w1", "w3", "qkv", "fc1"}
+_ROW_PARALLEL = {"wo", "w2", "proj", "fc2"}
+
+
+def generatorShardings(model: torch.nn.Module, tpSize: int):
+    """{parameter name: `Shard(0)`, `Shard(1)` or `Replicate()`} for a
+    generator (`GeneratorV3SelfAttention` and its variants, `GeneratorVAR`)
+    at tensor-parallel size `tpSize` (counterpart of
+    `mcquic_tpu/parallel/__init__.py:83 generatorShardings`).
+
+    Attention q/k/v and the FFN up-projections are column-parallel, the
+    output projections row-parallel, everything else (biases, norms,
+    embeddings, the frozen compressor) replicated; a projection whose
+    sharded dim `tpSize` does not divide stays replicated, and so does
+    everything at `tpSize` 1. `nn.Linear.weight` is [out, in], so
+    column-parallel is `Shard(0)` and row-parallel `Shard(1)` (the JAX
+    package's flax kernels are [in, out])."""
+    from torch.distributed.tensor import Replicate, Shard
+    placements = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        placement = Replicate()
+        if tpSize > 1 and len(parts) >= 2 and parts[-1] == "weight" and p.dim() == 2:
+            if parts[-2] in _COL_PARALLEL and p.shape[0] % tpSize == 0:
+                placement = Shard(0)
+            elif parts[-2] in _ROW_PARALLEL and p.shape[1] % tpSize == 0:
+                placement = Shard(1)
+        placements[name] = placement
+    return placements

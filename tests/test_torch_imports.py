@@ -15,7 +15,9 @@ the JPEGs; and the train CLI as two data-parallel processes under
 MCQUIC_COORDINATOR, MCQUIC_NUM_PROCESSES and MCQUIC_PROCESS_ID (gloo on the
 CPU), each reading its own tar shard, one export between them; and the web
 demo's handler and the image decoders (progressive JPEG, BMP, 16-bit PNG)
-through `handleUpload` and the codec CLI.
+through `handleUpload` and the codec CLI; and the caption encoder
+(`utils/textEncoder.py`) on a seeded folder, with the tokenizer and model
+libraries the JAX package's encoder loads blocked too.
 """
 import ast
 import subprocess
@@ -31,7 +33,8 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "mcquic_tpu_torch"
 TINY = ROOT / "assets" / "tiny_demo_672919fb.mcquic.npz"
 BLOCKED = ["jax", "jaxlib", "flax", "optax", "msgpack", "PIL", "ml_dtypes", "yaml", "click",
-           "joblib", "triton", "streamlit", "mcquic_tpu"]
+           "joblib", "triton", "streamlit", "transformers", "tokenizers", "safetensors",
+           "huggingface_hub", "regex", "ftfy", "mcquic_tpu"]
 
 GUARD = textwrap.dedent('''
     import importlib, pkgutil, runpy, sys
@@ -255,6 +258,42 @@ def test_service_and_decoders_run_without_the_jax_package_and_its_dependencies(t
     assert "round trip ok" in proc.stdout and "handler ok" in proc.stdout
     for name in names:
         assert (tmp_path / (name + ".mcq")).stat().st_size > 0, name
+
+
+def test_caption_encoder_runs_without_the_jax_package_and_its_dependencies(tmp_path):
+    """In the guarded process: a seeded CLIP text folder (2 layers, width 64)
+    written by `writeSeededClipText`, encoded on the CPU, then loaded through
+    a hub name in a cache laid out as the hub client writes it."""
+    extra = textwrap.dedent(f"""
+        import os
+        from pathlib import Path
+        from mcquic_tpu_torch.utils.textEncoder import (ClipTextEncoder, tryLoadTextEncoder,
+                                                        writeSeededClipText)
+        config = dict(hidden_size=64, intermediate_size=256, num_hidden_layers=2,
+                      num_attention_heads=4)
+        folder = writeSeededClipText(Path({str(tmp_path)!r}) / "clip", config)
+        captions = ["a photo of a cat", "Two dogs, one ball!", " ".join(["long"] * 100)]
+        pooled = ClipTextEncoder(str(folder), device="cpu")(captions)
+        assert pooled.shape == (3, 64) and pooled.dtype.name == "float32", pooled.shape
+        assert abs(pooled).max() > 0 and (pooled == pooled).all()
+        snapshot = Path({str(tmp_path)!r}) / "hub" / "models--acme--clip" / "snapshots" / "c0ffee"
+        snapshot.parent.mkdir(parents=True)
+        folder.rename(snapshot)
+        (snapshot.parent.parent / "refs").mkdir()
+        (snapshot.parent.parent / "refs" / "main").write_text("c0ffee")
+        os.environ["HF_HUB_CACHE"] = str(snapshot.parent.parent.parent)
+        again = ClipTextEncoder("acme/clip", device="cpu")(captions)
+        assert (again == pooled).all()
+        assert tryLoadTextEncoder("acme/missing", device="cpu") is None
+        leaked = sorted(n for n in sys.modules if blocked(n))
+        assert not leaked, leaked
+        print("captions ok", flush=True)
+    """)
+    script = GUARD.format(blocked=BLOCKED, root=str(ROOT), runs=[]) + extra
+    proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "captions ok" in proc.stdout
 
 
 def _portFiles():

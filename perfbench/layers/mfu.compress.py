@@ -1,0 +1,6 @@
+"""The whole compress half's share of the card's peak."""
+from perfbench import readers
+
+
+def read(run):
+    return readers.mfu(run, "compress")

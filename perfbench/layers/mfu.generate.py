@@ -1,0 +1,6 @@
+"""The whole generation window's share of the card's peak."""
+from perfbench import readers
+
+
+def read(run):
+    return readers.mfu(run, "generate")

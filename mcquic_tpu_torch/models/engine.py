@@ -33,6 +33,14 @@ encoded or decoded and downloaded on its replica, all of them launched
 before any is waited for, and the codes or images are gathered in order.
 Any other batch runs whole on the first replica, which gives the one-device
 result, as the JAX engine's replicated placement does.
+
+While `torch.profiler` records, each batch leaves spans (`utils/tracing.py`):
+`engine.encodeDispatch` / `engine.decodeDispatch` around the host's part of
+the device work (pad, upload, enqueue, start the download), and
+`engine.ransEncode` / `engine.ransDecode` around the host rANS, each with
+the batch's `images` and the `bytes` uploaded or of the streams. A batch's
+rANS span is linked to its dispatch (the encode's cause, the decode's
+effect) and shares its batch id, also from `compressMany`'s worker thread.
 """
 import contextlib
 import copy
@@ -47,7 +55,7 @@ from mcquic_tpu_torch.coding import RansCoder
 from mcquic_tpu_torch.container import File, FileHeader, ImageSize
 from mcquic_tpu_torch.data.transforms import alignedPadding, centerCropTo
 from mcquic_tpu_torch.models.compressor import Compressor, Neon
-from mcquic_tpu_torch.utils import exactFp32, resolveDevice
+from mcquic_tpu_torch.utils import exactFp32, resolveDevice, tracing
 
 
 ALIGN = 128          # pad to multiples of 128, as the reference does (transforms.py:81-99)
@@ -59,13 +67,18 @@ def _toU16Bits(codes: torch.Tensor) -> torch.Tensor:
     return torch.where(codes >= 32768, codes - 65536, codes).to(torch.int16)
 
 
+def _streamBytes(binaries: List[List[bytes]]) -> int:
+    return sum(len(b) for image in binaries for b in image)
+
+
 class _InFlight(NamedTuple):
     """Device results on their way to the host, one per replica that took a
-    part of the batch: the host tensors they land in, and the events
-    recorded after their copies (None on the CPU). `wait` gathers them in
-    order along the rows."""
+    part of the batch: the host tensors they land in, the events recorded
+    after their copies (None on the CPU), and the dispatch's span (None
+    unless a profiler records). `wait` gathers them in order along the rows."""
     hosts: List[torch.Tensor]
     events: List[Optional[torch.cuda.Event]]
+    span: Optional[tracing.Span] = None
 
     def wait(self) -> np.ndarray:
         for event in self.events:
@@ -189,21 +202,25 @@ class CompressorEngine:
         x = np.asarray(x)
         if x.ndim != 4:
             raise ValueError(f"encode takes [n, h, w, c] images, got {x.shape}")
-        x = alignedPadding(x if x.dtype == np.uint8 else x.astype(np.float32, copy=False), ALIGN)
-        hosts, events = [], []
-        for i, rows in self._parts(x.shape[0]):
-            model, device = self._replicas[i], self._devices[i]
-            dtype = next(model.parameters()).dtype
-            with self._on(i), exactFp32(), torch.inference_mode():
-                xDev = self._upload(x[rows], device)
-                if xDev.dtype == torch.uint8:
-                    xDev = (xDev.float() / 255.0 - 0.5) * 2.0
-                codes = model.encode(xDev.to(dtype).permute(0, 3, 1, 2))
-                packed = torch.cat([_toU16Bits(c.reshape(c.shape[0], -1)) for c in codes], 1)
-                host, event = self._download(packed)
-            hosts.append(host)
-            events.append(event)
-        return _InFlight(hosts, events), [tuple(c.shape[1:]) for c in codes]
+        with tracing.span("engine.encodeDispatch", images=x.shape[0]) as record:
+            x = alignedPadding(x if x.dtype == np.uint8 else x.astype(np.float32, copy=False),
+                               ALIGN)
+            if record is not None:
+                record.counts["bytes"] = x.nbytes
+            hosts, events = [], []
+            for i, rows in self._parts(x.shape[0]):
+                model, device = self._replicas[i], self._devices[i]
+                dtype = next(model.parameters()).dtype
+                with self._on(i), exactFp32(), torch.inference_mode():
+                    xDev = self._upload(x[rows], device)
+                    if xDev.dtype == torch.uint8:
+                        xDev = (xDev.float() / 255.0 - 0.5) * 2.0
+                    codes = model.encode(xDev.to(dtype).permute(0, 3, 1, 2))
+                    packed = torch.cat([_toU16Bits(c.reshape(c.shape[0], -1)) for c in codes], 1)
+                    host, event = self._download(packed)
+                hosts.append(host)
+                events.append(event)
+        return _InFlight(hosts, events, record), [tuple(c.shape[1:]) for c in codes]
 
     @staticmethod
     def _splitCodes(packed: np.ndarray, shapes: Sequence[Tuple[int, ...]]) -> List[np.ndarray]:
@@ -224,53 +241,75 @@ class CompressorEngine:
         inFlight, shapes = self._encodeDispatch(x)
         return self._splitCodes(inFlight.wait(), shapes)
 
-    def _decodeDispatch(self, codes: Sequence[np.ndarray], toImage: bool) -> _InFlight:
+    def _decodeDispatch(self, codes: Sequence[np.ndarray], toImage: bool,
+                        parent: Optional[tracing.Span] = None) -> _InFlight:
         """Upload the packed codes, decode and start the download, on every
-        replica that takes a part."""
+        replica that takes a part. `parent`: the span of the rANS decode
+        that gave the codes."""
         n = codes[0].shape[0]
-        packed = np.concatenate([np.asarray(c).reshape(n, -1) for c in codes], 1)
-        packed = packed.astype(np.uint16).view(np.int16)
-        hosts, events = [], []
-        for i, rows in self._parts(n):
-            with self._on(i), exactFp32(), torch.inference_mode():
-                flat = self._upload(packed[rows], self._devices[i]).to(torch.int64) & 0xFFFF
-                levels, cur = [], 0
-                for c in codes:
-                    size = int(np.prod(c.shape[1:]))
-                    levels.append(flat[:, cur:cur + size].reshape(-1, *c.shape[1:]))
-                    cur += size
-                y = self._replicas[i].decode(levels)
-                if toImage:
-                    y = torch.clamp(torch.round((y * 0.5 + 0.5) * 255.0), 0, 255).to(torch.uint8)
-                host, event = self._download(y.permute(0, 2, 3, 1).contiguous())
-            hosts.append(host)
-            events.append(event)
-        return _InFlight(hosts, events)
+        with tracing.span("engine.decodeDispatch", parent, images=n) as record:
+            packed = np.concatenate([np.asarray(c).reshape(n, -1) for c in codes], 1)
+            packed = packed.astype(np.uint16).view(np.int16)
+            if record is not None:
+                record.counts["bytes"] = packed.nbytes
+            hosts, events = [], []
+            for i, rows in self._parts(n):
+                with self._on(i), exactFp32(), torch.inference_mode():
+                    flat = self._upload(packed[rows], self._devices[i]).to(torch.int64) & 0xFFFF
+                    levels, cur = [], 0
+                    for c in codes:
+                        size = int(np.prod(c.shape[1:]))
+                        levels.append(flat[:, cur:cur + size].reshape(-1, *c.shape[1:]))
+                        cur += size
+                    y = self._replicas[i].decode(levels)
+                    if toImage:
+                        y = torch.clamp(torch.round((y * 0.5 + 0.5) * 255.0), 0, 255).to(
+                            torch.uint8)
+                    host, event = self._download(y.permute(0, 2, 3, 1).contiguous())
+                hosts.append(host)
+                events.append(event)
+        return _InFlight(hosts, events, record)
 
     def decode(self, codes: Sequence[np.ndarray], toImage: bool = False) -> np.ndarray:
         """codes per level [n, m, h, w] -> restored NHWC, still padded: float
         in [-1, 1], or uint8 when toImage."""
         return self._decodeDispatch(codes, toImage).wait()
 
-    def _entropyCode(self, codes: List[np.ndarray], shape) -> Tuple[List[List[bytes]], List[FileHeader]]:
+    def _entropyCode(self, codes: List[np.ndarray], shape, parent: Optional[tracing.Span] = None
+                     ) -> Tuple[List[List[bytes]], List[FileHeader]]:
+        """rANS-encode a batch's codes; `parent`: the span of its dispatch."""
         n, h, w, c = shape
-        binaries, codeSizes = self._coder.compress(codes)
-        headers = [FileHeader(mcquic_tpu_torch.__version__, self._qp, cs, ImageSize(h, w, c))
-                   for cs in codeSizes]
+        with tracing.span("engine.ransEncode", parent, images=n) as record:
+            binaries, codeSizes = self._coder.compress(codes)
+            if record is not None:
+                record.counts["bytes"] = _streamBytes(binaries)
+            headers = [FileHeader(mcquic_tpu_torch.__version__, self._qp, cs, ImageSize(h, w, c))
+                       for cs in codeSizes]
         return binaries, headers
+
+    def _ransDecode(self, binaries: List[List[bytes]], headers: List[FileHeader]
+                    ) -> Tuple[List[np.ndarray], Optional[tracing.Span]]:
+        """rANS-decode a batch's streams -> (codes per level, the span)."""
+        with tracing.span("engine.ransDecode", images=len(binaries)) as record:
+            if record is not None:
+                record.counts["bytes"] = _streamBytes(binaries)
+            codes = self._coder.decompress(binaries, [h.CodeSize for h in headers])
+        return codes, record
 
     def compress(self, x: np.ndarray) -> Tuple[List[np.ndarray], List[List[bytes]], List[FileHeader]]:
         """NHWC images (uint8, or float in [-1, 1]) -> (codes,
         binaries[n][level], headers[n])."""
-        codes = self.encode(x)
-        return (codes, *self._entropyCode(codes, np.shape(x)))
+        inFlight, shapes = self._encodeDispatch(x)
+        codes = self._splitCodes(inFlight.wait(), shapes)
+        return (codes, *self._entropyCode(codes, np.shape(x), inFlight.span))
 
     def decompress(self, binaries: List[List[bytes]], headers: List[FileHeader],
                    toImage: bool = False) -> np.ndarray:
         """Entropy-decode, decode, center-crop to the recorded size."""
-        codes = self._coder.decompress(binaries, [h.CodeSize for h in headers])
+        codes, record = self._ransDecode(binaries, headers)
         ims = headers[0].ImageSize
-        return centerCropTo(self.decode(codes, toImage), ims.height, ims.width)
+        return centerCropTo(self._decodeDispatch(codes, toImage, record).wait(),
+                            ims.height, ims.width)
 
     # ------------------------------------------------------------- pipelined
     def compressMany(self, batches: Iterable[np.ndarray]
@@ -294,7 +333,7 @@ class CompressorEngine:
     def _submitRans(self, worker, encoded, shape):
         inFlight, levelShapes = encoded
         return worker.submit(self._entropyCode, self._splitCodes(inFlight.wait(), levelShapes),
-                             shape)
+                             shape, inFlight.span)
 
     def decompressMany(self, items: Iterable[Tuple[List[List[bytes]], List[FileHeader]]]
                        ) -> List[np.ndarray]:
@@ -304,8 +343,8 @@ class CompressorEngine:
         restored float NHWC batches, cropped to their recorded sizes."""
         results, pending = [], None
         for binaries, headers in items:
-            codes = self._coder.decompress(binaries, [h.CodeSize for h in headers])
-            inFlight = self._decodeDispatch(codes, toImage=False)
+            codes, record = self._ransDecode(binaries, headers)
+            inFlight = self._decodeDispatch(codes, False, record)
             if pending is not None:
                 results.append(self._cropped(*pending))
             pending = (inFlight, headers)

@@ -46,6 +46,7 @@ from mcquic_tpu_torch.nn.convs import conv3x3, pixelShuffle3x3
 from mcquic_tpu_torch.ops.attention import flashAttentionPlain
 from mcquic_tpu_torch.ops.attention_cuda import flashAttention
 from mcquic_tpu_torch.ops.vq import vqDequantizeCodes
+from mcquic_tpu_torch.utils import tracing
 from mcquic_tpu_torch.utils.registry import GeneratorRegistry
 
 IMAGENET_CLASSES = 1000
@@ -412,7 +413,17 @@ class GeneratorV3SelfAttention(nn.Module):
         are handed the same noise. `kvCache=True` runs each level's tokens
         only, with the keys and values of earlier levels cached;
         `kvCache=False` reruns the whole prefix under the block-causal mask
-        (the equivalence oracle)."""
+        (the equivalence oracle).
+
+        While `torch.profiler` records, each call leaves one span,
+        `generator.sampleCodes` (`utils/tracing.py`), with the batch's
+        `images` and `tokens` (its images times the tokens of one): it ends
+        when the loop is enqueued, with no synchronize."""
+        with tracing.span("generator.sampleCodes", images=condition.shape[0],
+                          tokens=condition.shape[0] * sum(self.lengths)):
+            return self._sampleCodes(condition, generator, temperature, topK, kvCache, gumbel)
+
+    def _sampleCodes(self, condition, generator, temperature, topK, kvCache, gumbel):
         bs = condition.shape[0]
         capPooled = self._condEmbed(condition)
         hd = self.hiddenSize // self.nHeads

@@ -18,21 +18,32 @@ seeded qp-12 (channel 192, m 12, k [8192, 2048, 512]) and past-budget
 (channel 128, m 2, k [16384, 2048, 512]) geometries, then profiles one
 compress and one decompress of that batch. For each profiled call it reports:
   * wall ms (host clock around a call that ends in synchronize; median),
-  * device busy ms: the sum of CUDA kernel and copy time that
-    torch.profiler records over one call, and the idle share
+  * device busy ms: the time in which any CUDA kernel, copy or fill ran
+    over one call under torch.profiler (the union of their intervals, so
+    work on two streams at once counts once), and the idle share
     1 - busy / wall,
-  * the kernels that take the most device time.
+  * the kernels that take the most device time,
+  * the port's spans (`utils/tracing.py`) the call left, by name: how many,
+    their total ms, how many ran on another thread than the call's, and
+    their summed `images`, `bytes` and `tokens` with each one's rate over
+    the spans' time (images/s, MB/s: for `engine.ransEncode` the rANS
+    coder's throughput); then the call's batches, each from its first
+    span's start to its last span's end, across threads.
 Needs a CUDA card; it prints the card's name and power limit first.
 """
 import argparse
 import statistics
 import subprocess
+import threading
 import time
 from pathlib import Path
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
+
+from mcquic_tpu_torch.utils import tracing
 
 
 PHOTO = Path(__file__).resolve().parent.parent.parent / "assets" / "photo_768x512.png"
@@ -49,23 +60,77 @@ def _wallMs(fn, iters: int) -> float:
     return statistics.median(times)
 
 
+def unionLength(intervals: Sequence[Tuple[float, float]]) -> float:
+    """The length of the union of (start, end) intervals."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
+
+
+class SpanSummary(NamedTuple):
+    count: int
+    ms: float                   # summed over the spans
+    counts: Dict[str, int]      # each count summed over the spans
+    elsewhere: int              # spans on another thread than the caller's
+
+
+def spanTable(spans: Sequence[tracing.Span], caller: int
+              ) -> Tuple[Dict[str, SpanSummary], List[float]]:
+    """The spans summed by name, and the ms of each batch they belong to,
+    from its first span's start to its last span's end. `caller`: the OS id
+    of the thread that made the call."""
+    table: Dict[str, SpanSummary] = {}
+    batches: Dict[int, Tuple[int, int]] = {}
+    for s in spans:
+        count, ms, counts, elsewhere = table.get(s.name, (0, 0.0, {}, 0))
+        counts = {k: counts.get(k, 0) + s.counts.get(k, 0) for k in {*counts, *s.counts}}
+        table[s.name] = SpanSummary(count + 1, ms + (s.end - s.start) / 1e6, counts,
+                                    elsewhere + (s.thread != caller))
+        first, last = batches.get(s.batch, (s.start, s.end))
+        batches[s.batch] = (min(first, s.start), max(last, s.end))
+    return table, [(last - first) / 1e6 for first, last in batches.values()]
+
+
+def _rate(key: str, total: int, ms: float) -> str:
+    """A count summed over spans, and its rate over their time."""
+    rate = f"{total / 1e3 / ms:.1f} MB/s" if key == "bytes" else f"{total * 1e3 / ms:.1f}/s"
+    return f"{key} {total} ({rate})" if ms > 0 else f"{key} {total}"
+
+
 def report(name: str, fn, iters: int, top: int):
-    """Prints the call's wall ms, device busy ms, idle share and top kernels;
-    returns (wall ms, busy ms, idle share)."""
+    """Prints the call's wall ms, device busy ms, idle share, top kernels and
+    spans; returns (wall ms, busy ms, idle share)."""
     wall = _wallMs(fn, iters)
+    since = time.time_ns()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    byName = {}
+    byName, intervals = {}, []
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:            # kernels and copies on the card
+        # kernels, copies and fills on the card: not the device-side copies of
+        # annotations (`Optimizer.step`'s), nor the runtime's calls or waits
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation \
+                and not e.name.startswith("cuda") and "Sync" not in e.name:
             total, count = byName.get(e.name, (0.0, 0))
             byName[e.name] = (total + e.time_range.elapsed_us() / 1e3, count + 1)
-    busy = sum(total for total, _ in byName.values())
+            intervals.append((e.time_range.start, e.time_range.end))
+    busy = unionLength(intervals) / 1e3
     print(f"{name}: wall {wall:.3f} ms (median of {iters}), device busy {busy:.3f} ms, "
           f"idle share {1 - busy / wall:.3f}")
     for kernel, (total, count) in sorted(byName.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"  {total:9.3f} ms  {count:5d}x  {kernel[:110]}")
+    table, batches = spanTable([s for s in tracing.spans() if s.start >= since],
+                               threading.get_native_id())
+    for span, summary in sorted(table.items(), key=lambda kv: -kv[1].ms):
+        where = f", {summary.elsewhere} on another thread" if summary.elsewhere else ""
+        counts = "; ".join(_rate(k, v, summary.ms) for k, v in sorted(summary.counts.items()))
+        print(f"  span {span}: {summary.count}x, {summary.ms:.3f} ms{where}; {counts}")
+    if batches:
+        print(f"  spans' batches: {len(batches)}, first start to last end "
+              f"{statistics.mean(batches):.3f} ms each")
     return wall, busy, 1 - busy / wall
 
 

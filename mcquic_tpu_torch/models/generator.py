@@ -20,7 +20,11 @@ read; the caption encoder itself (CLIP) runs outside the model.
 Self-attention in sampling goes through `ops/attention_cuda.py::flashAttention`:
 kernel K3 on CUDA, its plain version on the CPU. The KV-cached branch calls
 it without a mask over the cached prefix, the other branch with the
-block-causal mask. K3 has no backward (nor has the JAX package's Pallas
+block-causal mask. KV-cached sampling on a CUDA device with autograd off
+runs each level's transformer pass from a CUDA graph (`LevelGraphs`): the
+first such call for a batch size runs eagerly, the second captures one graph
+per level, later calls replay them; the sampling between the passes stays
+eager. K3 has no backward (nor has the JAX package's Pallas
 kernel: it trains on einsums, `generator.py:119-128`), so the training pass
 hands `ops/attention.py::flashAttentionPlain` down explicitly (`attend`).
 With `remat`, each block of the training pass runs under
@@ -33,6 +37,7 @@ KV-cached path rounds scaffold tokens to fp32, whatever the model's dtype.
 Every LayerNorm has flax's epsilon, 1e-6.
 """
 import math
+from collections import OrderedDict
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 from mcquic_tpu_torch.models.compressor import Neon
 from mcquic_tpu_torch.nn.convs import conv3x3, pixelShuffle3x3
 from mcquic_tpu_torch.ops.attention import flashAttentionPlain
+from mcquic_tpu_torch.ops import attention_cuda
 from mcquic_tpu_torch.ops.attention_cuda import flashAttention
 from mcquic_tpu_torch.ops.vq import vqDequantizeCodes
 from mcquic_tpu_torch.utils import tracing
@@ -236,6 +242,106 @@ def topKFilter(logits: torch.Tensor, topK: int) -> torch.Tensor:
     return torch.where(logits < kth, torch.full_like(logits, -1e9), logits)
 
 
+def graphsEngage(device: torch.device, kvCache: bool) -> bool:
+    """Whether a sampling call runs its levels from CUDA graphs: KV-cached,
+    on a CUDA device, with autograd recording nothing."""
+    return kvCache and device.type == "cuda" and not torch.is_grad_enabled()
+
+
+class LevelGraphs:
+    """The KV-cached loop's buffers and graphs for one batch size, device,
+    dtype and set of TF32 flags.
+
+    The caches, the condition, each level's input tokens and (once
+    captured) its logits live in fixed buffers; a call copies its inputs in.
+    The caches are never zeroed again: a level reads only the prefix its
+    call has written. The first call runs every level eagerly (warming
+    cuBLAS and K3's plans), the second captures each level's transformer
+    pass, every block, the final norm and the logits, into a graph of its
+    own, every graph in the first one's memory pool, and replays it; later
+    calls replay. A replay adds to `flashAttention.launches` the K3 launches
+    its capture made, which the capture itself does not count. Two calls
+    that share these buffers must not run at once (one model, one batch
+    size, two threads)."""
+
+    def __init__(self, model: "GeneratorV3SelfAttention", bs: int, device: torch.device):
+        hs, hd = model.hiddenSize, model.hiddenSize // model.nHeads
+        # plain tensors, so that calls under no_grad may write them as well
+        # as calls under inference_mode
+        with torch.inference_mode(False):
+            def buffer(*shape):
+                return torch.zeros(shape, dtype=model.dtype, device=device)
+            self.caches = [(buffer(bs, sum(model.lengths), model.nHeads, hd),
+                            buffer(bs, sum(model.lengths), model.nHeads, hd))
+                           for _ in range(model.depth)]
+            self.cap = buffer(bs, hs)
+            self.tokens = [buffer(bs, hw, hs) for hw in model.lengths]
+        levels = len(model.lengths)
+        self.logits: List[Optional[torch.Tensor]] = [None] * levels
+        self.graphs: list = [None] * levels
+        self.k3 = [0] * levels
+        self.warm = False
+        self.pool = None
+
+    def run(self, transformer: nn.Module, level: int, offset: int,
+            tokens: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+        """Level `level`'s fp32 logits from its tokens, and whether a graph
+        gave them."""
+        self.tokens[level].copy_(tokens)
+
+        def forward():
+            return transformer(self.tokens[level], None, self.cap, self.cap, self.caches, offset)
+        if not self.warm:
+            return forward(), False
+        if self.graphs[level] is None:
+            k3 = attention_cuda.flashAttention
+            before = k3.launches
+            self.graphs[level], self.logits[level] = self._capture(forward)
+            # the captured launches have not run: each replay counts them
+            self.k3[level], k3.launches = k3.launches - before, before
+        self.graphs[level].replay()
+        attention_cuda.flashAttention.launches += self.k3[level]
+        return self.logits[level], True
+
+    def _capture(self, forward: Callable[[], torch.Tensor]):
+        """(graph, its output): `forward` captured, nothing run."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
+            out = forward()
+        if self.pool is None:
+            self.pool = graph.pool()
+        return graph, out
+
+
+class LevelGraphCache:
+    """A generator's `LevelGraphs` by (batch size, device, dtype, TF32
+    flags), the last `KEPT` used, all for the transformer's parameters at
+    the storage they had at capture: when a parameter's storage moves
+    (`.to`, `load_state_dict(..., assign=True)`) every entry goes, so no
+    graph reads freed memory. A copy or a pickle of the model starts empty."""
+    KEPT = 4
+
+    def __init__(self):
+        self.weights: Tuple[int, ...] = ()
+        self.entries: "OrderedDict[tuple, LevelGraphs]" = OrderedDict()
+
+    def __reduce__(self):
+        return type(self), ()
+
+    def get(self, model: "GeneratorV3SelfAttention", bs: int, device: torch.device) -> LevelGraphs:
+        weights = tuple(p.data_ptr() for p in model.transformer.parameters())
+        if weights != self.weights:
+            self.entries.clear()
+            self.weights = weights
+        key = (bs, device, model.dtype, torch.backends.cuda.matmul.allow_tf32,
+               torch.backends.cudnn.allow_tf32)
+        entry = self.entries.pop(key, None) or LevelGraphs(model, bs, device)
+        self.entries[key] = entry
+        while len(self.entries) > self.KEPT:
+            self.entries.popitem(last=False)
+        return entry
+
+
 @GeneratorRegistry.register
 class GeneratorV3SelfAttention(nn.Module):
     """Class-conditional next-scale generator over a frozen Neon
@@ -289,6 +395,7 @@ class GeneratorV3SelfAttention(nn.Module):
         self.lengths = [s * s for s in sorted(self.size)]
         self.register_buffer("_mask", torch.from_numpy(blockCausalMask(self.lengths))
                              .to(torch.int8), persistent=False)
+        self._graphs = LevelGraphCache()
 
     @property
     def dtype(self) -> torch.dtype:
@@ -415,36 +522,53 @@ class GeneratorV3SelfAttention(nn.Module):
         `kvCache=False` reruns the whole prefix under the block-causal mask
         (the equivalence oracle).
 
+        KV-cached calls on a CUDA device with autograd off run each level's
+        transformer pass from a CUDA graph from their batch size's third
+        call on (`LevelGraphs`), with the same kernels in the same order.
+
         While `torch.profiler` records, each call leaves one span,
         `generator.sampleCodes` (`utils/tracing.py`), with the batch's
-        `images` and `tokens` (its images times the tokens of one): it ends
-        when the loop is enqueued, with no synchronize."""
+        `images` and `tokens` (its images times the tokens of one), the
+        `levels` it ran and how many of them were `replayed` from a graph:
+        it ends when the loop is enqueued, with no synchronize."""
         with tracing.span("generator.sampleCodes", images=condition.shape[0],
-                          tokens=condition.shape[0] * sum(self.lengths)):
-            return self._sampleCodes(condition, generator, temperature, topK, kvCache, gumbel)
+                          tokens=condition.shape[0] * sum(self.lengths)) as record:
+            codes, replayed = self._sampleCodes(condition, generator, temperature, topK, kvCache,
+                                                gumbel)
+            if record is not None:
+                record.counts.update(levels=len(self.lengths), replayed=replayed)
+            return codes
 
     def _sampleCodes(self, condition, generator, temperature, topK, kvCache, gumbel):
+        """(the codes, the number of levels replayed from a graph)."""
         bs = condition.shape[0]
         capPooled = self._condEmbed(condition)
         hd = self.hiddenSize // self.nHeads
         total = sum(self.lengths)
-        caches = None
-        if kvCache:
+        caches = graphs = None
+        if graphsEngage(capPooled.device, kvCache):
+            graphs = self._graphs.get(self, bs, capPooled.device)
+            graphs.cap.copy_(capPooled)
+        elif kvCache:
             caches = [tuple(torch.zeros((bs, total, self.nHeads, hd), dtype=self.dtype,
                                         device=capPooled.device) for _ in range(2))
                       for _ in range(self.depth)]
 
         predictions, scaffolds = [], []
         former = None
-        offset = 0
+        offset = replayed = 0
         for level, hw in enumerate(self.lengths):
             if kvCache:
                 if level == 0:
                     tok = self._firstLevelTokens(capPooled).expand(bs, hw, -1)
                 else:
                     tok = (self._tokens(former) + self.levelEmbed[level]).float()
-                levelLogits = self.transformer(tok.to(self.dtype), None, capPooled, capPooled,
-                                               caches, offset)
+                if graphs is None:
+                    levelLogits = self.transformer(tok.to(self.dtype), None, capPooled, capPooled,
+                                                   caches, offset)
+                else:
+                    levelLogits, fromGraph = graphs.run(self.transformer, level, offset, tok)
+                    replayed += fromGraph
             else:
                 seq = self._assembleSequence(scaffolds, capPooled, bs)
                 prefix = seq.shape[1]
@@ -469,7 +593,9 @@ class GeneratorV3SelfAttention(nn.Module):
             if level < len(self.lengths) - 1:
                 former = self.residual_forward(code, former, level)
                 scaffolds.append(former)
-        return predictions
+        if graphs is not None:
+            graphs.warm = True
+        return predictions, replayed
 
 
 @GeneratorRegistry.register

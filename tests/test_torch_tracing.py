@@ -114,7 +114,9 @@ def test_sample_codes_records_one_span_per_call(generator):
         generator.generate(condition)
     calls = named("generator.sampleCodes")
     assert len(calls) == len(tracing.spans()) == 3
-    assert all(s.counts == {"images": 3, "tokens": 3 * (4 + 1 + 1)} for s in calls)
+    # three levels, none replayed from a graph on the CPU
+    assert all(s.counts == {"images": 3, "tokens": 3 * (4 + 1 + 1), "levels": 3, "replayed": 0}
+               for s in calls)
     assert len({s.batch for s in calls}) == 3 and all(s.parent is None for s in calls)
 
 
